@@ -1,0 +1,363 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+Drives the port's main path on one NVIDIA card at the size of the paper's
+CAL road network (Table 1): 1,890,815 points, of which |F| = 1000 are
+facilities and the rest users, k = 10, batches of Q = 64 facility
+queries.  It builds every CUDA kernel from ``src/repro_torch/csrc``, holds
+each kernel against its plain PyTorch version on the card, drives
+``RkNNEngine`` (``query_batch``, ``stream``, ``query``, ``query_mono``)
+with the launch counters set to 0 just before and read just after, and
+checks the dense masks against the rank-count oracle at full size.
+
+    python3 chip_smoke.py [--seed 0]
+
+Lines of its standard output: one per phase, then a JSON object of the
+kernels' numbers, then the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Any failed phase raises, and the run
+exits non-zero without that last line; so does a run without a card, or
+one outside a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+N_POINTS = 1_890_815  # CAL, paper Table 1
+N_FACILITIES = 1_000  # the paper's default |F|
+K = 10
+Q = 64
+STREAM_BATCHES = 4
+MONO_POINTS = 20_000
+TIE_EPS = 1e-6  # the JAX package's near-tie rule (tests/test_kernels.py)
+RANK_CHECK_QUERIES = 8  # rank kernel against its plain version
+# H100 SXM peaks (NVIDIA data sheet; full 700 W power limit)
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_FLOP_S = 67e12
+
+
+def _log(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def _sync_ms(fn, reps: int, dev) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up:
+    CUDA events on the card, the host clock elsewhere."""
+    import torch
+
+    fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(stop) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _host_ms(fn, reps: int, dev) -> float:
+    """Mean wall milliseconds of ``fn()`` ending in a synchronize (for work
+    that blocks the host, such as a device-to-host copy)."""
+    import torch
+
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _tie_mask(users, facilities, q_row: int, chunk: int = 16_384):
+    """Users with a competitor facility (every row but ``q_row``) at a
+    near-tie distance to the query, in float64 on the users' device: the
+    strict-< verdict of such a user may flip at the last ulp, so exactness
+    is checked on the others.  The JAX tests' rule, minus the query's own
+    row, which is excluded from the count and always "ties"."""
+    import torch
+
+    q = facilities[q_row]
+    comp = torch.cat([facilities[:q_row], facilities[q_row + 1 :]])
+    out = []
+    for s in range(0, users.shape[0], chunk):
+        u = users[s : s + chunk]
+        d2q = ((u - q) ** 2).sum(1)
+        d2 = ((u[:, None, :] - comp[None, :, :]) ** 2).sum(-1)
+        out.append(((d2 - d2q[:, None]).abs() < TIE_EPS * (1.0 + d2q[:, None])).any(1))
+    return torch.cat(out)
+
+
+def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_points: int,
+        seed: int):
+    """All phases on ``dev``; returns the kernels' record.  On the card the
+    counted window must show every kernel launched and no plain version."""
+    import torch
+
+    from repro_torch.core import RkNNConfig, RkNNEngine
+    from repro_torch.core.brute import rknn_brute_np, rknn_mono_brute_np
+    from repro_torch.core.scene import pad_scene_arrays
+    from repro_torch.data.spatial import facility_user_split, road_network_points
+    from repro_torch.kernels import build, ops, rank_count, raycast, ref
+
+    on_card = dev.type == "cuda"
+
+    # ---- setup ------------------------------------------------------------
+    t0 = time.perf_counter()
+    built = build.build() if on_card else {}
+    t_build = time.perf_counter() - t0
+    ptxas = {
+        name: [ln.strip() for ln in info["log"].splitlines() if "Used" in ln]
+        for name, info in built.items()
+    }
+    _log("setup", card=card, build_s=t_build, ptxas=ptxas, torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0])
+
+    t0 = time.perf_counter()
+    pts = road_network_points(n_points, seed)
+    F, U = facility_user_split(pts, n_facilities, seed)
+    rng = np.random.default_rng(seed + 1)
+    order = rng.permutation(n_facilities)
+    qs = [int(i) for i in order[:q_n]]
+    stream_qs = [
+        [int(i) for i in order[q_n * (b + 1) : q_n * (b + 2)]] for b in range(STREAM_BATCHES)
+    ]
+    P = road_network_points(mono_points, seed + 2)
+    _log("data", facilities=len(F), users=len(U), k=K, q=q_n, mono_points=len(P),
+         seconds=time.perf_counter() - t0)
+
+    # ---- a small instance against the numpy oracles, every backend --------
+    small = np.random.default_rng(seed + 3)
+    Fs, Us = small.random((60, 2)), small.random((400, 2))
+    for backend in ("dense", "dense-ref", "brute"):
+        eng_s = RkNNEngine(Fs, Us, RkNNConfig(backend=backend), device=dev)
+        got = eng_s.query_batch([3, 7, np.array([0.3, 0.6])], 5)
+        for i, qq in enumerate([3, 7, np.array([0.3, 0.6])]):
+            if not np.array_equal(got.masks[i], rknn_brute_np(Us, Fs, qq, 5)):
+                raise AssertionError(f"{backend}: small-instance mask {i} differs from the oracle")
+        mono = eng_s.query_mono(11, 3)
+        if not np.array_equal(mono.mask, rknn_mono_brute_np(Fs, 11, 3)):
+            raise AssertionError(f"{backend}: small-instance mono mask differs from the oracle")
+    _log("small_instance", ok=True)
+
+    # ---- main path, counted --------------------------------------------
+    eng = RkNNEngine(F, U, RkNNConfig(backend="dense"), device=dev)
+    eng.xs  # noqa: B018 — upload the users before the counted window
+    raycast.batch_launches = raycast.single_launches = rank_count.launches = 0
+    ref.calls = 0
+
+    res = eng.query_batch(qs, K)
+    stream_t = time.perf_counter()
+    stream_rows = 0
+    for batch, masks in eng.stream(stream_qs, K):
+        if masks.shape != (len(batch), len(U)):
+            raise AssertionError(f"stream masks {masks.shape}")
+        stream_rows += masks.shape[0]
+    stream_s = time.perf_counter() - stream_t
+    one = eng.query(qs[0], K)
+    mono_eng = RkNNEngine(P, P, RkNNConfig(backend="dense"), device=dev)
+    mono = mono_eng.query_mono(0, K)
+
+    if res.masks.shape != (q_n, len(U)) or res.counts.dtype != np.int32:
+        raise AssertionError(f"batch result {res.masks.shape} {res.counts.dtype}")
+    if res.counts.min() < 0 or not np.array_equal(res.masks, res.counts < K):
+        raise AssertionError("batch counts are negative or disagree with the masks")
+    if not (np.array_equal(one.mask, res.masks[0]) and np.array_equal(one.counts, res.counts[0])):
+        raise AssertionError("query() differs from row 0 of query_batch()")
+    if stream_rows != q_n * STREAM_BATCHES:
+        raise AssertionError(f"stream yielded {stream_rows} rows")
+
+    # exactness at full size: hit-count < k  <=>  rank < k (paper Lemma 3.4)
+    users_dev = torch.from_numpy(U.astype(np.float32)).to(dev)
+    fac_dev = torch.from_numpy(F.astype(np.float32)).to(dev)
+    u64, f64 = torch.from_numpy(U).to(dev), torch.from_numpy(F).to(dev)
+    masks_dev = torch.from_numpy(res.masks).to(dev)
+    n_ties = n_wrong = 0
+    rank_out = []
+    for i, qi in enumerate(qs):
+        rc = ops.rank_count(users_dev, fac_dev, fac_dev[qi], exclude=qi)
+        if i < RANK_CHECK_QUERIES:
+            rank_out.append(rc)
+        ties = _tie_mask(u64, f64, qi)
+        n_ties += int(ties.sum())
+        n_wrong += int(((rc < K) != masks_dev[i])[~ties].sum())
+    # mono: rank among the other points, by the kernel with the query row
+    # excluded and each point's own row subtracted
+    p_dev = torch.from_numpy(P.astype(np.float32)).to(dev)
+    mono_rank = ops.rank_count(p_dev, p_dev, p_dev[0], exclude=0) - 1
+    mono_want = (mono_rank < K).cpu().numpy()
+    mono_want[0] = False
+    mono_ties = _tie_mask(torch.from_numpy(P).to(dev), torch.from_numpy(P).to(dev), 0).cpu().numpy()
+    mono_wrong = int((mono_want != mono.mask)[~mono_ties].sum())
+    if on_card:
+        torch.cuda.synchronize(dev)
+    counted = {
+        "raycast_count_batch": raycast.batch_launches,
+        "raycast_count": raycast.single_launches,
+        "rank_count": rank_count.launches,
+    }
+    plain_calls = ref.calls
+
+    _log("main_path",
+         query_batch={"t_filter_s": res.t_filter_s, "t_verify_s": res.t_verify_s,
+                      "m_max": max(s.n_tris for s in res.scenes)},
+         stream={"batches": STREAM_BATCHES, "wall_s": stream_s},
+         query={"t_filter_s": one.t_filter_s, "t_verify_s": one.t_verify_s},
+         query_mono={"points": len(P), "t_filter_s": mono.t_filter_s,
+                     "t_verify_s": mono.t_verify_s},
+         stats={"n_queries": eng.stats.n_queries, "n_batches": eng.stats.n_batches,
+                "t_filter_s": eng.stats.t_filter_s, "t_verify_s": eng.stats.t_verify_s},
+         launches=counted, plain_calls=plain_calls)
+    _log("exactness", users=len(U), queries=q_n, k=K, near_tie_excluded=n_ties,
+         mismatches=n_wrong, mono_near_tie_excluded=int(mono_ties.sum()),
+         mono_mismatches=mono_wrong)
+    if n_wrong or mono_wrong:
+        raise AssertionError(f"dense masks differ from the rank oracle: {n_wrong} + {mono_wrong}")
+    if on_card:
+        dispatches = 1 + STREAM_BATCHES  # query_batch + stream
+        if counted["raycast_count_batch"] < dispatches or counted["raycast_count"] < 2:
+            raise AssertionError(f"the main path did not go through the kernels: {counted}")
+        if counted["rank_count"] < q_n or plain_calls:
+            raise AssertionError(f"oracle launches {counted['rank_count']}, plain calls {plain_calls}")
+
+    # ---- each kernel against its plain version, at the main path's shapes --
+    mp = max(128, 1 << int(np.ceil(np.log2(max(s.tris.shape[0] for s in res.scenes)))))
+    stack = np.stack([
+        pad_scene_arrays(s.tris[: s.n_tris], s.coeffs[: s.n_tris], s.owner[: s.n_tris], mp)[1]
+        for s in res.scenes
+    ])
+    coeffs = torch.from_numpy(stack).to(dev)
+    xs, ys = eng.xs, eng.ys
+    n_u = xs.shape[0]
+    real_tris = sum(s.n_tris for s in res.scenes)
+    records = []
+
+    got = ops.raycast_count_batch(xs, ys, coeffs)
+    want = ops.raycast_count_batch(xs, ys, coeffs, backend="ref")
+    err = int((got - want).abs().max())
+    if not torch.equal(got, want) or not np.array_equal(got.cpu().numpy(), res.counts):
+        raise AssertionError(f"ray-cast batch kernel differs from its plain version: {err}")
+    b_ms, b_by = _bound_ms(8 * n_u + coeffs.numel() * 4 + 4 * q_n * n_u, 12 * n_u * real_tris)
+    records.append({
+        "name": "raycast_count_batch", "route": "cuda",
+        "source": "src/repro_torch/csrc/raycast.cu",
+        "replaces": "src/repro/kernels/raycast.py:145",
+        "launches": counted["raycast_count_batch"], "max_abs_err": err,
+        "ms": _sync_ms(lambda: ops.raycast_count_batch(xs, ys, coeffs), 20, dev),
+        "plain_ms": _sync_ms(lambda: ops.raycast_count_batch(xs, ys, coeffs, backend="ref"), 2, dev),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": {"Q": q_n, "N": n_u, "Mp": mp, "real_triangles": real_tris},
+    })
+    d2h_ms = _host_ms(lambda: got.cpu(), 5, dev)
+    pinned = torch.empty(got.shape, dtype=got.dtype, pin_memory=on_card)
+    d2h_pinned_ms = _host_ms(lambda: pinned.copy_(got), 5, dev)
+
+    c1 = coeffs[0]
+    got1 = ops.raycast_count(xs, ys, c1)
+    want1 = ops.raycast_count(xs, ys, c1, backend="ref")
+    err1 = int((got1 - want1).abs().max())
+    if not torch.equal(got1, want1) or not np.array_equal(got1.cpu().numpy(), one.counts):
+        raise AssertionError(f"ray-cast single kernel differs from its plain version: {err1}")
+    b_ms, b_by = _bound_ms(8 * n_u + c1.numel() * 4 + 4 * n_u, 12 * n_u * res.scenes[0].n_tris)
+    records.append({
+        "name": "raycast_count", "route": "cuda",
+        "source": "src/repro_torch/csrc/raycast.cu",
+        "replaces": "src/repro/kernels/raycast.py:88",
+        "launches": counted["raycast_count"], "max_abs_err": err1,
+        "ms": _sync_ms(lambda: ops.raycast_count(xs, ys, c1), 20, dev),
+        "plain_ms": _sync_ms(lambda: ops.raycast_count(xs, ys, c1, backend="ref"), 2, dev),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": {"Q": 1, "N": n_u, "Mp": mp, "real_triangles": res.scenes[0].n_tris},
+    })
+
+    err_r = n_rank_off = 0
+    for i, rc in enumerate(rank_out):
+        qi = qs[i]
+        want_r = ops.rank_count(users_dev, fac_dev, fac_dev[qi], exclude=qi, backend="ref")
+        diff = (rc - want_r).abs()
+        ties = _tie_mask(u64, f64, qi)
+        err_r = max(err_r, int(diff.max()))
+        n_rank_off += int((diff > 0).sum())
+        if bool((diff[~ties] != 0).any()) or err_r > 1:
+            raise AssertionError(f"rank kernel differs from its plain version on query {qi}")
+    q0 = qs[0]
+    xs_u, ys_u = users_dev[:, 0].contiguous(), users_dev[:, 1].contiguous()
+    fx, fy = fac_dev[:, 0].clone(), fac_dev[:, 1].clone()
+    fx[q0] = fy[q0] = float("inf")
+    thr = (xs_u - fac_dev[q0, 0]) ** 2 + (ys_u - fac_dev[q0, 1]) ** 2
+    b_ms, b_by = _bound_ms(16 * n_u + 8 * len(F), 5 * n_u * (len(F) - 1))
+    records.append({
+        "name": "rank_count", "route": "cuda",
+        "source": "src/repro_torch/csrc/rank_count.cu",
+        "replaces": "src/repro/kernels/rank_count.py:59",
+        "launches": counted["rank_count"], "max_abs_err": err_r,
+        "ms": _sync_ms(lambda: rank_count.rank_count_kernel_call(xs_u, ys_u, fx, fy, thr), 20, dev)
+        if on_card else None,
+        "plain_ms": _sync_ms(
+            lambda: ops.rank_count(users_dev, fac_dev, fac_dev[q0], exclude=q0, backend="ref"), 2, dev),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": {"N": n_u, "M": len(F)},
+    })
+    empty = ops.raycast_count_batch(xs, ys, coeffs[:0])
+    if empty.shape != (0, n_u):
+        raise AssertionError(f"empty batch gave {tuple(empty.shape)}")
+    _log("kernels", bit_identical_raycast=True, rank_checked_queries=len(rank_out),
+         rank_users_off_by_one=n_rank_off, d2h_counts_ms=d2h_ms,
+         d2h_counts_pinned_ms=d2h_pinned_ms, counts_mb=got.numel() * 4 / 1e6,
+         records=records)
+    return records
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0, help="seed of the generated data")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} not found: run from a checkout",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    records = run(dev, card, n_points=N_POINTS, n_facilities=N_FACILITIES, q_n=Q,
+                  mono_points=MONO_POINTS, seed=args.seed)
+    print(json.dumps({"kernels": [
+        {k: v for k, v in r.items() if k != "shape"} for r in records
+    ]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

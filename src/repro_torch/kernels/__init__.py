@@ -1,0 +1,16 @@
+"""Hand-written CUDA kernels for the verify phase, and their plain versions.
+
+* ``ops``        — public wrappers (``raycast_count``,
+                   ``raycast_count_batch``, ``rank_count``,
+                   ``rank_count_batch``): kernel on CUDA tensors, plain
+                   PyTorch version on CPU tensors
+* ``raycast``    — launch of the dense ray-cast count kernel
+                   (``csrc/raycast.cu``), one kernel with a query axis
+* ``rank_count`` — launch of the distance-rank count kernel
+                   (``csrc/rank_count.cu``), the exact on-card oracle
+* ``ref``        — the plain PyTorch versions
+* ``build``      — ``nvcc`` build of ``csrc/*.cu`` and ``ctypes`` loading
+
+The wrappers are not re-exported here, so ``kernels.rank_count`` always
+names the module (and its launch counter), never the function.
+"""

@@ -1,0 +1,103 @@
+"""Build the CUDA sources of ``repro_torch/csrc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
+library with a plain C interface, at first use, into
+``repro_torch/_build/`` (listed in ``.gitignore``).  The library's file
+name carries a digest of its source and flags, so an edited source is
+rebuilt and never confused with an old build.  :func:`build` starts one
+``nvcc`` per source, all at once, and waits for them together.
+
+Nothing here runs at import: a machine without ``nvcc`` imports this
+module and fails only when a kernel is asked for.  A missing ``nvcc`` or
+a failed build raises ``RuntimeError`` with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "SOURCES", "build", "load", "nvcc_path"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+#: Every kernel source of the package, by library name.
+SOURCES = ("raycast", "rank_count")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    """Path of ``nvcc`` (``PATH``, then ``/usr/local/cuda/bin``)."""
+    found = shutil.which("nvcc")
+    if found is None and os.access("/usr/local/cuda/bin/nvcc", os.X_OK):
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found on PATH or in /usr/local/cuda/bin: the CUDA kernels "
+            "of repro_torch cannot be built on this machine"
+        )
+    return found
+
+
+def _library(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=SOURCES) -> dict[str, dict]:
+    """Compile every library of ``names`` that is not built yet, in parallel.
+
+    Returns ``{name: {"path", "seconds", "log"}}``; ``seconds`` is 0.0 and
+    ``log`` empty for a library that was already built.  ``log`` holds
+    ``nvcc``'s output (registers and shared memory per kernel, from
+    ``-Xptxas -v``).  Raises ``RuntimeError`` if any compile fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    out = {}
+    for name in names:
+        lib = _library(name)
+        if lib.exists():
+            out[name] = {"path": str(lib), "seconds": 0.0, "log": ""}
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs[name] = (proc, lib, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, lib, tmp, t0) in jobs.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+        out[name] = {"path": str(lib), "seconds": seconds, "log": log}
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(build((name,))[name]["path"])
+        return lib

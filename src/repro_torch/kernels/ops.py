@@ -1,0 +1,158 @@
+"""Public wrappers around the CUDA kernels (``repro.kernels.ops``).
+
+Same signatures and results as the JAX package's ops, with the Pallas
+tiling arguments gone: ``backend="cuda"`` (the default) launches the
+hand-written kernel for CUDA tensors and takes the plain PyTorch version
+only for CPU tensors; ``backend="ref"`` always takes the plain version.
+For a CUDA tensor there is no fallback: a kernel that fails to build or
+launch raises.  Unlike the Pallas wrappers these need no user or
+triangle padding: the kernels mask their ragged edges themselves.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.rank_count import rank_count_kernel_call
+from repro_torch.kernels.raycast import (
+    raycast_count_batch_kernel_call,
+    raycast_count_kernel_call,
+)
+
+__all__ = ["raycast_count", "raycast_count_batch", "rank_count", "rank_count_batch"]
+
+_USER_CHUNK = 32_768  # bounds the [chunk, M] edge temporaries of the plain path
+_RANK_CHUNK_ELEMS = 1 << 22  # bounds the [Q, chunk, M] distance temporaries
+
+
+def _device_of(x) -> torch.device:
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+
+
+def _f32(x, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device).contiguous()
+
+
+def _use_kernel(backend: str, device: torch.device) -> bool:
+    if backend == "ref":
+        return False
+    if backend != "cuda":
+        raise ValueError(f"unknown backend {backend!r}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel path for device {device}")
+    return device.type == "cuda"
+
+
+def _raycast_batch_ref_chunked(xs, ys, coeffs, chunk: int):
+    """Plain batched count, user-chunked so the ``[Q, chunk, Mp]`` edge
+    temporaries stay the size of the single-query path's."""
+    if xs.shape[0] <= chunk:
+        return _ref.raycast_count_batch_ref(xs, ys, coeffs)
+    return torch.cat(
+        [
+            _ref.raycast_count_batch_ref(xs[s : s + chunk], ys[s : s + chunk], coeffs)
+            for s in range(0, xs.shape[0], chunk)
+        ],
+        dim=1,
+    )
+
+
+def raycast_count(xs, ys, coeffs, *, backend: str = "cuda") -> torch.Tensor:
+    """Hit counts of users against occluder edge functions.
+
+    ``xs, ys``: ``[N]``; ``coeffs``: ``[M, 3, 3]``.  Returns ``[N]`` int32
+    on the device of ``xs``.  Padding slots are degenerate
+    (``a = b = 0, c = -1``) and contribute nothing.
+    """
+    dev = _device_of(xs)
+    xs, ys, coeffs = _f32(xs, dev), _f32(ys, dev), _f32(coeffs, dev)
+    if coeffs.ndim != 3:
+        raise ValueError(f"coeffs must be [M, 3, 3], got {tuple(coeffs.shape)}")
+    if _use_kernel(backend, dev):
+        return raycast_count_kernel_call(xs, ys, coeffs)
+    return _raycast_batch_ref_chunked(xs, ys, coeffs[None], _USER_CHUNK)[0]
+
+
+def raycast_count_batch(xs, ys, coeffs, *, backend: str = "cuda") -> torch.Tensor:
+    """Batched multi-query hit counts: one launch for a whole query batch.
+
+    ``xs, ys``: ``[N]`` shared users; ``coeffs``: ``[Q, Mp, 3, 3]`` stacked
+    per-query edge functions (padded degenerate — see
+    :func:`repro_torch.core.scene.pad_scene_arrays`).  Returns ``[Q, N]``
+    int32 on the device of ``xs``.
+    """
+    dev = _device_of(xs)
+    xs, ys, coeffs = _f32(xs, dev), _f32(ys, dev), _f32(coeffs, dev)
+    if coeffs.ndim != 4:
+        raise ValueError(f"coeffs must be [Q, Mp, 3, 3], got {tuple(coeffs.shape)}")
+    if _use_kernel(backend, dev):
+        return raycast_count_batch_kernel_call(xs, ys, coeffs)
+    chunk = max(1024, _USER_CHUNK // max(int(coeffs.shape[0]), 1))
+    return _raycast_batch_ref_chunked(xs, ys, coeffs, chunk)
+
+
+def rank_count(users, facilities, q, *, exclude: int | None = None, backend: str = "cuda"):
+    """#facilities strictly closer than ``q`` per user (``[N]`` int32).
+
+    ``users``: ``[N, 2]``; ``facilities``: ``[M, 2]``; ``q``: ``[2]``.
+    ``exclude`` masks one facility row (the query itself for in-set
+    queries) by pushing it to infinity.  The thresholds ``d^2(u, q)`` are
+    taken in f32 after the f32 cast of the users, as the JAX wrapper does.
+    """
+    dev = _device_of(users)
+    users, facilities, q = _f32(users, dev), _f32(facilities, dev), _f32(q, dev)
+    xs, ys = users[:, 0].contiguous(), users[:, 1].contiguous()
+    fx, fy = facilities[:, 0].clone(), facilities[:, 1].clone()  # written below
+    if exclude is not None:
+        fx[exclude] = float("inf")
+        fy[exclude] = float("inf")
+    dx, dy = xs - q[0], ys - q[1]
+    thr = dx * dx + dy * dy
+    if _use_kernel(backend, dev):
+        return rank_count_kernel_call(xs, ys, fx, fy, thr)
+    chunk = max(1, _RANK_CHUNK_ELEMS // max(fx.shape[0], 1))
+    return torch.cat(
+        [
+            _ref.rank_count_ref(xs[s : s + chunk], ys[s : s + chunk], fx, fy, thr[s : s + chunk])
+            for s in range(0, xs.shape[0], chunk)
+        ]
+        or [torch.zeros((0,), dtype=torch.int32, device=dev)]
+    )
+
+
+def rank_count_batch(users, facilities, q_pts, *, exclude=None) -> torch.Tensor:
+    """Batched distance-rank counting: ``[Q, N]`` int32, plain PyTorch.
+
+    ``users``: ``[N, 2]``; ``facilities``: ``[M, 2]``; ``q_pts``: ``[Q, 2]``.
+    ``exclude`` is an optional length-``Q`` sequence of facility rows to
+    mask per query (``-1`` / ``None`` entries mask nothing).  The JAX
+    package has no kernel for this either.
+    """
+    dev = _device_of(users)
+    users, facilities, q_pts = _f32(users, dev), _f32(facilities, dev), _f32(q_pts, dev)
+    xs, ys = users[:, 0], users[:, 1]
+    q_n, m = q_pts.shape[0], facilities.shape[0]
+    fx = facilities[:, 0].expand(q_n, m).clone()
+    fy = facilities[:, 1].expand(q_n, m).clone()
+    if exclude is not None:
+        excl = np.asarray([-1 if e is None else int(e) for e in exclude], dtype=np.int64)
+        rows = np.flatnonzero(excl >= 0)
+        if len(rows):
+            fx[rows, excl[rows]] = float("inf")
+            fy[rows, excl[rows]] = float("inf")
+    dx = xs[None, :] - q_pts[:, 0, None]
+    dy = ys[None, :] - q_pts[:, 1, None]
+    thr = dx * dx + dy * dy
+    chunk = max(1, _RANK_CHUNK_ELEMS // max(q_n * m, 1))
+    return torch.cat(
+        [
+            _ref.rank_count_batch_ref(
+                xs[s : s + chunk], ys[s : s + chunk], fx, fy, thr[:, s : s + chunk]
+            )
+            for s in range(0, xs.shape[0], chunk)
+        ]
+        or [torch.zeros((q_n, 0), dtype=torch.int32, device=dev)],
+        dim=1,
+    )

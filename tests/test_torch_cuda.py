@@ -1,0 +1,93 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA card and ``nvcc`` and skips elsewhere
+(marker ``cuda``).  This file imports no JAX, so it runs on a machine
+that has only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: ray-cast counts bit-identical (kernel and plain version share
+one rounding contract); rank counts equal on users with no near-tie
+competitor and within ±1 on the rest.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import RkNNEngine
+from repro_torch.core.geometry import Rect
+from repro_torch.core.scene import build_scene
+from repro_torch.kernels import ops, raycast
+
+pytestmark = pytest.mark.cuda
+
+RECT = Rect(0.0, 0.0, 1.0, 1.0)
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: the kernels need CUDA and nvcc.  (Kept in this
+    file, not imported from ``tests``: a machine with only the port's
+    dependencies may have another top-level package of that name.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is False")
+    return torch.device("cuda", 0)
+
+
+def non_tie_mask(U, F, q_row, eps=1e-6):
+    """Users with no competitor at a near-tie distance to ``F[q_row]``
+    (the rule of ``tests/_torch_parity.py``)."""
+    comp = np.delete(F, q_row, axis=0)
+    d2 = np.sum((U[:, None, :] - comp[None, :, :]) ** 2, axis=-1)
+    d2q = np.sum((U - F[q_row]) ** 2, axis=1)
+    return ~np.any(np.abs(d2 - d2q[:, None]) < eps * (1.0 + d2q[:, None]), axis=1)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("n_users", [1, 255, 257, 100_000])
+def test_raycast_kernel_matches_plain_on_card(cuda_device, n_users):
+    rng = np.random.default_rng(n_users)
+    F = rng.random((300, 2))
+    coeffs = np.stack([build_scene(F, qi, 8, RECT, pad_to=384).coeffs for qi in range(5)])
+    U = _t(rng.random((n_users, 2)).astype(np.float32)).to(cuda_device)
+    xs, ys = U[:, 0].contiguous(), U[:, 1].contiguous()
+    cf = _t(coeffs).to(cuda_device)
+    got = ops.raycast_count_batch(xs, ys, cf)
+    assert torch.equal(got, ops.raycast_count_batch(xs, ys, cf, backend="ref"))
+    assert torch.equal(got.cpu(), ops.raycast_count_batch(xs.cpu(), ys.cpu(), cf.cpu()))
+    assert torch.equal(ops.raycast_count(xs, ys, cf[2]), got[2])
+
+
+def test_raycast_kernel_empty_batch_launches_nothing(cuda_device):
+    xs = torch.rand(10, device=cuda_device)
+    before = raycast.batch_launches
+    out = ops.raycast_count_batch(xs, xs, torch.zeros(0, 4, 3, 3, device=cuda_device))
+    assert out.shape == (0, 10) and raycast.batch_launches == before
+
+
+def test_rank_kernel_matches_plain_on_card(cuda_device):
+    rng = np.random.default_rng(1)
+    U, F = rng.random((50_000, 2)), rng.random((700, 2))
+    got = ops.rank_count(_t(U).to(cuda_device), _t(F).to(cuda_device), _t(F[5]).to(cuda_device),
+                         exclude=5).cpu().numpy()
+    want = ops.rank_count(_t(U), _t(F), _t(F[5]), exclude=5).numpy()
+    ok = non_tie_mask(U, F, 5)
+    np.testing.assert_array_equal(got[ok], want[ok])
+    assert np.all(np.abs(got - want) <= 1)
+
+
+@pytest.mark.parametrize("backend", ["dense", "dense-ref", "brute"])
+def test_engine_on_card_matches_engine_on_cpu(cuda_device, backend):
+    rng = np.random.default_rng(3)
+    F, U = rng.random((80, 2)), rng.random((3000, 2))
+    qs = [int(q) for q in rng.integers(0, len(F), 5)] + [np.array([0.4, 0.6])]
+    a = RkNNEngine(F, U, backend=backend, device=cuda_device).query_batch(qs, 6)
+    b = RkNNEngine(F, U, backend=backend, device=CPU).query_batch(qs, 6)
+    np.testing.assert_array_equal(a.masks, b.masks)
+    if backend != "brute":
+        np.testing.assert_array_equal(a.counts, b.counts)
