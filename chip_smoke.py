@@ -5,10 +5,23 @@ Drives the port's main path on one NVIDIA card at the size of the paper's
 CAL road network (Table 1): 1,890,815 points, of which |F| = 1000 are
 facilities and the rest users, k = 10, batches of Q = 64 facility
 queries.  It builds every CUDA kernel from ``src/repro_torch/csrc``, holds
-each kernel against its plain PyTorch version on the card, drives
-``RkNNEngine`` (``query_batch``, ``stream``, ``query``, ``query_mono``)
-with the launch counters set to 0 just before and read just after, and
-checks the dense masks against the rank-count oracle at full size.
+each kernel against its plain PyTorch version on the card, and drives
+``RkNNEngine`` with the launch counters set to 0 just before each path and
+read just after:
+
+* ``main_path`` — the dense backend (``query_batch``, ``stream``,
+  ``query``, ``query_mono``), its masks checked against the rank-count
+  oracle at full size;
+* ``grid_path`` — the same engine through ``grid-pallas`` (the
+  cell-bucketed grid kernel), its masks and counts equal to the dense
+  ones;
+* ``grid_nonpruned`` — a second engine without pruning (``strategy=
+  "none"``, one occluder per competitor: the regime the grid index is
+  for) on the same Q = 64 batch, ``grid-pallas`` and ``dense`` both
+  against the oracle.
+
+Wherever the grid and dense paths both count, their counts must be equal
+on every user: the port evaluates every edge with one rounding order.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -39,6 +52,7 @@ STREAM_BATCHES = 4
 MONO_POINTS = 20_000
 TIE_EPS = 1e-6  # the JAX package's near-tie rule (tests/test_kernels.py)
 RANK_CHECK_QUERIES = 8  # rank kernel against its plain version
+GRID_G = 64  # the engine's default grid raster
 # H100 SXM peaks (NVIDIA data sheet; full 700 W power limit)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
@@ -107,6 +121,115 @@ def _tie_mask(users, facilities, q_row: int, chunk: int = 16_384):
     return torch.cat(out)
 
 
+def _edge_tie_mask(xs64, ys64, coeffs, rel: float = 1e-6, chunk_elems: int = 1 << 25):
+    """Users at a rounding-level tie of some triangle of ``coeffs``
+    ``[M, 3, 3]``: one edge within ``rel`` of its terms' magnitude from 0
+    while the other two hold, in float64 on the users' device (the rule of
+    ``tests/_torch_parity.py``).  Two count paths may split only there."""
+    import torch
+
+    c = torch.as_tensor(coeffs, dtype=torch.float64, device=xs64.device)
+    if c.shape[0] == 0:
+        return torch.zeros(xs64.shape[0], dtype=torch.bool, device=xs64.device)
+    chunk = max(1, chunk_elems // (3 * c.shape[0]))
+    out = []
+    for s in range(0, xs64.shape[0], chunk):
+        x = xs64[s : s + chunk, None, None]
+        y = ys64[s : s + chunk, None, None]
+        ax, by = x * c[..., 0], y * c[..., 1]
+        e = ax + by + c[..., 2]
+        tol = rel * (ax.abs() + by.abs() + c[..., 2].abs())
+        out.append(((e.abs() <= tol).any(-1) & (e >= -tol).all(-1)).any(-1))
+    return torch.cat(out)
+
+
+def _count_diffs(counts_a, counts_b, scenes, xs64, ys64) -> tuple[int, int]:
+    """Two paths' ``[Q, N]`` counts compared on the card, query by query:
+    ``(user-queries at an edge tie of the query's scene, user-queries whose
+    counts differ)``.  The ties are a diagnostic only: both paths round
+    alike, so they must agree there too."""
+    import torch
+
+    ties_n = diff_n = 0
+    for i, sc in enumerate(scenes):
+        ties_n += int(_edge_tie_mask(xs64, ys64, sc.coeffs[: sc.n_tris]).sum())
+        a = torch.from_numpy(counts_a[i]).to(xs64.device)
+        diff_n += int((a != torch.from_numpy(counts_b[i]).to(xs64.device)).sum())
+    return ties_n, diff_n
+
+
+def _cells_plain(xs_s, ys_s, ranks, planes, block: int):
+    """``ref.grid_cells_count_batch_ref`` over chunks of user blocks (one
+    call over the whole bucketing would need tens of GB of temporaries),
+    with the chunk rule of ``ops.grid_count_cells_batch``'s plain path."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    q_n, lanes = planes.shape[0], planes.shape[-1]
+    chunk = max(ops._CELL_CHUNK_ELEMS // max(q_n * block * lanes, 1), 1)
+    return torch.cat([
+        ref.grid_cells_count_batch_ref(
+            xs_s[s * block : (s + chunk) * block], ys_s[s * block : (s + chunk) * block],
+            ranks[s : s + chunk], planes,
+        )
+        for s in range(0, ranks.shape[0], chunk)
+    ], dim=1)
+
+
+def _grid_bound_ms(xs_s, ranks, planes, block: int, *, with_base: bool) -> tuple[float, str]:
+    """Bound of the grid kernel on this bucketing.  Bytes: each input read
+    once and the output written once — 8 per sorted user, 4 per user block
+    (its cell rank), the ``[Q, n_cells, 3, 3, L]`` planes, 4 per (query,
+    cell) of ``base`` where the kernel adds it, 4 per (query, sorted user)
+    out.  FLOPs: 12 per (query, real sorted user, real listed triangle of
+    its cell)."""
+    import torch
+
+    q_n, n_cells, lanes = planes.shape[0], planes.shape[1], planes.shape[-1]
+    nb, n_sorted = ranks.shape[0], xs_s.shape[0]
+    degenerate = (planes[:, :, :, 0, :] == 0) & (planes[:, :, :, 1, :] == 0) & (planes[:, :, :, 2, :] == -1)
+    real_len = (~degenerate.all(dim=2)).sum(-1).to(torch.float64)  # [Q, n_cells]
+    real_users = (xs_s.reshape(nb, block) < 1e9).sum(-1).to(torch.float64)  # [n_blocks]
+    tests = float((real_len[:, ranks.long()] * real_users[None, :]).sum())
+    n_bytes = (8 * n_sorted + 4 * nb + 36 * lanes * q_n * n_cells
+               + (4 * q_n * n_cells if with_base else 0) + 4 * q_n * n_sorted)
+    return _bound_ms(n_bytes, 12 * tests)
+
+
+def _grid_filter_breakdown(scenes, users, rect, dev) -> dict:
+    """Host seconds of the pieces of the grid-pallas filter phase, each run
+    once more on its own: the grid index builds, the per-cell plane
+    packing, the user bucketing, and the stacking and upload of the
+    occupied cells' planes."""
+    import torch
+
+    from repro_torch.core.backends import stack_cell_planes
+    from repro_torch.core.grid import build_grid
+    from repro_torch.kernels.grid_raycast import pack_cell_coeff_planes, prepare_cell_buckets
+
+    out = {}
+    t0 = time.perf_counter()
+    grids = [build_grid(s.tris[: s.n_tris], s.coeffs[: s.n_tris], s.rect, G=GRID_G) for s in scenes]
+    out["grid_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    planes = [pack_cell_coeff_planes(g) for g in grids]
+    out["plane_pack_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    u32 = users.astype(np.float32)
+    _xs_s, _ys_s, _order, cell_map, _nb = prepare_cell_buckets(u32[:, 0], u32[:, 1], rect, GRID_G,
+                                                               block=None)
+    out["bucketing_s"] = time.perf_counter() - t0
+    occ = np.unique(cell_map)
+    t0 = time.perf_counter()
+    stacked = torch.from_numpy(stack_cell_planes([p[occ] for p in planes])).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out["stack_upload_s"] = time.perf_counter() - t0
+    out["stacked_planes_mb"] = stacked.numel() * 4 / 1e6
+    return out
+
+
 def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_points: int,
         seed: int):
     """All phases on ``dev``; returns the kernels' record.  On the card the
@@ -117,7 +240,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     from repro_torch.core.brute import rknn_brute_np, rknn_mono_brute_np
     from repro_torch.core.scene import pad_scene_arrays
     from repro_torch.data.spatial import facility_user_split, road_network_points
-    from repro_torch.kernels import build, ops, rank_count, raycast, ref
+    from repro_torch.kernels import build, grid_raycast, ops, rank_count, raycast, ref
 
     on_card = dev.type == "cuda"
 
@@ -193,11 +316,13 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     masks_dev = torch.from_numpy(res.masks).to(dev)
     n_ties = n_wrong = 0
     rank_out = []
+    oracle = []  # (rank mask, near ties) per query, reused by the non-pruned phase
     for i, qi in enumerate(qs):
         rc = ops.rank_count(users_dev, fac_dev, fac_dev[qi], exclude=qi)
         if i < RANK_CHECK_QUERIES:
             rank_out.append(rc)
         ties = _tie_mask(u64, f64, qi)
+        oracle.append((rc < K, ties))
         n_ties += int(ties.sum())
         n_wrong += int(((rc < K) != masks_dev[i])[~ties].sum())
     # mono: rank among the other points, by the kernel with the query row
@@ -238,6 +363,94 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
             raise AssertionError(f"the main path did not go through the kernels: {counted}")
         if counted["rank_count"] < q_n or plain_calls:
             raise AssertionError(f"oracle launches {counted['rank_count']}, plain calls {plain_calls}")
+
+    # ---- grid path, full size, infzone: the same engine and scene cache --
+    cells_batch, cells_one = grid_raycast.grid_raycast_cells_batch, grid_raycast.grid_raycast_cells
+    grid_raycast.batch_launches = grid_raycast.single_launches = 0
+    ref.calls = 0
+    g_res = eng.query_batch(qs, K, backend="grid-pallas")
+    g_stream_rows = 0
+    for batch, masks in eng.stream(stream_qs[:1], K, backend="grid-pallas"):
+        if masks.shape != (len(batch), len(U)):
+            raise AssertionError(f"grid stream masks {masks.shape}")
+        g_stream_rows += masks.shape[0]
+    g_one = eng.query(qs[0], K, backend="grid-pallas")
+    # the single-query kernel (Pallas row 4) has no engine path of its own:
+    # run it on the batch's own bucketing and planes (the engine's prepared
+    # batch, from its batch cache) for query 0
+    _req, (bk, base_q, planes_q), _sc = eng._snap.batch_cache.get(
+        ("grid-pallas", K, tuple(qs), eng.rect))
+    row4 = cells_one(bk.xs_s, bk.ys_s, bk.ranks, base_q[0], planes_q[0], block=bk.block)
+    row4 = grid_raycast.unsort_cell_counts(row4, bk.unsort)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    grid_counted = {"grid_raycast_cells_batch": grid_raycast.batch_launches,
+                    "grid_raycast_cells": grid_raycast.single_launches}
+    grid_plain = ref.calls
+
+    if not np.array_equal(g_res.masks, res.masks):
+        raise AssertionError(f"grid-pallas masks differ from dense: {(g_res.masks != res.masks).sum()}")
+    if not (np.array_equal(g_one.counts, g_res.counts[0]) and np.array_equal(row4.cpu().numpy(), g_one.counts)):
+        raise AssertionError("grid query() / single-query kernel differ from row 0 of query_batch()")
+    xs64, ys64 = u64[:, 0].contiguous(), u64[:, 1].contiguous()
+    g_ties, g_wrong = _count_diffs(g_res.counts, res.counts, res.scenes, xs64, ys64)
+    _log("grid_path", users=len(U), queries=q_n, k=K, G=GRID_G,
+         query_batch={"t_filter_s": g_res.t_filter_s, "t_verify_s": g_res.t_verify_s},
+         dense_query_batch={"t_filter_s": res.t_filter_s, "t_verify_s": res.t_verify_s},
+         query={"t_filter_s": g_one.t_filter_s, "t_verify_s": g_one.t_verify_s},
+         stream_rows=g_stream_rows, n_occupied_cells=len(bk.occ), block=bk.block,
+         L=int(planes_q.shape[-1]), n_sorted=int(bk.xs_s.shape[0]),
+         edge_ties=g_ties, count_mismatches=g_wrong, launches=grid_counted,
+         plain_calls=grid_plain)
+    if g_wrong:
+        raise AssertionError(f"grid counts differ from dense: {g_wrong}")
+    _log("grid_filter_breakdown", **_grid_filter_breakdown(res.scenes, U, eng.rect, dev))
+    if on_card and (grid_counted["grid_raycast_cells_batch"] < 3
+                    or grid_counted["grid_raycast_cells"] < 1 or grid_plain):
+        raise AssertionError(f"the grid path did not go through the kernel: {grid_counted}, "
+                             f"plain calls {grid_plain}")
+
+    # ---- grid, non-pruned: one occluder per competitor ------------------
+    eng_np = RkNNEngine(F, U, RkNNConfig(backend="grid-pallas", strategy="none", grid_g=GRID_G),
+                        device=dev)
+    qs_np = qs
+    eng_np.xs  # noqa: B018 — upload the users before the counted window
+    grid_raycast.batch_launches = grid_raycast.single_launches = raycast.batch_launches = 0
+    ref.calls = 0
+    # dense first: it builds the scenes, so the grid's t_filter_s is the
+    # grid index build, the bucketing and the plane stacking alone
+    np_dense = eng_np.query_batch(qs_np, K, backend="dense")
+    np_grid = eng_np.query_batch(qs_np, K)
+    if on_card:
+        torch.cuda.synchronize(dev)
+    np_counted = {"grid_raycast_cells_batch": grid_raycast.batch_launches,
+                  "raycast_count_batch": raycast.batch_launches}
+    np_plain = ref.calls
+    np_wrong = {"grid-pallas": 0, "dense": 0}
+    np_near = 0
+    for i, (want, ties) in enumerate(oracle):
+        np_near += int(ties.sum())
+        for name, r in (("grid-pallas", np_grid), ("dense", np_dense)):
+            got = torch.from_numpy(r.masks[i]).to(dev)
+            np_wrong[name] += int(((got != want) & ~ties).sum())
+    np_ties, np_cwrong = _count_diffs(np_grid.counts, np_dense.counts, np_grid.scenes, xs64, ys64)
+    _req2, (bk2, base_np, planes_np), _sc2 = eng_np._snap.batch_cache.get(
+        ("grid-pallas", K, tuple(qs_np), eng_np.rect))
+    _log("grid_nonpruned", users=len(U), queries=len(qs_np), k=K, G=GRID_G, strategy="none",
+         m_max=max(sc.n_tris for sc in np_grid.scenes),
+         grid={"t_filter_s": np_grid.t_filter_s, "t_verify_s": np_grid.t_verify_s},
+         dense={"t_filter_s": np_dense.t_filter_s, "t_verify_s": np_dense.t_verify_s},
+         n_occupied_cells=len(bk2.occ), block=bk2.block, L=int(planes_np.shape[-1]),
+         n_sorted=int(bk2.xs_s.shape[0]), near_tie_excluded=np_near, mismatches=np_wrong,
+         edge_ties=np_ties, count_mismatches=np_cwrong, launches=np_counted,
+         plain_calls=np_plain)
+    if any(np_wrong.values()) or np_cwrong:
+        raise AssertionError(f"non-pruned masks differ from the rank oracle {np_wrong} "
+                             f"or grid counts from dense: {np_cwrong}")
+    if on_card and (np_counted["grid_raycast_cells_batch"] < 1
+                    or np_counted["raycast_count_batch"] < 1 or np_plain):
+        raise AssertionError(f"the non-pruned path did not go through the kernels: {np_counted}, "
+                             f"plain calls {np_plain}")
 
     # ---- each kernel against its plain version, at the main path's shapes --
     mp = max(128, 1 << int(np.ceil(np.log2(max(s.tris.shape[0] for s in res.scenes)))))
@@ -317,13 +530,69 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": {"N": n_u, "M": len(F)},
     })
+    # the grid kernels: each record at the grid path's shapes (the infzone
+    # batch whose launches it counts); the non-pruned batch's larger L is
+    # held and timed as well, and logged beside them
+    def grid_batch_check(bkt, planes):
+        got = cells_batch(bkt.xs_s, bkt.ys_s, bkt.ranks, planes, block=bkt.block)
+        want = _cells_plain(bkt.xs_s, bkt.ys_s, bkt.ranks, planes, bkt.block)
+        err = int((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"grid batch kernel differs from its plain version: {err}")
+        b_ms, b_by = _grid_bound_ms(bkt.xs_s, bkt.ranks, planes, bkt.block, with_base=False)
+        return got, {
+            "max_abs_err": err,
+            "ms": _sync_ms(lambda: cells_batch(bkt.xs_s, bkt.ys_s, bkt.ranks, planes,
+                                               block=bkt.block), 20, dev),
+            "plain_ms": _sync_ms(lambda: _cells_plain(bkt.xs_s, bkt.ys_s, bkt.ranks, planes,
+                                                      bkt.block), 1, dev),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": {"Q": int(planes.shape[0]), "n_sorted": int(bkt.xs_s.shape[0]),
+                      "block": bkt.block, "n_blocks": int(bkt.ranks.shape[0]),
+                      "n_cells": int(planes.shape[1]), "L": int(planes.shape[-1])},
+        }
+
+    def grid_one_check(bkt, base1, planes1, batch_row):
+        args = (bkt.xs_s, bkt.ys_s, bkt.ranks, base1, planes1)
+        got = cells_one(*args, block=bkt.block)
+        want = ops.grid_count_cells(*args, block=bkt.block, backend="ref")
+        err = int((got - want).abs().max())
+        with_base = batch_row + base1[bkt.ranks.long()].repeat_interleave(bkt.block)
+        if not torch.equal(got, want) or not torch.equal(got, with_base):
+            raise AssertionError(f"grid single-query kernel differs from its plain version: {err}")
+        b_ms, b_by = _grid_bound_ms(bkt.xs_s, bkt.ranks, planes1[None], bkt.block, with_base=True)
+        return {
+            "max_abs_err": err,
+            "ms": _sync_ms(lambda: cells_one(*args, block=bkt.block), 20, dev),
+            "plain_ms": _sync_ms(lambda: ops.grid_count_cells(*args, block=bkt.block,
+                                                              backend="ref"), 2, dev),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": {"Q": 1, "n_sorted": int(bkt.xs_s.shape[0]), "block": bkt.block,
+                      "n_cells": int(planes1.shape[0]), "L": int(planes1.shape[-1])},
+        }
+
+    grid_src, grid_rows = "src/repro_torch/csrc/grid_raycast.cu", "src/repro/kernels/grid_raycast.py"
+    got_g, rec_g = grid_batch_check(bk, planes_q)
+    records.append({"name": "grid_raycast_cells_batch", "route": "cuda", "source": grid_src,
+                    "replaces": f"{grid_rows}:317",
+                    "launches": grid_counted["grid_raycast_cells_batch"], **rec_g})
+    records.append({"name": "grid_raycast_cells", "route": "cuda", "source": grid_src,
+                    "replaces": f"{grid_rows}:242",
+                    "launches": grid_counted["grid_raycast_cells"],
+                    **grid_one_check(bk, base_q[0], planes_q[0], got_g[0])})
+    got_np, rec_np = grid_batch_check(bk2, planes_np)
+    nonpruned_grid = {
+        "grid_raycast_cells_batch": {"launches": np_counted["grid_raycast_cells_batch"], **rec_np},
+        "grid_raycast_cells": grid_one_check(bk2, base_np[0], planes_np[0], got_np[0]),
+    }
     empty = ops.raycast_count_batch(xs, ys, coeffs[:0])
     if empty.shape != (0, n_u):
         raise AssertionError(f"empty batch gave {tuple(empty.shape)}")
-    _log("kernels", bit_identical_raycast=True, rank_checked_queries=len(rank_out),
+    _log("kernels", bit_identical_raycast=True, bit_identical_grid=True,
+         rank_checked_queries=len(rank_out),
          rank_users_off_by_one=n_rank_off, d2h_counts_ms=d2h_ms,
          d2h_counts_pinned_ms=d2h_pinned_ms, counts_mb=got.numel() * 4 / 1e6,
-         records=records)
+         records=records, grid_nonpruned_shapes=nonpruned_grid)
     return records
 
 

@@ -5,11 +5,15 @@ Public surface:
     (build once from ``(facilities, users, RkNNConfig)``;
     query/batch/mono/stream), on ``device`` (default ``"cuda"``)
   * :mod:`repro_torch.core.backends` — verification backend registry
-    (``dense``, ``dense-ref``, ``brute``)
+    (``dense``, ``dense-ref``, ``grid``, ``grid-pallas``,
+    ``grid-pallas-ref``, ``brute``)
   * :func:`repro_torch.core.rknn.rt_rknn_query` — one-shot bichromatic shim
   * :func:`repro_torch.core.rknn.rt_rknn_query_batch` — one-shot batched shim
   * :func:`repro_torch.core.rknn.rknn_mono_query` — monochromatic variant
   * :mod:`repro_torch.core.scene` — per-query occluder scene construction
+  * :mod:`repro_torch.core.grid` — the uniform-grid occluder index
+  * :func:`scene_from_arrays`, :func:`grid_from_arrays` — a scene or grid
+    index of this package from another package's arrays
 """
 
 from repro_torch.core.backends import (
@@ -20,6 +24,7 @@ from repro_torch.core.backends import (
 )
 from repro_torch.core.engine import EngineStats, RkNNConfig, RkNNEngine
 from repro_torch.core.geometry import Rect
+from repro_torch.core.grid import grid_from_arrays
 from repro_torch.core.rknn import (
     BACKENDS,
     RkNNBatchResult,
@@ -35,6 +40,7 @@ __all__ = [
     "Scene",
     "build_scene",
     "scene_from_arrays",
+    "grid_from_arrays",
     "RkNNEngine",
     "RkNNConfig",
     "EngineStats",

@@ -18,24 +18,47 @@ Built-in backends (all produce identical verdict sets):
 * ``"dense"``     — the hand-written CUDA ray-cast kernel
                     (``repro_torch/csrc/raycast.cu``) over the padded scene.
 * ``"dense-ref"`` — the plain PyTorch version of the same count.
+* ``"grid"``      — uniform-grid culled counting over the grid index
+                    (:mod:`repro_torch.core.grid`), plain PyTorch as the
+                    JAX package's jnp version.
+* ``"grid-pallas"`` — cell-bucketed grid counting through the hand-written
+                    CUDA kernel (``repro_torch/csrc/grid_raycast.cu``); the
+                    name is the JAX package's, so configurations carry over.
+* ``"grid-pallas-ref"`` — the plain PyTorch version of the same bucketed
+                    count.
 * ``"brute"``     — exact distance-rank counting (no geometry; baseline),
                     plain PyTorch as in the JAX package.
 
-The grid, grid-pallas, BVH and ``auto`` planner backends of the JAX
-package are not part of this package yet.
+The BVH and ``auto`` planner backends of the JAX package are not part of
+this package yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, ClassVar
+from typing import Any, ClassVar, NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.geometry import Rect
+from repro_torch.core.grid import (
+    OccluderGrid,
+    build_grid,
+    grid_hit_counts_batch_torch,
+    grid_hit_counts_torch,
+    refit_grid,
+    stack_grids,
+)
 from repro_torch.core.scene import Scene, _next_pad, pad_scene_arrays
 from repro_torch.kernels import ops as _ops
+from repro_torch.kernels.grid_raycast import (
+    pack_cell_coeff_planes,
+    prepare_cell_buckets,
+    repack_cell_coeff_planes,
+    unsort_cell_counts,
+    unsort_index,
+)
 
 __all__ = [
     "Backend",
@@ -44,8 +67,13 @@ __all__ = [
     "register_backend",
     "get_backend",
     "available_backends",
+    "stack_cell_planes",
+    "CellBuckets",
     "DenseBackend",
     "DenseRefBackend",
+    "GridBackend",
+    "GridPallasBackend",
+    "GridPallasRefBackend",
     "BruteBackend",
 ]
 
@@ -56,19 +84,27 @@ class QueryRequest:
 
     Geometric backends read ``xs/ys`` + ``scene`` (+ ``index``); the
     geometry-free brute backend reads ``users/facilities/q_pt/exclude``
-    and puts them on ``device``.
+    and puts them on ``device``.  The grid-pallas backends bucket the host
+    copy of the users (``users``), never the device tensors.
     """
 
     xs: torch.Tensor | None  # [N] f32 user x on the engine's device
     ys: torch.Tensor | None  # [N] f32 user y
     k: int
     device: torch.device
+    grid_g: int = 64
     scene: Scene | None = None
     index: Any = None
     users: np.ndarray | None = None  # [N, 2] f64
     facilities: np.ndarray | None = None  # [M, 2] f64
     q_pt: np.ndarray | None = None  # [2]
     exclude: int | None = None
+    #: Optional per-snapshot kernel memo (an ``LruCache``): the engine
+    #: injects its snapshot's store so per-user-set state (the grid-pallas
+    #: cell bucketing) is cached per snapshot, not on the backend
+    #: singleton.  ``None`` (raw protocol use) falls back to a small
+    #: instance cache.
+    memo: Any = None
 
 
 @dataclasses.dataclass
@@ -85,6 +121,7 @@ class BatchRequest:
     k: int
     device: torch.device
     rect: Rect | None = None
+    grid_g: int = 64
     scenes: list[Scene] | None = None
     indexes: list | None = None
     users: np.ndarray | None = None
@@ -92,6 +129,8 @@ class BatchRequest:
     q_pts: np.ndarray | None = None  # [Q, 2]
     excludes: list[int | None] | None = None
     mp: int | None = None
+    #: Per-snapshot kernel memo — see :attr:`QueryRequest.memo`.
+    memo: Any = None
 
 
 class Backend:
@@ -103,13 +142,36 @@ class Backend:
     uses_scene: ClassVar[bool] = True
 
     # ---- filter phase (host) --------------------------------------------
-    def build_index(self, scene: Scene, *, memo: dict | None = None):
-        """Host-side per-scene index build; ``None`` if unused.
+    def build_index(self, scene: Scene, *, grid_g: int = 64, memo: dict | None = None):
+        """Host-side per-scene index build (the grid); ``None`` if unused.
 
         ``memo`` is the engine snapshot's per-scene index store (a plain
-        dict scoped to ``scene``).
+        dict scoped to ``scene``): backends that share one built structure
+        across registry entries (the grid family) memoize it there under
+        their own key.  ``None`` builds fresh.
         """
         return None
+
+    def refit_index(
+        self,
+        index,
+        old_scene: Scene,
+        new_scene: Scene,
+        changed: np.ndarray,
+        *,
+        grid_g: int = 64,
+    ) -> tuple[Any, bool]:
+        """Adapt ``index`` (built for ``old_scene``) to ``new_scene``.
+
+        ``changed`` lists the real-triangle ids whose geometry differs; all
+        other triangles are bit-identical between the scenes.  Returns
+        ``(new_index, refit)`` where ``refit`` is True when the index was
+        adapted in place rather than rebuilt.  The default — and the
+        fallback of every override whose cheap path does not apply — is a
+        fresh :meth:`build_index`.  Either way the returned index counts
+        exactly like a fresh build.
+        """
+        return self.build_index(new_scene, grid_g=grid_g), False
 
     def prepare_batch(self, req: BatchRequest):
         """Host-side batch stacking; the returned object is what
@@ -204,6 +266,300 @@ class DenseRefBackend(DenseBackend):
     """The plain PyTorch version of the dense count, on the same device."""
 
     name = "dense-ref"
+    kernel_backend = "ref"
+
+
+# --------------------------------------------------------------------------
+# Grid (uniform-grid culling, the BVH analogue)
+# --------------------------------------------------------------------------
+
+
+@register_backend
+class GridBackend(Backend):
+    """Grid-culled counting in plain PyTorch on the engine's device (the
+    JAX package runs the same count as jnp, with no Pallas kernel)."""
+
+    name = "grid"
+
+    def build_index(self, scene: Scene, *, grid_g: int = 64, memo: dict | None = None):
+        # the grid, grid-pallas, and grid-pallas-ref backends all build the
+        # identical index, so within one snapshot's per-scene store they
+        # share it under ("grid", G) — a scene queried through more than
+        # one of them pays one build (the bucketed variants hang their
+        # packed planes off the shared object)
+        key = ("grid", int(grid_g))
+        if memo is not None:
+            g = memo.get(key)
+            if g is not None:
+                return g
+        g = build_grid(
+            scene.tris[: scene.n_tris],
+            scene.coeffs[: scene.n_tris],
+            scene.rect,
+            G=grid_g,
+        )
+        if memo is not None:
+            memo[key] = g
+        return g
+
+    def refit_index(
+        self,
+        index,
+        old_scene: Scene,
+        new_scene: Scene,
+        changed: np.ndarray,
+        *,
+        grid_g: int = 64,
+    ):
+        if index is not None and index.G == grid_g:
+            n = old_scene.n_tris
+            g = refit_grid(
+                index,
+                old_scene.tris[:n],
+                old_scene.coeffs[:n],
+                new_scene.tris[: new_scene.n_tris],
+                new_scene.coeffs[: new_scene.n_tris],
+                changed,
+            )
+            if g is not None:
+                return g, True
+        return self.build_index(new_scene, grid_g=grid_g), False
+
+    def count(self, req: QueryRequest) -> np.ndarray:
+        g = req.index
+        if g is None:
+            g = self.build_index(req.scene, grid_g=req.grid_g)
+        return grid_hit_counts_torch(
+            req.xs, req.ys, g.base, g.lists, g.coeffs, req.scene.rect, req.grid_g
+        ).cpu().numpy()
+
+    def prepare_batch(self, req: BatchRequest):
+        indexes = req.indexes
+        if indexes is None:
+            indexes = [self.build_index(s, grid_g=req.grid_g) for s in req.scenes]
+        # the upload belongs to the filter phase, as the dense stack's does
+        return tuple(torch.from_numpy(a).to(req.device) for a in stack_grids(indexes))
+
+    def count_batch(self, req: BatchRequest, prepared) -> np.ndarray:
+        base, lists, coeffs = prepared
+        return grid_hit_counts_batch_torch(
+            req.xs, req.ys, base, lists, coeffs, req.rect, req.grid_g
+        ).cpu().numpy()
+
+
+# --------------------------------------------------------------------------
+# Grid-Pallas (cell-bucketed CUDA kernel over the grid index)
+# --------------------------------------------------------------------------
+
+
+def stack_cell_planes(planes: list[np.ndarray]) -> np.ndarray:
+    """Stack per-scene packed coefficient planes ``[n_cells, 3, 3, L_i]``
+    into one ``[Q, n_cells, 3, 3, L]`` batch table.
+
+    Per-scene lane widths ``L_i`` are heterogeneous (each scene pads to
+    its own longest cell list); short planes degenerate-pad with the
+    third coefficient row at ``-1`` — a plane no point is ever inside —
+    so padding lanes can never contribute a hit.
+    """
+    L = max(p.shape[-1] for p in planes)
+    if all(p.shape[-1] == L for p in planes):
+        return np.stack(planes)
+    out = np.zeros((len(planes),) + planes[0].shape[:-1] + (L,), np.float32)
+    out[:, :, :, 2, :] = -1.0  # degenerate pad (never inside)
+    for i, p in enumerate(planes):
+        out[i, ..., : p.shape[-1]] = p
+    return out
+
+
+class CellBuckets(NamedTuple):
+    """One user set sorted by grid cell (see
+    :func:`repro_torch.kernels.grid_raycast.prepare_cell_buckets`).
+
+    ``xs_s``, ``ys_s``, ``ranks`` and ``unsort`` live on the engine's
+    device; ``occ`` is a host array.  ``occ`` lists the user-occupied cell
+    ids and ``ranks`` maps each user block into that compact axis, so the
+    plane and base tables shipped to the device carry only occupied
+    cells.  ``unsort`` is the bucketing's
+    :func:`~repro_torch.kernels.grid_raycast.unsort_index`.
+    """
+
+    xs_s: torch.Tensor  # [n_sorted] f32
+    ys_s: torch.Tensor  # [n_sorted] f32
+    ranks: torch.Tensor  # [n_blocks] int32
+    occ: np.ndarray  # [n_occupied] cell ids
+    block: int
+    unsort: torch.Tensor  # [N] int64
+
+
+@register_backend
+class GridPallasBackend(GridBackend):
+    """Cell-bucketed grid counting through the CUDA kernel
+    (``repro_torch/csrc/grid_raycast.cu``; the registry name is the JAX
+    package's, whose backend runs the scalar-prefetch Pallas kernel).
+
+    The plain grid count pays a per-user ``[N, L, 3, 3]`` coefficient
+    gather.  This backend instead
+
+    * sorts users by grid cell once per ``(users, rect, G)`` (all stacked
+      scenes share one domain rect; the bucketing is cached in the
+      snapshot's kernel memo, on the device, so successive batches over
+      the same user set reuse it),
+    * packs each grid index's per-cell coefficient planes
+      ``[G*G, 3, 3, L]`` once (memoized on the index; incrementally
+      re-packed for the cells a :meth:`refit_index` touches),
+    * compacts the stacked plane/base tables to the user-OCCUPIED cells
+      (``cell_map`` becomes a rank into that compact axis), and
+    * dispatches one ``(user block, query)`` kernel launch where each
+      thread block stages one query's planes for one cell through shared
+      memory and adds ``base[q, cell]``.
+
+    Everything host-side (bucketing, packing, stacking, upload) runs in
+    :meth:`prepare_batch` (``t_filter_s``); :meth:`count_batch` is the one
+    device dispatch, the unsort on the device and the copy back.  Counts
+    are bit-identical to the ``grid`` backend's.
+    """
+
+    name = "grid-pallas"
+    kernel_backend = "cuda"
+
+    # ---- packed per-cell planes (memoized on the grid index) ------------
+    @staticmethod
+    def _planes_for(grid: OccluderGrid) -> np.ndarray:
+        planes = getattr(grid, "_cell_planes", None)
+        if planes is None:
+            planes = pack_cell_coeff_planes(grid)
+            grid._cell_planes = planes
+        return planes
+
+    # ---- user bucketing (shared across batches over one user set) -------
+    def _buckets_for(self, req, rect: Rect, G: int) -> CellBuckets:
+        """The :class:`CellBuckets` of the request's users.
+
+        Bucketed from the host float32 copy of the users (the same cast
+        :class:`~repro_torch.core.snapshot.EngineSnapshot` uploads), never
+        from the device tensors.  With a snapshot memo (engine-routed
+        requests) the result is cached per snapshot: the memo pins a
+        strong reference to ``xs`` so the identity key stays valid for the
+        entry's lifetime.  Without one the users are bucketed afresh.
+        """
+        xs = req.xs
+        n = int(xs.shape[0])
+        key = ("gp-buckets", id(xs), n, rect, int(G))
+        memo = req.memo
+        if memo is not None:
+            hit = memo.get(key)
+            if hit is not None and hit[0] is xs:
+                return hit[1]
+        if req.users is not None:
+            xs_np = np.ascontiguousarray(req.users[:, 0], dtype=np.float32)
+            ys_np = np.ascontiguousarray(req.users[:, 1], dtype=np.float32)
+        elif xs.device.type == "cpu":
+            xs_np, ys_np = xs.numpy(), req.ys.numpy()
+        else:
+            raise ValueError(
+                f"{self.name} buckets the host copy of the users: pass "
+                f"`users` with user tensors on {xs.device}"
+            )
+        xs_s, ys_s, order, cell_map, nb = prepare_cell_buckets(
+            xs_np, ys_np, rect, G, block=None
+        )
+        occ = np.unique(cell_map)
+        dev = xs.device
+        buckets = CellBuckets(
+            xs_s=torch.from_numpy(xs_s).to(dev),
+            ys_s=torch.from_numpy(ys_s).to(dev),
+            ranks=torch.from_numpy(np.searchsorted(occ, cell_map).astype(np.int32)).to(dev),
+            occ=occ,
+            block=xs_s.shape[0] // nb if nb else 0,
+            unsort=torch.from_numpy(unsort_index(order, n)).to(dev),
+        )
+        if memo is not None:
+            memo.put(key, (xs, buckets))  # strong ref pins id(xs)
+        return buckets
+
+    # ---- filter phase ----------------------------------------------------
+    def build_index(self, scene: Scene, *, grid_g: int = 64, memo: dict | None = None):
+        grid = super().build_index(scene, grid_g=grid_g, memo=memo)
+        self._planes_for(grid)  # pack eagerly: host work belongs to filter
+        return grid
+
+    def refit_index(
+        self,
+        index,
+        old_scene: Scene,
+        new_scene: Scene,
+        changed: np.ndarray,
+        *,
+        grid_g: int = 64,
+    ):
+        new_grid, was_refit = super().refit_index(
+            index, old_scene, new_scene, changed, grid_g=grid_g
+        )
+        if was_refit:
+            # incremental plane re-pack: refit_grid preserves the padded
+            # list width, so only cells whose candidate list changed — or
+            # that list a changed triangle (its coefficients moved) — need
+            # their [3, 3, L] planes rewritten
+            old_planes = getattr(index, "_cell_planes", None)
+            if old_planes is not None:
+                touched = np.flatnonzero(
+                    np.any(index.lists != new_grid.lists, axis=1)
+                    | np.isin(new_grid.lists, np.asarray(changed)).any(axis=1)
+                )
+                new_grid._cell_planes = repack_cell_coeff_planes(
+                    old_planes, new_grid, touched
+                )
+        return new_grid, was_refit
+
+    def prepare_batch(self, req: BatchRequest):
+        indexes = req.indexes
+        if indexes is None:
+            indexes = [self.build_index(s, grid_g=req.grid_g) for s in req.scenes]
+        G = indexes[0].G
+        rect = indexes[0].rect
+        if any(g.G != G for g in indexes):
+            raise ValueError("all grids in a batch must share G")
+        if any(g.rect != rect for g in indexes):
+            raise ValueError("all grids in a batch must share the domain rect")
+        buckets = self._buckets_for(req, rect, G)
+        occ = buckets.occ
+        planes_q = stack_cell_planes([self._planes_for(g)[occ] for g in indexes])
+        base_q = np.stack([g.base[occ] for g in indexes]).astype(np.int32)
+        return (
+            buckets,
+            torch.from_numpy(base_q).to(req.device),
+            torch.from_numpy(planes_q).to(req.device),
+        )
+
+    # ---- verify phase ----------------------------------------------------
+    def count(self, req: QueryRequest) -> np.ndarray:
+        grid = req.index
+        if grid is None:
+            grid = self.build_index(req.scene, grid_g=req.grid_g)
+        b = self._buckets_for(req, grid.rect, grid.G)
+        counts = _ops.grid_count_cells(
+            b.xs_s, b.ys_s, b.ranks,
+            torch.from_numpy(grid.base[b.occ]).to(req.device),
+            torch.from_numpy(self._planes_for(grid)[b.occ]).to(req.device),
+            block=b.block, backend=self.kernel_backend,
+        )
+        return unsort_cell_counts(counts, b.unsort).cpu().numpy()
+
+    def count_batch(self, req: BatchRequest, prepared) -> np.ndarray:
+        b, base_q, planes_q = prepared
+        counts = _ops.grid_count_cells_batch(
+            b.xs_s, b.ys_s, b.ranks, base_q, planes_q,
+            block=b.block, backend=self.kernel_backend,
+        )
+        return unsort_cell_counts(counts, b.unsort).cpu().numpy()
+
+
+@register_backend
+class GridPallasRefBackend(GridPallasBackend):
+    """The plain PyTorch version of the bucketed grid count, on the same
+    device (mirrors the dense/dense-ref pairing)."""
+
+    name = "grid-pallas-ref"
     kernel_backend = "ref"
 
 

@@ -53,6 +53,8 @@ class RkNNConfig:
     """Construction-time knobs of :class:`RkNNEngine`.
 
     ``scene_cache`` / ``batch_cache`` are LRU capacities (0 disables).
+    ``grid_g`` is the ``G x G`` raster of the grid index that the ``grid``,
+    ``grid-pallas`` and ``grid-pallas-ref`` backends build per scene.
     ``pad_scene_to`` seeds the sticky power-of-two triangle pad bucket;
     ``pad_to`` pins it exactly (overriding bucketing) when not ``None``.
 
@@ -66,6 +68,7 @@ class RkNNConfig:
 
     backend: str = "dense"
     strategy: str = "infzone"
+    grid_g: int = 64
     prune_grid: int | None = None
     pad_to: int | None = None
     scene_workers: int = 0
@@ -321,11 +324,16 @@ class RkNNEngine:
 
     def _index_for(self, snap: EngineSnapshot, backend: Backend, scene: Scene) -> Any:
         """Per-scene index from the snapshot's memo, so cached scenes carry
-        their index across repeated queries."""
+        their grid across repeated queries."""
         store = snap.index_memo.store_for(scene)
-        if backend.name not in store:
-            store[backend.name] = backend.build_index(scene, memo=store)
-        return store[backend.name]
+        key = (backend.name, self.config.grid_g)
+        if key not in store:
+            # the backend's own build memo shares the store: grid and
+            # grid-pallas dedupe their underlying grid build through it
+            store[key] = backend.build_index(
+                scene, grid_g=self.config.grid_g, memo=store
+            )
+        return store[key]
 
     def _build_scenes(
         self, snap: EngineSnapshot, queries: list, k: int, rect: Rect, workers: int
@@ -379,6 +387,7 @@ class RkNNEngine:
             k=k,
             device=snap.device,
             rect=rect,
+            grid_g=self.config.grid_g,
             scenes=scenes,
             indexes=[self._index_for(snap, backend, s) for s in scenes],
             users=snap.users,
@@ -386,6 +395,7 @@ class RkNNEngine:
             q_pts=q_pts,
             excludes=excludes,
             mp=self._mp_bucket(scenes),
+            memo=snap.kernel_memo,
         )
         prepared = backend.prepare_batch(req)
         if cache_key is not None:
@@ -459,7 +469,15 @@ class RkNNEngine:
             with span("verify", backend=b.name) as sv:
                 counts = b.count(
                     QueryRequest(
-                        xs=xs, ys=ys, k=k, device=snap.device, scene=scene, index=index
+                        xs=xs,
+                        ys=ys,
+                        k=k,
+                        device=snap.device,
+                        grid_g=self.config.grid_g,
+                        scene=scene,
+                        index=index,
+                        users=snap.users,
+                        memo=snap.kernel_memo,
                     )
                 )
         t_filter, t_verify = sf.elapsed_s, sv.elapsed_s

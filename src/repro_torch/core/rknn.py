@@ -9,8 +9,8 @@ cannot amortize anything) and therefore keep their historical semantics
 bit-for-bit: same masks, same counts, same two-stage timing convention.
 
 Backend names resolve through the registry in
-:mod:`repro_torch.core.backends` (``dense``, ``dense-ref`` and ``brute``
-built in).  Every shim takes ``device=None``, which means ``"cuda"`` and
+:mod:`repro_torch.core.backends` (``dense``, ``dense-ref``, ``grid``,
+``grid-pallas``, ``grid-pallas-ref`` and ``brute`` built in).  Every shim takes ``device=None``, which means ``"cuda"`` and
 raises without a card; ``device="cpu"`` runs the plain PyTorch versions.
 
 Timing semantics (§4.1 / [62] two-stage convention): *filtering*
@@ -48,6 +48,7 @@ def _one_shot_engine(
     *,
     backend: str,
     strategy: str = "infzone",
+    grid_g: int = 64,
     prune_grid: int | None = None,
     rect: Rect | None = None,
     pad_to: int | None = None,
@@ -60,6 +61,7 @@ def _one_shot_engine(
         RkNNConfig(
             backend=backend,
             strategy=strategy,
+            grid_g=grid_g,
             prune_grid=prune_grid,
             pad_to=pad_to,
             scene_workers=scene_workers,
@@ -79,6 +81,7 @@ def rt_rknn_query(
     *,
     backend: str = "dense",
     strategy: str = "infzone",
+    grid_g: int = 64,
     prune_grid: int | None = None,
     rect: Rect | None = None,
     pad_to: int | None = None,
@@ -95,6 +98,7 @@ def rt_rknn_query(
         users,
         backend=backend,
         strategy=strategy,
+        grid_g=grid_g,
         prune_grid=prune_grid,
         rect=rect,
         pad_to=pad_to,
@@ -111,6 +115,7 @@ def rt_rknn_query_batch(
     *,
     backend: str = "dense",
     strategy: str = "infzone",
+    grid_g: int = 64,
     prune_grid: int | None = None,
     rect: Rect | None = None,
     pad_to: int | None = None,
@@ -135,6 +140,7 @@ def rt_rknn_query_batch(
         users,
         backend=backend,
         strategy=strategy,
+        grid_g=grid_g,
         prune_grid=prune_grid,
         rect=rect,
         pad_to=pad_to,

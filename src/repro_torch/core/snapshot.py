@@ -4,8 +4,9 @@
 piece of derived state the query paths amortize against them: the domain
 rect and hull, the facility fingerprint, the user coordinates as float32
 tensors on the engine's device (uploaded once), the
-:class:`~repro_torch.core.hybrid.SceneCache`, the per-scene index memo and
-the prepared-batch LRU.
+:class:`~repro_torch.core.hybrid.SceneCache`, the per-scene index memo,
+the kernel memo (the grid backends' user-to-cell bucketing) and the
+prepared-batch LRU.
 
 The read path takes no lock: the caches expose GIL-atomic lock-free
 ``get`` and lock only on insertion (eviction safety).  Lazy fields are
@@ -112,6 +113,7 @@ class EngineSnapshot:
         "explicit_rect",
         "scene_cache",
         "index_memo",
+        "kernel_memo",
         "batch_cache",
         "_rect",
         "_hull",
@@ -142,6 +144,9 @@ class EngineSnapshot:
         self.explicit_rect = bool(explicit_rect)
         self.scene_cache = scene_cache
         self.index_memo = IndexMemo(index_capacity)
+        #: Per-user-set kernel state (the grid-pallas cell bucketing, kept
+        #: on the device), owned by this snapshot and not by the backend.
+        self.kernel_memo = LruCache(4)
         self.batch_cache = LruCache(batch_capacity)
         self._rect = rect
         self._hull: tuple[np.ndarray, np.ndarray] | None = None

@@ -1,11 +1,16 @@
 """Hand-written CUDA kernels for the verify phase, and their plain versions.
 
 * ``ops``        — public wrappers (``raycast_count``,
-                   ``raycast_count_batch``, ``rank_count``,
+                   ``raycast_count_batch``, ``grid_count_cells``,
+                   ``grid_count_cells_batch``, ``rank_count``,
                    ``rank_count_batch``): kernel on CUDA tensors, plain
                    PyTorch version on CPU tensors
 * ``raycast``    — launch of the dense ray-cast count kernel
                    (``csrc/raycast.cu``), one kernel with a query axis
+* ``grid_raycast`` — the cell bucketing and plane packing of the grid
+                   index, and launch of the cell-bucketed grid count
+                   kernel (``csrc/grid_raycast.cu``), one kernel with a
+                   query axis and an optional ``base``
 * ``rank_count`` — launch of the distance-rank count kernel
                    (``csrc/rank_count.cu``), the exact on-card oracle
 * ``ref``        — the plain PyTorch versions

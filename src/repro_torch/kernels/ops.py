@@ -15,16 +15,27 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.grid_raycast import grid_raycast_cells_batch
 from repro_torch.kernels.rank_count import rank_count_kernel_call
 from repro_torch.kernels.raycast import (
     raycast_count_batch_kernel_call,
     raycast_count_kernel_call,
 )
 
-__all__ = ["raycast_count", "raycast_count_batch", "rank_count", "rank_count_batch"]
+__all__ = [
+    "raycast_count",
+    "raycast_count_batch",
+    "grid_count_cells",
+    "grid_count_cells_batch",
+    "rank_count",
+    "rank_count_batch",
+]
 
 _USER_CHUNK = 32_768  # bounds the [chunk, M] edge temporaries of the plain path
 _RANK_CHUNK_ELEMS = 1 << 22  # bounds the [Q, chunk, M] distance temporaries
+#: Element budget of one [Q, chunk, block, L] edge temporary of the plain
+#: bucketed grid count (the JAX package's ``_CELL_CHUNK_ELEMS``).
+_CELL_CHUNK_ELEMS = 4_194_304
 
 
 def _device_of(x) -> torch.device:
@@ -91,6 +102,70 @@ def raycast_count_batch(xs, ys, coeffs, *, backend: str = "cuda") -> torch.Tenso
         return raycast_count_batch_kernel_call(xs, ys, coeffs)
     chunk = max(1024, _USER_CHUNK // max(int(coeffs.shape[0]), 1))
     return _raycast_batch_ref_chunked(xs, ys, coeffs, chunk)
+
+
+def grid_count_cells_batch(
+    xs_sorted, ys_sorted, cell_map, base, planes, *, block: int, backend: str = "cuda"
+) -> torch.Tensor:
+    """Batched cell-bucketed grid hit counts: ``[Q, n_sorted]`` int32.
+
+    ``xs_sorted/ys_sorted``: ``[n_blocks*block]`` cell-sorted padded users
+    (from :func:`repro_torch.kernels.grid_raycast.prepare_cell_buckets`,
+    shared across the batch's queries); ``cell_map``: ``[n_blocks]``;
+    ``base``: ``[Q, n_cells]``; ``planes``: ``[Q, n_cells, 3, 3, L]``.
+    Counts stay in sorted order on the device of ``xs_sorted`` — unsort
+    with :func:`repro_torch.kernels.grid_raycast.unsort_cell_counts`.
+    The kernel adds ``base[q, cell]`` itself; the plain path adds it with
+    a gather after the block-chunked count.
+    """
+    dev = _device_of(xs_sorted)
+    xs = _f32(xs_sorted, dev)
+    ys = _f32(ys_sorted, dev)
+    cell_map = torch.as_tensor(cell_map, dtype=torch.int32, device=dev).contiguous()
+    base = torch.as_tensor(base, dtype=torch.int32, device=dev).contiguous()
+    planes = _f32(planes, dev)
+    if planes.ndim != 5:
+        raise ValueError(f"planes must be [Q, n_cells, 3, 3, L], got {tuple(planes.shape)}")
+    q_n, nb = planes.shape[0], cell_map.shape[0]
+    if nb == 0:
+        return torch.zeros((q_n, 0), dtype=torch.int32, device=dev)
+    if _use_kernel(backend, dev):
+        return grid_raycast_cells_batch(xs, ys, cell_map, planes, block=block, base=base)
+    chunk = max(_CELL_CHUNK_ELEMS // max(q_n * block * int(planes.shape[-1]), 1), 1)
+    counts = torch.cat(
+        [
+            _ref.grid_cells_count_batch_ref(
+                xs[s * block : (s + chunk) * block],
+                ys[s * block : (s + chunk) * block],
+                cell_map[s : s + chunk],
+                planes,
+            )
+            for s in range(0, nb, chunk)
+        ],
+        dim=1,
+    )
+    return counts + base[:, cell_map.long().repeat_interleave(block)]
+
+
+def grid_count_cells(
+    xs_sorted, ys_sorted, cell_map, base, planes, *, block: int, backend: str = "cuda"
+) -> torch.Tensor:
+    """Single-query bucketed grid hit counts: ``[n_sorted]`` int32.
+
+    ``base``: ``[n_cells]``; ``planes``: ``[n_cells, 3, 3, L]``.  Same
+    contract as :func:`grid_count_cells_batch` at ``Q = 1``, whose kernel
+    it launches.
+    """
+    dev = _device_of(xs_sorted)
+    return grid_count_cells_batch(
+        xs_sorted,
+        ys_sorted,
+        cell_map,
+        torch.as_tensor(base, dtype=torch.int32, device=dev)[None],
+        _f32(planes, dev)[None],
+        block=block,
+        backend=backend,
+    )[0]
 
 
 def rank_count(users, facilities, q, *, exclude: int | None = None, backend: str = "cuda"):

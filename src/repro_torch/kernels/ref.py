@@ -23,6 +23,8 @@ __all__ = [
     "raycast_count_batch_ref",
     "rank_count_ref",
     "rank_count_batch_ref",
+    "grid_raycast_ref",
+    "grid_cells_count_batch_ref",
 ]
 
 #: Number of calls into the plain versions since the last reset to 0.
@@ -34,12 +36,20 @@ def _count() -> None:
     calls += 1
 
 
+def _affine(x, y, a, b, c):
+    """``((x * a) + (y * b)) + c``, one rounding per operation, broadcast:
+    the one order in which every kernel and plain version evaluates an
+    edge function."""
+    return (x * a + y * b) + c
+
+
 def _edge(xs, ys, coeffs, i: int):
-    """``e_i = ((x * a_i) + (y * b_i)) + c_i`` broadcast to ``[..., N, M]``."""
-    a = coeffs[..., None, :, i, 0]
-    b = coeffs[..., None, :, i, 1]
-    c = coeffs[..., None, :, i, 2]
-    return (xs[:, None] * a + ys[:, None] * b) + c
+    """Edge ``i`` of ``coeffs`` ``[..., M, 3, 3]`` at users ``xs, ys``
+    ``[N]``, broadcast to ``[..., N, M]``."""
+    return _affine(
+        xs[:, None], ys[:, None],
+        coeffs[..., None, :, i, 0], coeffs[..., None, :, i, 1], coeffs[..., None, :, i, 2],
+    )
 
 
 def raycast_count_batch_ref(xs, ys, coeffs):
@@ -76,3 +86,49 @@ def rank_count_batch_ref(xs, ys, fx, fy, thr):
     dx = xs[None, :, None] - fx[:, None, :]
     dy = ys[None, :, None] - fy[:, None, :]
     return (dx * dx + dy * dy < thr[:, :, None]).sum(dim=-1, dtype=torch.int32)
+
+
+def grid_cells_count_batch_ref(xs_sorted, ys_sorted, cell_map, planes):
+    """Batched cell-bucketed counting (plain version of the grid kernel).
+
+    ``xs_sorted, ys_sorted``: ``[n_blocks*block]`` cell-sorted padded user
+    coordinates; ``cell_map``: ``[n_blocks]`` cell per user block;
+    ``planes``: ``[Q, n_cells, 3, 3, L]`` per-query cell coefficient
+    planes.  Returns partial-list hit counts ``[Q, n_blocks*block]`` int32
+    in sorted order (the caller adds ``base[q, cell]``).
+    """
+    _count()
+    nb = cell_map.shape[0]
+    block = xs_sorted.shape[0] // max(nb, 1)
+    x = xs_sorted.reshape(nb, block)[None, :, :, None]  # [1, NB, B, 1]
+    y = ys_sorted.reshape(nb, block)[None, :, :, None]
+    p = planes[:, cell_map.long()]  # [Q, NB, 3, 3, L]
+
+    def ev(e):
+        return _affine(x, y, *(p[:, :, e, j, None, :] for j in range(3)))  # [Q, NB, B, L]
+
+    inside = (ev(0) >= 0.0) & (ev(1) >= 0.0) & (ev(2) >= 0.0)
+    return inside.sum(dim=-1, dtype=torch.int32).reshape(planes.shape[0], nb * block)
+
+
+def grid_raycast_ref(xs, ys, base, lists, coeffs, rect_lo, rect_size, G: int):
+    """Grid-culled hit counting: ``[N]`` int32,
+    ``base[cell(u)] + #{t in lists[cell(u)] : u inside t}``.
+
+    ``base`` ``[G*G]`` int32, ``lists`` ``[G*G, L]`` (``-1`` padded),
+    ``coeffs`` ``[M, 3, 3]`` (``M >= 1``); ``rect_lo``/``rect_size`` are
+    Python floats, so the cell arithmetic is float32 as in the JAX oracle.
+    """
+    _count()
+    w = rect_size[0] / G
+    h = rect_size[1] / G
+    cx = torch.clamp(torch.floor((xs - rect_lo[0]) / w), 0, G - 1).long()
+    cy = torch.clamp(torch.floor((ys - rect_lo[1]) / h), 0, G - 1).long()
+    cell = cx * G + cy
+    cand = lists[cell].long()  # [N, L]
+    e = coeffs[cand.clamp(min=0)]  # [N, L, 3, 3]
+    x, y = xs[:, None], ys[:, None]
+    inside = cand >= 0
+    for i in range(3):
+        inside &= _affine(x, y, e[..., i, 0], e[..., i, 1], e[..., i, 2]) >= 0.0
+    return base[cell] + inside.sum(dim=-1, dtype=torch.int32)

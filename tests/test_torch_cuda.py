@@ -6,9 +6,9 @@ that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: ray-cast counts bit-identical (kernel and plain version share
-one rounding contract); rank counts equal on users with no near-tie
-competitor and within ±1 on the rest.
+Tolerances: ray-cast and grid counts bit-identical (kernels and plain
+versions share one rounding contract); rank counts equal on users with no
+near-tie competitor and within ±1 on the rest.
 """
 
 import numpy as np
@@ -18,7 +18,7 @@ import torch
 from repro_torch.core import RkNNEngine
 from repro_torch.core.geometry import Rect
 from repro_torch.core.scene import build_scene
-from repro_torch.kernels import ops, raycast
+from repro_torch.kernels import build, grid_raycast, ops, raycast, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -81,7 +81,60 @@ def test_rank_kernel_matches_plain_on_card(cuda_device):
     assert np.all(np.abs(got - want) <= 1)
 
 
-@pytest.mark.parametrize("backend", ["dense", "dense-ref", "brute"])
+def _cells(rng, n_blocks, block, lanes, q_n, n_cells=5):
+    """Ragged bucketed inputs: users in the unit square with a few padding
+    rows at 2e9, random cells, random edge planes (some lanes degenerate)
+    and random ``base`` counts."""
+    n = n_blocks * block
+    xs = rng.random(n).astype(np.float32)
+    ys = rng.random(n).astype(np.float32)
+    xs[::7] = ys[::7] = np.float32(2e9)
+    cell_map = rng.integers(0, n_cells, n_blocks).astype(np.int32)
+    planes = rng.normal(size=(q_n, n_cells, 3, 3, lanes)).astype(np.float32)
+    planes[..., lanes // 2 :: 3] = np.array([0.0, 0.0, -1.0], np.float32)[None, None, None, :, None]
+    base = rng.integers(0, 20, (q_n, n_cells)).astype(np.int32)
+    return xs, ys, cell_map, planes, base
+
+
+@pytest.mark.parametrize("q_n", [1, 3])
+@pytest.mark.parametrize("lanes", [1, 7, 300])
+@pytest.mark.parametrize("block", [8, 128, 256])
+def test_grid_kernel_matches_plain_on_card(cuda_device, block, lanes, q_n):
+    rng = np.random.default_rng(block * 1000 + lanes * 10 + q_n)
+    xs, ys, cm, planes, base = (_t(a).to(cuda_device) for a in _cells(rng, 37, block, lanes, q_n))
+    got = grid_raycast.grid_raycast_cells_batch(xs, ys, cm, planes, block=block)
+    want = ref.grid_cells_count_batch_ref(xs, ys, cm, planes)
+    assert got.shape == (q_n, 37 * block) and torch.equal(got, want)
+    with_base = grid_raycast.grid_raycast_cells_batch(xs, ys, cm, planes, block=block, base=base)
+    want_base = want + base[:, cm.long().repeat_interleave(block)]
+    assert torch.equal(with_base, want_base)
+    assert torch.equal(ops.grid_count_cells_batch(xs, ys, cm, base, planes, block=block), want_base)
+    assert torch.equal(
+        ops.grid_count_cells_batch(xs, ys, cm, base, planes, block=block, backend="ref"), want_base
+    )
+    single = grid_raycast.grid_raycast_cells(xs, ys, cm, base[0], planes[0], block=block)
+    assert torch.equal(single, want_base[0])
+    assert torch.equal(ops.grid_count_cells(xs, ys, cm, base[0], planes[0], block=block), single)
+
+
+def test_grid_kernel_empty_launches_nothing_and_refuses_cpu(cuda_device):
+    rng = np.random.default_rng(0)
+    xs, ys, cm, planes, base = (_t(a).to(cuda_device) for a in _cells(rng, 4, 8, 3, 2))
+    before = grid_raycast.batch_launches
+    none = ops.grid_count_cells_batch(xs[:0], ys[:0], cm[:0], base, planes, block=8)
+    no_q = grid_raycast.grid_raycast_cells_batch(xs, ys, cm, planes[:0], block=8)
+    assert none.shape == (2, 0) and no_q.shape == (0, 32)
+    assert grid_raycast.batch_launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        grid_raycast.grid_raycast_cells_batch(xs.cpu(), ys.cpu(), cm.cpu(), planes.cpu(), block=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        grid_raycast.grid_raycast_cells_batch(xs, ys, cm.long(), planes, block=8)
+    assert {"raycast", "rank_count", "grid_raycast"} <= set(build.build())
+
+
+@pytest.mark.parametrize(
+    "backend", ["dense", "dense-ref", "grid", "grid-pallas", "grid-pallas-ref", "brute"]
+)
 def test_engine_on_card_matches_engine_on_cpu(cuda_device, backend):
     rng = np.random.default_rng(3)
     F, U = rng.random((80, 2)), rng.random((3000, 2))

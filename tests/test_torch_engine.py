@@ -2,8 +2,9 @@
 
 Masks and counts must be exactly equal between ``repro.core.engine``
 and ``repro_torch.core.engine(device="cpu")`` for every ported backend:
-``dense`` (the JAX side runs its Pallas kernel in interpret mode, so only
-at small N), ``dense-ref`` and ``brute``.  Brute counts are distance
+``dense`` and ``grid-pallas`` (the JAX side runs its Pallas kernels in
+interpret mode, so only at small N), ``dense-ref``, ``grid``,
+``grid-pallas-ref`` and ``brute``.  Brute counts are distance
 ranks in float32 and ties may split at one ulp, so their masks are also
 held against the float64 numpy oracle.
 """
@@ -26,9 +27,17 @@ from repro_torch.core.geometry import Rect
 
 from tests._torch_parity import CPU, instance
 
-BACKENDS = ("dense", "dense-ref", "brute")
-#: instance sizes per backend: the JAX dense path runs interpret-mode Pallas
-SIZES = {"dense": (30, 120), "dense-ref": (60, 400), "brute": (60, 400)}
+BACKENDS = ("dense", "dense-ref", "grid", "grid-pallas", "grid-pallas-ref", "brute")
+#: instance sizes per backend: the JAX dense and grid-pallas paths run
+#: interpret-mode Pallas
+SIZES = {
+    "dense": (30, 120),
+    "dense-ref": (60, 400),
+    "grid": (60, 400),
+    "grid-pallas": (30, 120),
+    "grid-pallas-ref": (60, 400),
+    "brute": (60, 400),
+}
 
 
 def _pair(backend, F, U, **cfg):
@@ -48,7 +57,7 @@ def test_registry_and_default_backend():
     assert trknn.BACKENDS == BACKENDS
     assert RkNNConfig().backend == "dense"
     with pytest.raises(ValueError, match="backend must be one of"):
-        get_backend("grid")
+        get_backend("bvh")
     with pytest.raises(ValueError):
         RkNNEngine(np.zeros((4, 2)), np.zeros((4, 2)), RkNNConfig(backend="auto"), device=CPU)
 

@@ -37,6 +37,6 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
         env=env, capture_output=True, text=True, timeout=300, check=True,
     )
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert {"repro_torch.core.engine", "repro_torch.kernels.ops",
-            "repro_torch.kernels.build"} <= set(report["modules"])
+    assert {"repro_torch.core.engine", "repro_torch.core.grid", "repro_torch.kernels.ops",
+            "repro_torch.kernels.grid_raycast", "repro_torch.kernels.build"} <= set(report["modules"])
     assert report["leaked"] == []
