@@ -22,6 +22,13 @@ read just after:
 
 Wherever the grid and dense paths both count, their counts must be equal
 on every user: the port evaluates every edge with one rounding order.
+The ``raycast_tiles`` line logs what the dense kernel's tile classifier
+does at the main path's shapes (shares of SKIP, FULL and TEST pairs, from
+its plain twin, and the operations terms of all-pairs and of TEST-only
+tests), the time to build the users' spatial order at the main path's
+and at the mono path's size, the verify time of the one-shot shim
+``rt_rknn_query`` (a fresh engine, and so a fresh order, on every call),
+and the kernel's time without the gather back to the users' order.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -53,9 +60,12 @@ MONO_POINTS = 20_000
 TIE_EPS = 1e-6  # the JAX package's near-tie rule (tests/test_kernels.py)
 RANK_CHECK_QUERIES = 8  # rank kernel against its plain version
 GRID_G = 64  # the engine's default grid raster
-# H100 SXM peaks (NVIDIA data sheet; full 700 W power limit)
+# H100 SXM peaks at the full 700 W power limit.  Bytes: the data sheet.
+# Operations: the kernels keep one rounding per operation (no multiply and
+# add fuse), so each FLOP takes one FP32 issue slot: 132 SMs x 128 lanes x
+# 1.98 GHz, half the data sheet's 67 TFLOP/s, which counts an FMA as two.
 PEAK_BYTES_S = 3.35e12
-PEAK_FP32_FLOP_S = 67e12
+PEAK_FP32_OPS_S = 132 * 128 * 1.98e9
 
 
 def _log(phase: str, **fields) -> None:
@@ -63,24 +73,19 @@ def _log(phase: str, **fields) -> None:
 
 
 def _sync_ms(fn, reps: int, dev) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up:
-    CUDA events on the card, the host clock elsewhere."""
+    """Mean milliseconds of ``fn()`` over ``reps`` runs after one warm-up,
+    by CUDA events."""
     import torch
 
     fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize(dev)
-        return start.elapsed_time(stop) / reps
-    t0 = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
         fn()
-    return (time.perf_counter() - t0) * 1e3 / reps
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(stop) / reps
 
 
 def _host_ms(fn, reps: int, dev) -> float:
@@ -92,14 +97,46 @@ def _host_ms(fn, reps: int, dev) -> float:
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(dev)
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def _bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOP_S
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_OPS_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _tile_classes(order, coeffs, real_slots: int) -> dict:
+    """Shares of SKIP / FULL / TEST (tile, triangle slot) pairs from the
+    plain twin of the ray-cast kernel's classifier, over all slots and over
+    the ``real_slots`` real triangles; the per-user tests the TEST pairs
+    need (users of the tile per TEST pair); and the operations terms (12
+    a test) of testing every (user, real triangle) and of those tests."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.user_order import TILE_USERS
+
+    classes = ref.raycast_tile_classes_ref(order.boxes, coeffs)  # [Q, T, Mp]
+    pairs = classes.numel()
+    n_tiles = order.boxes.shape[0]
+    users = torch.full((n_tiles,), float(TILE_USERS), dtype=torch.float64, device=coeffs.device)
+    users[-1] = order.xs_s.shape[0] - (n_tiles - 1) * TILE_USERS
+    test = classes == ref.TILE_TEST
+    skip_n = int((classes == ref.TILE_SKIP).sum())
+    full_n = int((classes == ref.TILE_FULL).sum())
+    padding_pairs = (coeffs.shape[0] * coeffs.shape[1] - real_slots) * n_tiles  # always SKIP
+    user_tests = float((test.to(torch.float64) * users[None, :, None]).sum())
+    return {
+        "pairs": pairs, "skip": skip_n / pairs, "full": full_n / pairs, "test": int(test.sum()) / pairs,
+        "real_pairs": pairs - padding_pairs,
+        "real_skip": (skip_n - padding_pairs) / max(pairs - padding_pairs, 1),
+        "real_full": full_n / max(pairs - padding_pairs, 1),
+        "real_test": int(test.sum()) / max(pairs - padding_pairs, 1),
+        "user_tests": user_tests,
+        "all_pairs_ops_ms": 12 * order.xs_s.shape[0] * real_slots / PEAK_FP32_OPS_S * 1e3,
+        "tile_test_ops_ms": 12 * user_tests / PEAK_FP32_OPS_S * 1e3,
+    }
 
 
 def _tie_mask(users, facilities, q_row: int, chunk: int = 16_384):
@@ -232,21 +269,21 @@ def _grid_filter_breakdown(scenes, users, rect, dev) -> dict:
 
 def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_points: int,
         seed: int):
-    """All phases on ``dev``; returns the kernels' record.  On the card the
-    counted window must show every kernel launched and no plain version."""
+    """All phases on the card ``dev``; returns the kernels' record.  Each
+    counted window must show every kernel of its path launched and no
+    plain version."""
     import torch
 
-    from repro_torch.core import RkNNConfig, RkNNEngine
+    from repro_torch.core import RkNNConfig, RkNNEngine, rt_rknn_query
     from repro_torch.core.brute import rknn_brute_np, rknn_mono_brute_np
     from repro_torch.core.scene import pad_scene_arrays
     from repro_torch.data.spatial import facility_user_split, road_network_points
     from repro_torch.kernels import build, grid_raycast, ops, rank_count, raycast, ref
-
-    on_card = dev.type == "cuda"
+    from repro_torch.kernels.user_order import TILE_USERS, build_user_order
 
     # ---- setup ------------------------------------------------------------
     t0 = time.perf_counter()
-    built = build.build() if on_card else {}
+    built = build.build()
     t_build = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in info["log"].splitlines() if "Used" in ln]
@@ -271,16 +308,18 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     # ---- a small instance against the numpy oracles, every backend --------
     small = np.random.default_rng(seed + 3)
     Fs, Us = small.random((60, 2)), small.random((400, 2))
+    first_verify = {}  # the first query of each backend in this process
     for backend in ("dense", "dense-ref", "brute"):
         eng_s = RkNNEngine(Fs, Us, RkNNConfig(backend=backend), device=dev)
         got = eng_s.query_batch([3, 7, np.array([0.3, 0.6])], 5)
+        first_verify[backend] = got.t_verify_s
         for i, qq in enumerate([3, 7, np.array([0.3, 0.6])]):
             if not np.array_equal(got.masks[i], rknn_brute_np(Us, Fs, qq, 5)):
                 raise AssertionError(f"{backend}: small-instance mask {i} differs from the oracle")
         mono = eng_s.query_mono(11, 3)
         if not np.array_equal(mono.mask, rknn_mono_brute_np(Fs, 11, 3)):
             raise AssertionError(f"{backend}: small-instance mono mask differs from the oracle")
-    _log("small_instance", ok=True)
+    _log("small_instance", ok=True, first_t_verify_s=first_verify)
 
     # ---- main path, counted --------------------------------------------
     eng = RkNNEngine(F, U, RkNNConfig(backend="dense"), device=dev)
@@ -333,8 +372,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     mono_want[0] = False
     mono_ties = _tie_mask(torch.from_numpy(P).to(dev), torch.from_numpy(P).to(dev), 0).cpu().numpy()
     mono_wrong = int((mono_want != mono.mask)[~mono_ties].sum())
-    if on_card:
-        torch.cuda.synchronize(dev)
+    torch.cuda.synchronize(dev)
     counted = {
         "raycast_count_batch": raycast.batch_launches,
         "raycast_count": raycast.single_launches,
@@ -357,12 +395,11 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
          mono_mismatches=mono_wrong)
     if n_wrong or mono_wrong:
         raise AssertionError(f"dense masks differ from the rank oracle: {n_wrong} + {mono_wrong}")
-    if on_card:
-        dispatches = 1 + STREAM_BATCHES  # query_batch + stream
-        if counted["raycast_count_batch"] < dispatches or counted["raycast_count"] < 2:
-            raise AssertionError(f"the main path did not go through the kernels: {counted}")
-        if counted["rank_count"] < q_n or plain_calls:
-            raise AssertionError(f"oracle launches {counted['rank_count']}, plain calls {plain_calls}")
+    dispatches = 1 + STREAM_BATCHES  # query_batch + stream
+    if counted["raycast_count_batch"] < dispatches or counted["raycast_count"] < 2:
+        raise AssertionError(f"the main path did not go through the kernels: {counted}")
+    if counted["rank_count"] < q_n or plain_calls:
+        raise AssertionError(f"oracle launches {counted['rank_count']}, plain calls {plain_calls}")
 
     # ---- grid path, full size, infzone: the same engine and scene cache --
     cells_batch, cells_one = grid_raycast.grid_raycast_cells_batch, grid_raycast.grid_raycast_cells
@@ -382,8 +419,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
         ("grid-pallas", K, tuple(qs), eng.rect))
     row4 = cells_one(bk.xs_s, bk.ys_s, bk.ranks, base_q[0], planes_q[0], block=bk.block)
     row4 = grid_raycast.unsort_cell_counts(row4, bk.unsort)
-    if on_card:
-        torch.cuda.synchronize(dev)
+    torch.cuda.synchronize(dev)
     grid_counted = {"grid_raycast_cells_batch": grid_raycast.batch_launches,
                     "grid_raycast_cells": grid_raycast.single_launches}
     grid_plain = ref.calls
@@ -405,8 +441,8 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     if g_wrong:
         raise AssertionError(f"grid counts differ from dense: {g_wrong}")
     _log("grid_filter_breakdown", **_grid_filter_breakdown(res.scenes, U, eng.rect, dev))
-    if on_card and (grid_counted["grid_raycast_cells_batch"] < 3
-                    or grid_counted["grid_raycast_cells"] < 1 or grid_plain):
+    if (grid_counted["grid_raycast_cells_batch"] < 3
+            or grid_counted["grid_raycast_cells"] < 1 or grid_plain):
         raise AssertionError(f"the grid path did not go through the kernel: {grid_counted}, "
                              f"plain calls {grid_plain}")
 
@@ -421,8 +457,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     # grid index build, the bucketing and the plane stacking alone
     np_dense = eng_np.query_batch(qs_np, K, backend="dense")
     np_grid = eng_np.query_batch(qs_np, K)
-    if on_card:
-        torch.cuda.synchronize(dev)
+    torch.cuda.synchronize(dev)
     np_counted = {"grid_raycast_cells_batch": grid_raycast.batch_launches,
                   "raycast_count_batch": raycast.batch_launches}
     np_plain = ref.calls
@@ -447,8 +482,8 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     if any(np_wrong.values()) or np_cwrong:
         raise AssertionError(f"non-pruned masks differ from the rank oracle {np_wrong} "
                              f"or grid counts from dense: {np_cwrong}")
-    if on_card and (np_counted["grid_raycast_cells_batch"] < 1
-                    or np_counted["raycast_count_batch"] < 1 or np_plain):
+    if (np_counted["grid_raycast_cells_batch"] < 1
+            or np_counted["raycast_count_batch"] < 1 or np_plain):
         raise AssertionError(f"the non-pruned path did not go through the kernels: {np_counted}, "
                              f"plain calls {np_plain}")
 
@@ -464,41 +499,56 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     real_tris = sum(s.n_tris for s in res.scenes)
     records = []
 
-    got = ops.raycast_count_batch(xs, ys, coeffs)
+    # the kernel reads the users in the engine's spatial order: the same
+    # order the dense backend built in the counted window (a stable sort)
+    order_ms = _host_ms(lambda: build_user_order(xs, ys), 5, dev)
+    order = build_user_order(xs, ys)
+    got = ops.raycast_count_batch(xs, ys, coeffs, order=order)
     want = ops.raycast_count_batch(xs, ys, coeffs, backend="ref")
     err = int((got - want).abs().max())
     if not torch.equal(got, want) or not np.array_equal(got.cpu().numpy(), res.counts):
         raise AssertionError(f"ray-cast batch kernel differs from its plain version: {err}")
-    b_ms, b_by = _bound_ms(8 * n_u + coeffs.numel() * 4 + 4 * q_n * n_u, 12 * n_u * real_tris)
+
+    def sorted_ms(cf) -> float:
+        """The kernel alone: its store in tile order, without the wrapper's
+        gather back to the users' order."""
+        return _sync_ms(lambda: raycast._launch_sorted(xs, ys, cf, order)[0], 20, dev)
+
+    def raycast_bound(q_rows) -> dict:
+        """The bytes: each input once, the counts out once.  With exact tile
+        classes the function needs no test per (user, triangle), so no ops
+        term bounds it (the ``raycast_tiles`` line logs those terms)."""
+        n_bytes = 8 * n_u + 36 * q_rows * mp + 4 * q_rows * n_u
+        return {"bound_ms": n_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes"}
+
     records.append({
         "name": "raycast_count_batch", "route": "cuda",
         "source": "src/repro_torch/csrc/raycast.cu",
         "replaces": "src/repro/kernels/raycast.py:145",
         "launches": counted["raycast_count_batch"], "max_abs_err": err,
-        "ms": _sync_ms(lambda: ops.raycast_count_batch(xs, ys, coeffs), 20, dev),
+        "ms": _sync_ms(lambda: ops.raycast_count_batch(xs, ys, coeffs, order=order), 20, dev),
         "plain_ms": _sync_ms(lambda: ops.raycast_count_batch(xs, ys, coeffs, backend="ref"), 2, dev),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **raycast_bound(q_n), "library_ms": None,
         "shape": {"Q": q_n, "N": n_u, "Mp": mp, "real_triangles": real_tris},
     })
     d2h_ms = _host_ms(lambda: got.cpu(), 5, dev)
-    pinned = torch.empty(got.shape, dtype=got.dtype, pin_memory=on_card)
+    pinned = torch.empty(got.shape, dtype=got.dtype, pin_memory=True)
     d2h_pinned_ms = _host_ms(lambda: pinned.copy_(got), 5, dev)
 
     c1 = coeffs[0]
-    got1 = ops.raycast_count(xs, ys, c1)
+    got1 = ops.raycast_count(xs, ys, c1, order=order)
     want1 = ops.raycast_count(xs, ys, c1, backend="ref")
     err1 = int((got1 - want1).abs().max())
     if not torch.equal(got1, want1) or not np.array_equal(got1.cpu().numpy(), one.counts):
         raise AssertionError(f"ray-cast single kernel differs from its plain version: {err1}")
-    b_ms, b_by = _bound_ms(8 * n_u + c1.numel() * 4 + 4 * n_u, 12 * n_u * res.scenes[0].n_tris)
     records.append({
         "name": "raycast_count", "route": "cuda",
         "source": "src/repro_torch/csrc/raycast.cu",
         "replaces": "src/repro/kernels/raycast.py:88",
         "launches": counted["raycast_count"], "max_abs_err": err1,
-        "ms": _sync_ms(lambda: ops.raycast_count(xs, ys, c1), 20, dev),
+        "ms": _sync_ms(lambda: ops.raycast_count(xs, ys, c1, order=order), 20, dev),
         "plain_ms": _sync_ms(lambda: ops.raycast_count(xs, ys, c1, backend="ref"), 2, dev),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **raycast_bound(1), "library_ms": None,
         "shape": {"Q": 1, "N": n_u, "Mp": mp, "real_triangles": res.scenes[0].n_tris},
     })
 
@@ -523,8 +573,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
         "source": "src/repro_torch/csrc/rank_count.cu",
         "replaces": "src/repro/kernels/rank_count.py:59",
         "launches": counted["rank_count"], "max_abs_err": err_r,
-        "ms": _sync_ms(lambda: rank_count.rank_count_kernel_call(xs_u, ys_u, fx, fy, thr), 20, dev)
-        if on_card else None,
+        "ms": _sync_ms(lambda: rank_count.rank_count_kernel_call(xs_u, ys_u, fx, fy, thr), 20, dev),
         "plain_ms": _sync_ms(
             lambda: ops.rank_count(users_dev, fac_dev, fac_dev[q0], exclude=q0, backend="ref"), 2, dev),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -588,6 +637,17 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     empty = ops.raycast_count_batch(xs, ys, coeffs[:0])
     if empty.shape != (0, n_u):
         raise AssertionError(f"empty batch gave {tuple(empty.shape)}")
+    # the one-shot shim builds a fresh engine, and so the users' order, on
+    # every call: its verify time at the mono path's user count
+    shim = [rt_rknn_query(F, P, qs[0], K, backend="dense", device=dev) for _ in range(3)]
+    _log("raycast_tiles", tile=TILE_USERS, n_tiles=int(order.boxes.shape[0]),
+         order_build_ms=order_ms,
+         order_build_ms_mono=_host_ms(lambda: build_user_order(mono_eng.xs, mono_eng.ys), 20, dev),
+         shim_users=len(P), shim_t_verify_s=[r.t_verify_s for r in shim],
+         shim_t_filter_s=[r.t_filter_s for r in shim],
+         kernel_alone_ms_batch=sorted_ms(coeffs), kernel_alone_ms_single=sorted_ms(coeffs[:1]),
+         classes_batch=_tile_classes(order, coeffs, real_tris),
+         classes_single=_tile_classes(order, coeffs[:1], res.scenes[0].n_tris))
     _log("kernels", bit_identical_raycast=True, bit_identical_grid=True,
          rank_checked_queries=len(rank_out),
          rank_users_off_by_one=n_rank_off, d2h_counts_ms=d2h_ms,

@@ -16,7 +16,8 @@ back to the host, which waits for it) in ``t_verify_s``.
 Built-in backends (all produce identical verdict sets):
 
 * ``"dense"``     — the hand-written CUDA ray-cast kernel
-                    (``repro_torch/csrc/raycast.cu``) over the padded scene.
+                    (``repro_torch/csrc/raycast.cu``) over the padded scene,
+                    on users in a spatial order kept per snapshot.
 * ``"dense-ref"`` — the plain PyTorch version of the same count.
 * ``"grid"``      — uniform-grid culled counting over the grid index
                     (:mod:`repro_torch.core.grid`), plain PyTorch as the
@@ -59,6 +60,7 @@ from repro_torch.kernels.grid_raycast import (
     unsort_cell_counts,
     unsort_index,
 )
+from repro_torch.kernels.user_order import UserOrder, build_user_order
 
 __all__ = [
     "Backend",
@@ -101,9 +103,9 @@ class QueryRequest:
     exclude: int | None = None
     #: Optional per-snapshot kernel memo (an ``LruCache``): the engine
     #: injects its snapshot's store so per-user-set state (the grid-pallas
-    #: cell bucketing) is cached per snapshot, not on the backend
-    #: singleton.  ``None`` (raw protocol use) falls back to a small
-    #: instance cache.
+    #: cell bucketing, the dense kernel's user order) is cached per
+    #: snapshot, not on the backend singleton.  ``None`` (raw protocol
+    #: use) builds that state afresh.
     memo: Any = None
 
 
@@ -214,6 +216,22 @@ def available_backends() -> tuple[str, ...]:
     return tuple(_REGISTRY)
 
 
+def _per_user_set(req, key, build):
+    """``build()``, cached in the request's snapshot memo under ``key`` when
+    it has one.  The entry holds a strong reference to ``req.xs``, so an
+    ``id(xs)`` in the key stays valid for the entry's lifetime; without a
+    memo the state is built afresh."""
+    memo, xs = req.memo, req.xs
+    if memo is not None:
+        hit = memo.get(key)
+        if hit is not None and hit[0] is xs:
+            return hit[1]
+    value = build()
+    if memo is not None:
+        memo.put(key, (xs, value))
+    return value
+
+
 # --------------------------------------------------------------------------
 # Dense (stacked edge functions, no index)
 # --------------------------------------------------------------------------
@@ -226,10 +244,21 @@ class DenseBackend(Backend):
     name = "dense"
     kernel_backend = "cuda"
 
+    def _order_for(self, req) -> UserOrder | None:
+        """The kernel's spatial order of the request's users, built on their
+        device once per snapshot; ``None`` where the plain version runs,
+        which needs no order."""
+        xs = req.xs
+        if not _ops.use_kernel(self.kernel_backend, xs.device):
+            return None
+        return _per_user_set(
+            req, ("user-order", id(xs), int(xs.shape[0])), lambda: build_user_order(xs, req.ys)
+        )
+
     def count(self, req: QueryRequest) -> np.ndarray:
         coeffs = torch.from_numpy(req.scene.coeffs).to(req.device)
         return _ops.raycast_count(
-            req.xs, req.ys, coeffs, backend=self.kernel_backend
+            req.xs, req.ys, coeffs, backend=self.kernel_backend, order=self._order_for(req)
         ).cpu().numpy()
 
     def prepare_batch(self, req: BatchRequest) -> torch.Tensor:
@@ -257,7 +286,7 @@ class DenseBackend(Backend):
 
     def count_batch(self, req: BatchRequest, prepared) -> np.ndarray:
         return _ops.raycast_count_batch(
-            req.xs, req.ys, prepared, backend=self.kernel_backend
+            req.xs, req.ys, prepared, backend=self.kernel_backend, order=self._order_for(req)
         ).cpu().numpy()
 
 
@@ -438,18 +467,15 @@ class GridPallasBackend(GridBackend):
         Bucketed from the host float32 copy of the users (the same cast
         :class:`~repro_torch.core.snapshot.EngineSnapshot` uploads), never
         from the device tensors.  With a snapshot memo (engine-routed
-        requests) the result is cached per snapshot: the memo pins a
-        strong reference to ``xs`` so the identity key stays valid for the
-        entry's lifetime.  Without one the users are bucketed afresh.
+        requests) the result is cached per snapshot (:func:`_per_user_set`);
+        without one the users are bucketed afresh.
         """
+        key = ("gp-buckets", id(req.xs), int(req.xs.shape[0]), rect, int(G))
+        return _per_user_set(req, key, lambda: self._bucket(req, rect, G))
+
+    def _bucket(self, req, rect: Rect, G: int) -> CellBuckets:
         xs = req.xs
         n = int(xs.shape[0])
-        key = ("gp-buckets", id(xs), n, rect, int(G))
-        memo = req.memo
-        if memo is not None:
-            hit = memo.get(key)
-            if hit is not None and hit[0] is xs:
-                return hit[1]
         if req.users is not None:
             xs_np = np.ascontiguousarray(req.users[:, 0], dtype=np.float32)
             ys_np = np.ascontiguousarray(req.users[:, 1], dtype=np.float32)
@@ -465,7 +491,7 @@ class GridPallasBackend(GridBackend):
         )
         occ = np.unique(cell_map)
         dev = xs.device
-        buckets = CellBuckets(
+        return CellBuckets(
             xs_s=torch.from_numpy(xs_s).to(dev),
             ys_s=torch.from_numpy(ys_s).to(dev),
             ranks=torch.from_numpy(np.searchsorted(occ, cell_map).astype(np.int32)).to(dev),
@@ -473,9 +499,6 @@ class GridPallasBackend(GridBackend):
             block=xs_s.shape[0] // nb if nb else 0,
             unsort=torch.from_numpy(unsort_index(order, n)).to(dev),
         )
-        if memo is not None:
-            memo.put(key, (xs, buckets))  # strong ref pins id(xs)
-        return buckets
 
     # ---- filter phase ----------------------------------------------------
     def build_index(self, scene: Scene, *, grid_g: int = 64, memo: dict | None = None):

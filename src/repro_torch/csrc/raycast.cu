@@ -8,90 +8,210 @@
 //   out[q, u] = #{ t < Mp : e_i(x_u, y_u) >= 0 for i = 0, 1, 2 },
 //   e_i(x, y) = ((x * a_i) + (y * b_i)) + c_i  with (a_i, b_i, c_i) = coeffs[q, t, i, :].
 //
-// Design.  One thread owns one (query, user) pair; the grid is
-// (ceil(N / kThreads), Q).  A block stages its query's [Mp, 3, 3]
-// coefficients through shared memory in tiles of kTile triangles, padded
-// to three float4 per triangle so a thread reads a triangle with three
-// 16-byte broadcast loads, and each thread loops over every triangle and
-// writes one int32 count.  The Pallas kernel carried the sum across an Mp
-// grid axis in a revisited output block; Hopper runs blocks in no order,
-// so the loop inside the thread takes that axis's place and nothing
-// accumulates across blocks.  The kernel masks the ragged user edge
-// itself, so users need no padding.
+// Design.  The users arrive in a spatial (Morton) order, cut into tiles of
+// kTileUsers users that lie close together, with each tile's bounding box
+// (repro_torch/kernels/user_order.py).  One block owns one (tile, query)
+// pair, and each of its kThreads threads keeps kUsersPerThread users in
+// registers.  The block walks the query's triangles in chunks of kThreads,
+// one triangle per thread, and sorts each into one of three classes on
+// the tile's box:
+//   SKIP  some edge is below -delta on the whole box: no user is inside;
+//   FULL  every edge is at or above +delta on the whole box: every user is
+//         inside, so the triangle adds 1 to the whole tile with no test;
+//   TEST  anything else: the triangle goes into a list in shared memory.
+// Then every thread tests its users against the TEST list only, each
+// triangle read once from shared memory for all of its users.  An
+// infzone occluder is a half-plane clipped to the data rectangle, so its
+// triangles are large: for a tile of close users nearly every triangle is
+// SKIP or FULL, and the degenerate padding rows (a = b = 0, c = -1) are
+// always SKIP.  This culling is what the paper gets from the RT cores'
+// BVH traversal.  Nothing accumulates across blocks: Hopper runs blocks in
+// no order, and the loop over triangles inside the block takes the place
+// of the Pallas kernel's sequential Mp grid axis.  The counts are stored
+// in tile order, and the wrapper gathers them back to the users' order.
+// The users' order is random against space, so one side of the
+// permutation is always scattered; on the H100 stores through the
+// permutation inside the kernel cost more than the sorted store plus a
+// gather (PERF.md), so the kernel stores in tile order only.
 //
-// Bound.  fp32 issue: 6 multiplies, 6 adds and 3 compares per
-// (query, user, triangle) against 8 bytes read per user and 4 written per
-// (query, user); the coefficients are a few KB per query and live in
-// shared memory.
+// Shape.  128 threads x 8 users: a chunk of triangles is one per thread,
+// so the main path's Mp = 128 is classified in one pass with no idle
+// thread, and each triangle read from shared memory serves 8 tests.
 //
-// Rounding contract.  Every product and sum is written with __fmul_rn /
-// __fadd_rn in the order ((x * a) + (y * b)) + c, so nvcc cannot contract
-// them into FMAs.  The plain PyTorch version (repro_torch/kernels/ref.py)
-// evaluates the same expression in the same order with one rounding per
-// operation, so at a knife-edge ">= 0" tie both decide alike.
+// Why the classes are exact (delta).  Let u = 2^-24.  For a user (x, y)
+// the kernel computes r = fl(fl(fl(x a) + fl(y b)) + c) with one rounding
+// per operation.  fl(s + c) of two floats has the sign of s + c (an exact
+// sum of two floats that is not 0 is at least 2^-149 in magnitude, so it
+// never rounds to 0), so r >= 0 iff s + c >= 0 with s = fl(fl(x a) + fl(y b)).
+// Each product is off by at most u |x a| + 2^-150 (the second term for a
+// result among the subnormals), and the sum by u |fl(x a) + fl(y b)|, so
+//   |s - (x a + y b)| <= (2u + u^2)(|a| |x| + |b| |y|) + 2^-148.
+// Hence with e = x a + y b + c exact: e >= d(x, y) gives r >= 0, and
+// e < -d(x, y) gives r < 0, where d(x, y) is that bound.  Over the box,
+// |x| <= X = max(|x_min|, |x_max|) and |y| <= Y likewise, and e is linear,
+// so e_min and e_max are its values at two corners.  They are evaluated
+// in float64: the products of two floats are exact there, and the two
+// sums are off by at most 2^-52 ((|a| X + |b| Y) + |c|).  So with
+//   delta = ((|a| X + |b| Y) + |c|) * 2^-22 + 2^-126   (2^-22 = 4u)
+// an edge with e_max < -delta is negative at every user of the box, and
+// one with e_min >= delta is non-negative at every user: delta exceeds
+// d + the float64 error by a wide margin.  If (|a| X + |b| Y) + |c|
+// reaches 2^126 a float32 term may overflow, and the edge decides
+// neither class; NaNs fail every comparison and so land in TEST.  Every
+// TEST triangle is tested per user in the float32 order below, so the
+// counts are bit-identical to the plain version on every input.  The
+// plain twin of this classifier is repro_torch/kernels/ref.py
+// raycast_tile_classes_ref (same order, same delta).
+//
+// Bound.  The bytes: 8 per user in, 36 per (query, triangle slot) in, 4 per
+// (query, user) out; the per-user float32 work (12 operations a test,
+// none fused) is paid only for the TEST pairs.
+//
+// Rounding contract.  Every float32 product and sum is written with
+// __fmul_rn / __fadd_rn in the order ((x * a) + (y * b)) + c, so nvcc
+// cannot contract them into FMAs, and the float64 corner evaluation with
+// __dmul_rn / __dadd_rn.  The plain PyTorch version
+// (repro_torch/kernels/ref.py) evaluates the same expression in the same
+// order with one rounding per operation, so at a knife-edge ">= 0" tie
+// both decide alike.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 256;  // triangles per shared-memory tile (12 KB)
+constexpr int kThreads = 128;
+constexpr int kUsersPerThread = 8;
+constexpr int kTileUsers = kThreads * kUsersPerThread;  // user_order.py TILE_USERS
+constexpr int kWarps = kThreads / 32;
+constexpr int kSkip = 0, kFull = 1, kTest = 2;
+
+__device__ __forceinline__ double affine64(double x, double y, double a, double b, double c) {
+  return __dadd_rn(__dadd_rn(__dmul_rn(x, a), __dmul_rn(y, b)), c);
+}
+
+// The class of one triangle (coefficients e[0..8]) on the box
+// [x_lo, x_hi] x [y_lo, y_hi] whose largest |x|, |y| are X, Y.
+__device__ __forceinline__ int classify(const float* e, double x_lo, double y_lo,
+                                        double x_hi, double y_hi, double X, double Y) {
+  bool full = true;
+  for (int i = 0; i < 3; ++i) {
+    const double a = e[3 * i], b = e[3 * i + 1], c = e[3 * i + 2];
+    const bool pa = a >= 0.0, pb = b >= 0.0;
+    const double e_min = affine64(pa ? x_lo : x_hi, pb ? y_lo : y_hi, a, b, c);
+    const double e_max = affine64(pa ? x_hi : x_lo, pb ? y_hi : y_lo, a, b, c);
+    const double mag = affine64(X, Y, fabs(a), fabs(b), fabs(c));
+    const double delta = __dadd_rn(__dmul_rn(mag, 0x1p-22), 0x1p-126);
+    const bool ok = mag < 0x1p126;
+    if (ok && e_max < -delta) return kSkip;
+    full = full && ok && e_min >= delta;
+  }
+  return full ? kFull : kTest;
+}
 
 __global__ void __launch_bounds__(kThreads)
-raycast_count_batch_kernel(const float* __restrict__ xs,
-                           const float* __restrict__ ys,
-                           const float* __restrict__ coeffs,  // [Q, Mp, 3, 3]
-                           int32_t* __restrict__ out,          // [Q, N]
-                           int64_t n, int mp) {
-  __shared__ float4 tile[kTile * 3];
+raycast_tiles_kernel(const float* __restrict__ xs_s,      // [N] users in tile order
+                     const float* __restrict__ ys_s,
+                     const float4* __restrict__ boxes,    // [n_tiles] (x_lo, y_lo, x_hi, y_hi)
+                     const float* __restrict__ coeffs,    // [Q, Mp, 3, 3]
+                     int32_t* __restrict__ out,           // [Q, N]
+                     int64_t n, int mp) {
+  __shared__ float4 list[kThreads * 3];  // the chunk's TEST triangles, 3 edges each
+  __shared__ int warp_n[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t q = blockIdx.y;
-  const int64_t u = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool live = u < n;
-  const float x = live ? xs[u] : 0.0f;
-  const float y = live ? ys[u] : 0.0f;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kTileUsers;
+
+  float x[kUsersPerThread], y[kUsersPerThread];
+  int count[kUsersPerThread];
+#pragma unroll
+  for (int j = 0; j < kUsersPerThread; ++j) {
+    const int64_t u = first + j * kThreads + tid;
+    x[j] = u < n ? xs_s[u] : 0.0f;
+    y[j] = u < n ? ys_s[u] : 0.0f;
+    count[j] = 0;
+  }
+  const float4 box = boxes[blockIdx.x];
+  const double x_lo = box.x, y_lo = box.y, x_hi = box.z, y_hi = box.w;
+  const double X = fmax(fabs(x_lo), fabs(x_hi)), Y = fmax(fabs(y_lo), fabs(y_hi));
   const float* cq = coeffs + q * static_cast<int64_t>(mp) * 9;
-  float* tile_f = reinterpret_cast<float*>(tile);
-  int count = 0;
-  for (int t0 = 0; t0 < mp; t0 += kTile) {
-    const int nt = min(kTile, mp - t0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < nt * 9; i += kThreads) {
-      const int t = i / 9, r = i - t * 9;  // r = 3 * edge + coefficient
-      tile_f[t * 12 + (r / 3) * 4 + (r % 3)] =
-          cq[static_cast<int64_t>(t0) * 9 + i];
+
+  int full = 0;  // FULL triangles among those this thread classified
+  for (int t0 = 0; t0 < mp; t0 += kThreads) {
+    const int t = t0 + tid;
+    float e[9];
+    int cls = kSkip;
+    if (t < mp) {
+#pragma unroll
+      for (int r = 0; r < 9; ++r) e[r] = cq[static_cast<int64_t>(t) * 9 + r];
+      cls = classify(e, x_lo, y_lo, x_hi, y_hi, X, Y);
     }
-    __syncthreads();
-    for (int t = 0; t < nt; ++t) {
-      const float4 e0 = tile[t * 3 + 0];
-      const float4 e1 = tile[t * 3 + 1];
-      const float4 e2 = tile[t * 3 + 2];
-      const float v0 = __fadd_rn(__fadd_rn(__fmul_rn(x, e0.x), __fmul_rn(y, e0.y)), e0.z);
-      const float v1 = __fadd_rn(__fadd_rn(__fmul_rn(x, e1.x), __fmul_rn(y, e1.y)), e1.z);
-      const float v2 = __fadd_rn(__fadd_rn(__fmul_rn(x, e2.x), __fmul_rn(y, e2.y)), e2.z);
-      count += (v0 >= 0.0f) & (v1 >= 0.0f) & (v2 >= 0.0f);
+    full += cls == kFull;
+    const unsigned test = __ballot_sync(0xffffffffu, cls == kTest);
+    if (lane == 0) warp_n[warp] = __popc(test);
+    __syncthreads();  // warp_n is complete, and the previous list is no longer read
+    int slot = __popc(test & ((1u << lane) - 1u)), len = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      slot += w < warp ? warp_n[w] : 0;
+      len += warp_n[w];
+    }
+    if (cls == kTest) {
+      list[slot * 3 + 0] = make_float4(e[0], e[1], e[2], 0.0f);
+      list[slot * 3 + 1] = make_float4(e[3], e[4], e[5], 0.0f);
+      list[slot * 3 + 2] = make_float4(e[6], e[7], e[8], 0.0f);
+    }
+    __syncthreads();  // the list is complete
+    for (int s = 0; s < len; ++s) {
+      const float4 e0 = list[s * 3 + 0];
+      const float4 e1 = list[s * 3 + 1];
+      const float4 e2 = list[s * 3 + 2];
+#pragma unroll
+      for (int j = 0; j < kUsersPerThread; ++j) {
+        const float v0 = __fadd_rn(__fadd_rn(__fmul_rn(x[j], e0.x), __fmul_rn(y[j], e0.y)), e0.z);
+        const float v1 = __fadd_rn(__fadd_rn(__fmul_rn(x[j], e1.x), __fmul_rn(y[j], e1.y)), e1.z);
+        const float v2 = __fadd_rn(__fadd_rn(__fmul_rn(x[j], e2.x), __fmul_rn(y[j], e2.y)), e2.z);
+        count[j] += (v0 >= 0.0f) & (v1 >= 0.0f) & (v2 >= 0.0f);
+      }
     }
   }
-  if (live) out[q * n + u] = count;
+
+  // every user of the tile is inside every FULL triangle
+  full = __reduce_add_sync(0xffffffffu, full);
+  __syncthreads();  // warp_n is no longer read
+  if (lane == 0) warp_n[warp] = full;
+  __syncthreads();
+  int full_all = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) full_all += warp_n[w];
+
+  int32_t* oq = out + q * n;
+#pragma unroll
+  for (int j = 0; j < kUsersPerThread; ++j) {
+    const int64_t u = first + j * kThreads + tid;
+    if (u < n) oq[u] = count[j] + full_all;
+  }
 }
 
 }  // namespace
 
-// out[q, u] for q < n_queries, u < n_users; coeffs is [n_queries, mp, 3, 3].
-// The caller never passes an empty grid (n_users or n_queries of 0).
-// Launches on `stream`, allocates nothing, does not synchronize, and
-// returns cudaGetLastError() (0 = cudaSuccess).
-extern "C" int raycast_count_batch(const void* xs, const void* ys,
+// out[q, i] for q < n_queries and the users i < n_users in tile order;
+// coeffs is [n_queries, mp, 3, 3] and boxes [ceil(n_users / tile_users)]
+// float4.  tile_users must be the kernel's tile (kTileUsers), else
+// cudaErrorInvalidValue.  The caller never passes an empty grid (n_users or n_queries of 0).  Launches on `stream`,
+// allocates nothing, does not synchronize, and returns cudaGetLastError()
+// (0 = cudaSuccess).
+extern "C" int raycast_count_tiles(const void* xs_s, const void* ys_s, const void* boxes,
                                    const void* coeffs, void* out,
-                                   long long n_users, int n_queries, int mp,
+                                   long long n_users, int n_queries, int mp, int tile_users,
                                    void* stream) {
-  const dim3 grid(static_cast<unsigned>((n_users + kThreads - 1) / kThreads),
+  if (tile_users != kTileUsers) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((n_users + kTileUsers - 1) / kTileUsers),
                   static_cast<unsigned>(n_queries));
-  raycast_count_batch_kernel<<<grid, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xs), static_cast<const float*>(ys),
-      static_cast<const float*>(coeffs), static_cast<int32_t*>(out),
-      static_cast<int64_t>(n_users), mp);
+  raycast_tiles_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xs_s), static_cast<const float*>(ys_s),
+      static_cast<const float4*>(boxes), static_cast<const float*>(coeffs),
+      static_cast<int32_t*>(out), static_cast<int64_t>(n_users), mp);
   return static_cast<int>(cudaGetLastError());
 }
 

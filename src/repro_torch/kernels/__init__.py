@@ -7,6 +7,8 @@
                    PyTorch version on CPU tensors
 * ``raycast``    — launch of the dense ray-cast count kernel
                    (``csrc/raycast.cu``), one kernel with a query axis
+* ``user_order`` — the spatial (Morton) order of the users and the tile
+                   boxes that kernel classifies triangles on
 * ``grid_raycast`` — the cell bucketing and plane packing of the grid
                    index, and launch of the cell-bucketed grid count
                    kernel (``csrc/grid_raycast.cu``), one kernel with a

@@ -21,6 +21,7 @@ from repro_torch.kernels.raycast import (
     raycast_count_batch_kernel_call,
     raycast_count_kernel_call,
 )
+from repro_torch.kernels.user_order import UserOrder
 
 __all__ = [
     "raycast_count",
@@ -29,6 +30,7 @@ __all__ = [
     "grid_count_cells_batch",
     "rank_count",
     "rank_count_batch",
+    "use_kernel",
 ]
 
 _USER_CHUNK = 32_768  # bounds the [chunk, M] edge temporaries of the plain path
@@ -46,7 +48,9 @@ def _f32(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device).contiguous()
 
 
-def _use_kernel(backend: str, device: torch.device) -> bool:
+def use_kernel(backend: str, device: torch.device) -> bool:
+    """Whether a wrapper with ``backend`` launches the kernel for tensors on
+    ``device`` (it does for CUDA tensors unless ``backend="ref"``)."""
     if backend == "ref":
         return False
     if backend != "cuda":
@@ -70,36 +74,44 @@ def _raycast_batch_ref_chunked(xs, ys, coeffs, chunk: int):
     )
 
 
-def raycast_count(xs, ys, coeffs, *, backend: str = "cuda") -> torch.Tensor:
+def raycast_count(
+    xs, ys, coeffs, *, backend: str = "cuda", order: UserOrder | None = None
+) -> torch.Tensor:
     """Hit counts of users against occluder edge functions.
 
     ``xs, ys``: ``[N]``; ``coeffs``: ``[M, 3, 3]``.  Returns ``[N]`` int32
     on the device of ``xs``.  Padding slots are degenerate
-    (``a = b = 0, c = -1``) and contribute nothing.
+    (``a = b = 0, c = -1``) and contribute nothing.  ``order``: the
+    kernel's spatial order of these users
+    (:func:`repro_torch.kernels.user_order.build_user_order` of these very
+    ``xs, ys``: an order of other users gives wrong counts), built by the
+    kernel wrapper when ``None``; the plain version does not read it.
     """
     dev = _device_of(xs)
     xs, ys, coeffs = _f32(xs, dev), _f32(ys, dev), _f32(coeffs, dev)
     if coeffs.ndim != 3:
         raise ValueError(f"coeffs must be [M, 3, 3], got {tuple(coeffs.shape)}")
-    if _use_kernel(backend, dev):
-        return raycast_count_kernel_call(xs, ys, coeffs)
+    if use_kernel(backend, dev):
+        return raycast_count_kernel_call(xs, ys, coeffs, order)
     return _raycast_batch_ref_chunked(xs, ys, coeffs[None], _USER_CHUNK)[0]
 
 
-def raycast_count_batch(xs, ys, coeffs, *, backend: str = "cuda") -> torch.Tensor:
+def raycast_count_batch(
+    xs, ys, coeffs, *, backend: str = "cuda", order: UserOrder | None = None
+) -> torch.Tensor:
     """Batched multi-query hit counts: one launch for a whole query batch.
 
     ``xs, ys``: ``[N]`` shared users; ``coeffs``: ``[Q, Mp, 3, 3]`` stacked
     per-query edge functions (padded degenerate — see
     :func:`repro_torch.core.scene.pad_scene_arrays`).  Returns ``[Q, N]``
-    int32 on the device of ``xs``.
+    int32 on the device of ``xs``.  ``order`` as in :func:`raycast_count`.
     """
     dev = _device_of(xs)
     xs, ys, coeffs = _f32(xs, dev), _f32(ys, dev), _f32(coeffs, dev)
     if coeffs.ndim != 4:
         raise ValueError(f"coeffs must be [Q, Mp, 3, 3], got {tuple(coeffs.shape)}")
-    if _use_kernel(backend, dev):
-        return raycast_count_batch_kernel_call(xs, ys, coeffs)
+    if use_kernel(backend, dev):
+        return raycast_count_batch_kernel_call(xs, ys, coeffs, order)
     chunk = max(1024, _USER_CHUNK // max(int(coeffs.shape[0]), 1))
     return _raycast_batch_ref_chunked(xs, ys, coeffs, chunk)
 
@@ -129,7 +141,7 @@ def grid_count_cells_batch(
     q_n, nb = planes.shape[0], cell_map.shape[0]
     if nb == 0:
         return torch.zeros((q_n, 0), dtype=torch.int32, device=dev)
-    if _use_kernel(backend, dev):
+    if use_kernel(backend, dev):
         return grid_raycast_cells_batch(xs, ys, cell_map, planes, block=block, base=base)
     chunk = max(_CELL_CHUNK_ELEMS // max(q_n * block * int(planes.shape[-1]), 1), 1)
     counts = torch.cat(
@@ -185,7 +197,7 @@ def rank_count(users, facilities, q, *, exclude: int | None = None, backend: str
         fy[exclude] = float("inf")
     dx, dy = xs - q[0], ys - q[1]
     thr = dx * dx + dy * dy
-    if _use_kernel(backend, dev):
+    if use_kernel(backend, dev):
         return rank_count_kernel_call(xs, ys, fx, fy, thr)
     chunk = max(1, _RANK_CHUNK_ELEMS // max(fx.shape[0], 1))
     return torch.cat(

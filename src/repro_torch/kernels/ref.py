@@ -12,6 +12,11 @@ multiply-add, exactly as ``repro_torch/csrc/*.cu`` writes them.
 
 ``calls`` counts calls into this module's functions, so a run can show
 that it took no plain version.
+
+:func:`raycast_tile_classes_ref` is the plain twin of the ray-cast
+kernel's tile classifier, for tests and diagnostics: it repeats the
+kernel's float64 arithmetic and its margin (derived in
+``csrc/raycast.cu``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,10 @@ import torch
 __all__ = [
     "raycast_count_ref",
     "raycast_count_batch_ref",
+    "raycast_tile_classes_ref",
+    "TILE_SKIP",
+    "TILE_FULL",
+    "TILE_TEST",
     "rank_count_ref",
     "rank_count_batch_ref",
     "grid_raycast_ref",
@@ -67,6 +76,46 @@ def raycast_count_batch_ref(xs, ys, coeffs):
 def raycast_count_ref(xs, ys, coeffs):
     """Single-query hit counts: ``coeffs`` ``[M, 3, 3]`` → ``[N]`` int32."""
     return raycast_count_batch_ref(xs, ys, coeffs[None])[0]
+
+
+#: Classes of a (tile, triangle) pair: no user of the tile is inside, every
+#: user is inside, or each user needs its own test.
+TILE_SKIP, TILE_FULL, TILE_TEST = 0, 1, 2
+_DELTA_REL = 2.0**-22  # 4 u, u = 2^-24 the float32 unit roundoff
+_DELTA_ABS = 2.0**-126  # covers products that round into the subnormals
+_MAG_MAX = 2.0**126  # beyond it a float32 term may overflow: always test
+
+
+def raycast_tile_classes_ref(boxes, coeffs):
+    """Class of every (query, tile, triangle): ``boxes`` ``[T, 4]`` f32
+    ``(x_min, y_min, x_max, y_max)`` of each tile's users, ``coeffs``
+    ``[Q, Mp, 3, 3]`` f32.  Returns ``[Q, T, Mp]`` int8 of
+    ``TILE_SKIP`` / ``TILE_FULL`` / ``TILE_TEST``.
+
+    Per edge, in float64 and in the kernel's order: the edge's least and
+    greatest value on the box, ``e_min``, ``e_max`` (``((a x) + (b y)) + c``
+    at the box's corners), and the margin
+    ``delta = ((|a| X + |b| Y) + |c|) * 2^-22 + 2^-126`` with
+    ``X, Y`` the box's largest ``|x|, |y|``.  SKIP: some edge has
+    ``e_max < -delta``; FULL: every edge ``e_min >= delta``; an edge whose
+    terms reach ``2^126`` decides neither."""
+    _count()
+    b = boxes.to(torch.float64)[None, :, None, None, :]  # [1, T, 1, 1, 4]
+    c = coeffs.to(torch.float64)[:, None]  # [Q, 1, Mp, 3, 3]
+    x_lo, y_lo, x_hi, y_hi = b.unbind(-1)
+    a, bb, cc = c.unbind(-1)
+    pos_a, pos_b = a >= 0, bb >= 0
+    e_min = _affine(torch.where(pos_a, x_lo, x_hi), torch.where(pos_b, y_lo, y_hi), a, bb, cc)
+    e_max = _affine(torch.where(pos_a, x_hi, x_lo), torch.where(pos_b, y_hi, y_lo), a, bb, cc)
+    mag = _affine(torch.maximum(x_lo.abs(), x_hi.abs()), torch.maximum(y_lo.abs(), y_hi.abs()),
+                  a.abs(), bb.abs(), cc.abs())
+    delta = mag * _DELTA_REL + _DELTA_ABS
+    ok = mag < _MAG_MAX
+    skip = (ok & (e_max < -delta)).any(-1)
+    full = (ok & (e_min >= delta)).all(-1)
+    return torch.where(
+        skip, TILE_SKIP, torch.where(full, TILE_FULL, TILE_TEST)
+    ).to(torch.int8)
 
 
 def rank_count_ref(xs, ys, fx, fy, thr):

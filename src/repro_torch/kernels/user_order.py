@@ -1,0 +1,78 @@
+"""A spatial order of the users for the dense ray-cast kernel.
+
+The kernel (``csrc/raycast.cu``) gives each thread block one tile of
+:data:`TILE_USERS` users that lie close together, classifies every
+triangle once against the tile's bounding box, and tests single users
+only against the triangles whose edges cross that box.  This module
+builds what it reads: the users sorted by a Morton (Z-order) code of
+their coordinates, the bounding box of each tile, and the index that
+gathers the kernel's counts back to the callers' order.
+
+The order decides only how much work the kernel skips, never a count, so
+any order is correct; the Morton code is quantized on the users' own
+bounding box.  Everything runs as plain torch ops on the users' device,
+once per user set (the engine keeps the result in its snapshot's kernel
+memo), with no transfer to the host, so that on the card the build is a
+short queue of launches that the host does not wait for.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["TILE_USERS", "UserOrder", "build_user_order"]
+
+#: Users per tile: the kernel's 128 threads times 8 users a thread.
+TILE_USERS = 1024
+
+#: Bits per coordinate: a 30-bit code, a non-negative int32, which sorts in
+#: half the radix passes of an int64.
+_MORTON_BITS = 15
+
+
+class UserOrder(NamedTuple):
+    """One user set in Morton order, cut into tiles of :data:`TILE_USERS`
+    users (the last one ragged)."""
+
+    xs_s: torch.Tensor  # [N] f32, sorted
+    ys_s: torch.Tensor  # [N] f32, sorted
+    perm: torch.Tensor  # [N] int32: sorted position -> the user's index
+    unsort: torch.Tensor  # [N] int32: the user's index -> sorted position
+    boxes: torch.Tensor  # [n_tiles, 4] f32: (x_min, y_min, x_max, y_max) of each tile
+
+
+def _spread_bits(v: torch.Tensor) -> torch.Tensor:
+    """Bits 0..14 of ``v`` (int32) moved to the even bit positions."""
+    v = (v | (v << 8)) & 0x00FF00FF
+    v = (v | (v << 4)) & 0x0F0F0F0F
+    v = (v | (v << 2)) & 0x33333333
+    return (v | (v << 1)) & 0x55555555
+
+
+def build_user_order(xs: torch.Tensor, ys: torch.Tensor) -> UserOrder:
+    """The :class:`UserOrder` of users ``xs, ys`` (``[N]`` f32), on their
+    device."""
+    if xs.ndim != 1 or ys.shape != xs.shape:
+        raise ValueError(f"xs, ys must both be [N], got {tuple(xs.shape)}, {tuple(ys.shape)}")
+    n, dev = xs.shape[0], xs.device
+    if n == 0:
+        none = torch.zeros(0, dtype=torch.int32, device=dev)
+        return UserOrder(xs.clone(), ys.clone(), none, none,
+                         torch.zeros((0, 4), dtype=torch.float32, device=dev))
+    xy = torch.stack([xs, ys])  # [2, N]
+    lo, hi = torch.aminmax(xy, dim=1, keepdim=True)
+    top = (1 << _MORTON_BITS) - 1
+    cells = torch.nan_to_num((xy - lo) * (top / (hi - lo).clamp_min(1e-30)), nan=0.0)
+    spread = _spread_bits(cells.clamp_(0, top).to(torch.int32))
+    perm = torch.sort(spread[0] | (spread[1] << 1), stable=True).indices
+    xy_s = xy.index_select(1, perm)
+    n_tiles = -(-n // TILE_USERS)
+    pad = n_tiles * TILE_USERS - n  # repeat the last user: the boxes do not change
+    tiled = torch.cat([xy_s, xy_s[:, -1:].expand(2, pad)], dim=1).reshape(2, n_tiles, TILE_USERS)
+    t_lo, t_hi = torch.aminmax(tiled.transpose(0, 1), dim=2)  # [n_tiles, 2] each
+    unsort = torch.empty(n, dtype=torch.int32, device=dev).scatter_(
+        0, perm, torch.arange(n, dtype=torch.int32, device=dev))
+    return UserOrder(xy_s[0], xy_s[1], perm.to(torch.int32), unsort,
+                     torch.cat([t_lo, t_hi], dim=1))  # boxes: x_lo, y_lo, x_hi, y_hi

@@ -49,3 +49,68 @@ def edge_tie_mask(xs, ys, coeffs, rel=1e-6):
     near = np.abs(e) <= tol
     holds = e >= -tol
     return np.any(np.any(near, -1) & np.all(holds, -1), -1)
+
+
+def _ulp_steps(v, steps):
+    """``v`` (float32) moved ``steps`` ulps (elementwise, |steps| <= 3)."""
+    v = v.copy()
+    for s in range(3):
+        v = np.where(steps > s, np.nextafter(v, np.float32(np.inf)), v)
+        v = np.where(steps < -s, np.nextafter(v, np.float32(-np.inf)), v)
+    return v.astype(np.float32)
+
+
+def adversarial_users(seed, n, *, scale=1.0, offset=0.0):
+    """``[N]`` float32 ``xs, ys`` for the ray-cast kernel's tile
+    classifier: clusters of width ``0.05 * scale`` around ``offset``, a
+    quarter of the users replaced by exact copies of others or copies moved
+    1-3 ulps, and a few exact zeros when the clusters straddle 0.  Made
+    with numpy from ``seed``; imports nothing of JAX."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-1.0, 1.0, (6, 2)) * scale + offset
+    pts = (centers[rng.integers(0, 6, n)] + rng.normal(0.0, 0.05 * scale, (n, 2))).astype(np.float32)
+    k = n // 4
+    if k:
+        src, dst = rng.integers(0, n, k), rng.integers(0, n, k)
+        pts[dst] = _ulp_steps(pts[src], rng.integers(-3, 4, (k, 2)) * (rng.random((k, 1)) < 0.7))
+        pts[rng.integers(0, n, max(k // 8, 1)), rng.integers(0, 2)] = np.float32(offset)
+    return np.ascontiguousarray(pts[:, 0]), np.ascontiguousarray(pts[:, 1])
+
+
+def adversarial_coeffs(seed, q_n, mp, ax, ay, *, coef_scale=1.0):
+    """``[Q, Mp, 3, 3]`` float32 edge functions whose edges pass exactly
+    through (or 1-2 ulps of ``c`` beside) the anchor points ``ax, ay``:
+    give it users and tile-box corners to put users and corners on edges.
+    Each triangle is one of: degenerate padding (``a = b = 0, c = -1``);
+    three edges through anchors, some axis-parallel, some with
+    ``a = b = c = 0``; three wide half-planes offset from the anchors'
+    centre (so that whole tiles lie inside or outside).  Edge normals are
+    of magnitude ``coef_scale``."""
+    rng = np.random.default_rng(seed)
+    ax = np.asarray(ax, np.float32)
+    ay = np.asarray(ay, np.float32)
+    out = np.zeros((q_n, mp, 3, 3), np.float32)
+    kind = rng.choice(3, (q_n, mp), p=[0.2, 0.5, 0.3])
+    shape = (q_n, mp, 3)
+    a = (rng.normal(size=shape) * coef_scale).astype(np.float32)
+    b = (rng.normal(size=shape) * coef_scale).astype(np.float32)
+    axis = rng.random(shape)
+    a = np.where(axis < 0.15, np.float32(0), a)
+    b = np.where((axis >= 0.15) & (axis < 0.3), np.float32(0), b)
+    pick = rng.integers(0, len(ax), shape)
+    px, py = ax[pick], ay[pick]
+    # c = -(fl(fl(px a) + fl(py b))): the edge is exactly 0 at the anchor
+    c = -((px * a).astype(np.float32) + (py * b).astype(np.float32)).astype(np.float32)
+    c = _ulp_steps(c, rng.integers(-2, 3, shape) * (rng.random(shape) < 0.4))
+    null = rng.random(shape) < 0.03
+    a, b, c = (np.where(null, np.float32(0), v) for v in (a, b, c))
+    # wide half-planes: the line offset from the anchors' centre by up to
+    # about their spread, so some tiles lie wholly on each side
+    cx, cy = np.float32(np.mean(ax)), np.float32(np.mean(ay))
+    spread = np.float32(max(np.ptp(ax), np.ptp(ay), 1e-30))
+    wide_c = (-(cx * a + cy * b) + rng.normal(size=shape) * spread * coef_scale).astype(np.float32)
+    out[..., 0] = a
+    out[..., 1] = b
+    out[..., 2] = np.where((kind == 2)[..., None], wide_c, c)
+    out[kind == 0] = np.array([0.0, 0.0, -1.0], np.float32)
+    return out

@@ -7,8 +7,10 @@ that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: ray-cast and grid counts bit-identical (kernels and plain
-versions share one rounding contract); rank counts equal on users with no
-near-tie competitor and within ±1 on the rest.
+versions share one rounding contract, and the ray-cast kernel's tile
+classes are exact); rank counts equal on users with no near-tie
+competitor and within ±1 on the rest.  The adversarial ray-cast inputs
+come from ``tests/_torch_parity.py``, which imports no JAX either.
 """
 
 import numpy as np
@@ -19,6 +21,9 @@ from repro_torch.core import RkNNEngine
 from repro_torch.core.geometry import Rect
 from repro_torch.core.scene import build_scene
 from repro_torch.kernels import build, grid_raycast, ops, raycast, ref
+from repro_torch.kernels.user_order import build_user_order
+
+from _torch_parity import adversarial_coeffs, adversarial_users
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +73,59 @@ def test_raycast_kernel_empty_batch_launches_nothing(cuda_device):
     before = raycast.batch_launches
     out = ops.raycast_count_batch(xs, xs, torch.zeros(0, 4, 3, 3, device=cuda_device))
     assert out.shape == (0, 10) and raycast.batch_launches == before
+
+
+# (coordinate scale, offset, normal scale): unit square, near 0, products
+# among the subnormals, near 1e4
+SCALES = [(1.0, 0.0, 1.0), (1e-3, 0.0, 1.0), (1e-21, 0.0, 1e-21), (1.0, 1e4, 1.0)]
+
+
+@pytest.mark.parametrize("n_users", [1, 1023, 1025, 20_000])
+@pytest.mark.parametrize("mp", [1, 7, 128, 300])
+@pytest.mark.parametrize("q_n", [1, 3, 64])
+def test_raycast_tiles_kernel_matches_plain_on_adversarial_inputs(cuda_device, q_n, mp, n_users):
+    for i, (scale, offset, coef_scale) in enumerate(SCALES):
+        seed = n_users * 7 + mp * 3 + q_n + i
+        xs, ys = adversarial_users(seed, n_users, scale=scale, offset=offset)
+        xs_d, ys_d = _t(xs).to(cuda_device), _t(ys).to(cuda_device)
+        order = build_user_order(xs_d, ys_d)
+        b = order.boxes.cpu().numpy()
+        anchors = (np.concatenate([xs, b[:, 0], b[:, 2], b[:, 0], b[:, 2]]),
+                   np.concatenate([ys, b[:, 1], b[:, 3], b[:, 3], b[:, 1]]))
+        cf = _t(adversarial_coeffs(seed, q_n, mp, *anchors, coef_scale=coef_scale)).to(cuda_device)
+        got = ops.raycast_count_batch(xs_d, ys_d, cf, order=order)
+        want = ops.raycast_count_batch(xs_d, ys_d, cf, backend="ref")
+        assert got.shape == (q_n, n_users) and torch.equal(got, want), (scale, offset)
+        assert torch.equal(ops.raycast_count_batch(xs_d, ys_d, cf), got)  # order built inside
+        assert torch.equal(ops.raycast_count(xs_d, ys_d, cf[-1], order=order), got[-1])
+        in_tiles, _, launched = raycast._launch_sorted(xs_d, ys_d, cf, order)
+        assert launched == 1 and torch.equal(in_tiles, got[:, order.perm.long()])
+
+
+def test_raycast_kernel_refuses_an_order_of_another_shape(cuda_device):
+    xs = torch.rand(3000, device=cuda_device)
+    cf = torch.zeros(1, 4, 3, 3, device=cuda_device)
+    order = build_user_order(xs, xs)
+    with pytest.raises(ValueError, match="order.boxes"):
+        ops.raycast_count_batch(xs, xs, cf, order=order._replace(boxes=order.boxes[:-1]))
+    with pytest.raises(ValueError, match="order.xs_s"):
+        ops.raycast_count_batch(xs, xs, cf, order=build_user_order(xs[:10], xs[:10]))
+
+
+def test_dense_engine_keeps_one_user_order_per_snapshot_on_card(cuda_device):
+    rng = np.random.default_rng(8)
+    F, U = rng.random((60, 2)), rng.random((5000, 2))
+    eng = RkNNEngine(F, U, backend="dense", device=cuda_device)
+    before = raycast.batch_launches, raycast.single_launches
+    a = eng.query_batch([1, 2, 3], 5)
+    one = eng.query(4, 5)
+    eng.query_batch([5, 6], 5)
+    keys = [k for k in eng._snap.kernel_memo._store if k[0] == "user-order"]
+    assert len(keys) == 1 and eng._snap.kernel_memo.get(keys[0])[0] is eng.xs
+    assert (raycast.batch_launches - before[0], raycast.single_launches - before[1]) == (2, 1)
+    cpu = RkNNEngine(F, U, backend="dense", device=CPU)
+    np.testing.assert_array_equal(a.counts, cpu.query_batch([1, 2, 3], 5).counts)
+    np.testing.assert_array_equal(one.counts, cpu.query(4, 5).counts)
 
 
 def test_rank_kernel_matches_plain_on_card(cuda_device):
