@@ -28,7 +28,13 @@ its plain twin, and the operations terms of all-pairs and of TEST-only
 tests), the time to build the users' spatial order at the main path's
 and at the mono path's size, the verify time of the one-shot shim
 ``rt_rknn_query`` (a fresh engine, and so a fresh order, on every call),
-and the kernel's time without the gather back to the users' order.
+and the kernel's time without the gather back to the users' order.  The
+``grid_tiles`` line logs the same for the grid kernel at the grid path's
+and at the non-pruned shapes: the shares of SKIP, FULL and TEST (query,
+user block, listed triangle) pairs from the plain twin of its per-block
+classifier, the tests that the lanes walked, the real (user, listed
+triangle) pairs and the TEST pairs' users each need, with their
+operations terms, and the time to order the users inside each cell run.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -214,24 +220,85 @@ def _cells_plain(xs_s, ys_s, ranks, planes, block: int):
     ], dim=1)
 
 
-def _grid_bound_ms(xs_s, ranks, planes, block: int, *, with_base: bool) -> tuple[float, str]:
-    """Bound of the grid kernel on this bucketing.  Bytes: each input read
-    once and the output written once — 8 per sorted user, 4 per user block
-    (its cell rank), the ``[Q, n_cells, 3, 3, L]`` planes, 4 per (query,
-    cell) of ``base`` where the kernel adds it, 4 per (query, sorted user)
-    out.  FLOPs: 12 per (query, real sorted user, real listed triangle of
-    its cell)."""
+def _degenerate(planes):
+    """``[..., L]``: lanes of planes ``[..., 3, 3, L]`` that are the
+    degenerate plane (padding, or a ``-1`` hole inside a list)."""
+    p = planes
+    return ((p[..., 0, :] == 0) & (p[..., 1, :] == 0) & (p[..., 2, :] == -1)).all(dim=-2)
+
+
+def _real_lanes(planes):
+    """``[Q, n_cells]``: the real listed triangles of each (query, cell)."""
+    return (~_degenerate(planes)).sum(-1)
+
+
+def _real_users(bkt):
+    """``[n_blocks]``: the real users (not padding rows) of each user block."""
     import torch
 
-    q_n, n_cells, lanes = planes.shape[0], planes.shape[1], planes.shape[-1]
-    nb, n_sorted = ranks.shape[0], xs_s.shape[0]
-    degenerate = (planes[:, :, :, 0, :] == 0) & (planes[:, :, :, 1, :] == 0) & (planes[:, :, :, 2, :] == -1)
-    real_len = (~degenerate.all(dim=2)).sum(-1).to(torch.float64)  # [Q, n_cells]
-    real_users = (xs_s.reshape(nb, block) < 1e9).sum(-1).to(torch.float64)  # [n_blocks]
-    tests = float((real_len[:, ranks.long()] * real_users[None, :]).sum())
-    n_bytes = (8 * n_sorted + 4 * nb + 36 * lanes * q_n * n_cells
+    return torch.bincount(bkt.unsort // bkt.block, minlength=bkt.ranks.shape[0])
+
+
+def _grid_bound_ms(bkt, planes, *, with_base: bool) -> tuple[float, str]:
+    """Bound of the grid kernel on this bucketing: the bytes, each input read
+    once and the output written once — 8 per sorted row, 4 (cell rank) + 16
+    (box) per user block, 36 per real listed triangle per (query, cell) of
+    the planes, 4 per (query, cell) of ``lens`` and of ``base`` where the
+    kernel adds it, 4 per (query, sorted row) out.  With exact per-block
+    classes the function needs no test per (user, listed triangle), so no
+    operations term bounds it (the ``grid_tiles`` line logs those terms)."""
+    q_n, n_cells = planes.shape[0], planes.shape[1]
+    nb, n_sorted = bkt.ranks.shape[0], bkt.xs_s.shape[0]
+    n_bytes = (8 * n_sorted + 20 * nb + 36 * int(_real_lanes(planes).sum()) + 4 * q_n * n_cells
                + (4 * q_n * n_cells if with_base else 0) + 4 * q_n * n_sorted)
-    return _bound_ms(n_bytes, 12 * tests)
+    return _bound_ms(n_bytes, 0.0)
+
+
+def _grid_tiles(bkt, planes, lens, pairs_per_chunk: int = 1 << 24) -> dict:
+    """What the grid kernel's per-block classifier does on this batch, from
+    its plain twin (query-chunked): shares of SKIP / FULL / TEST among the
+    real listed (query, user block, triangle) pairs; the tests that walking
+    every lane to the batch's L (the kernel before list lengths), the lanes
+    up to each cell's length (list lengths alone, every row of the block),
+    the real (user, listed triangle) pairs and the TEST pairs' real users
+    need, with their operations terms (12 a test)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    q_n, lanes = planes.shape[0], planes.shape[-1]
+    nb, n_sorted, block = bkt.ranks.shape[0], bkt.xs_s.shape[0], bkt.block
+    cells = bkt.ranks.long()
+    users = _real_users(bkt).to(torch.float64)  # [NB]
+    real_lane = _real_lanes(planes)  # [Q, n_cells]
+    counts = {"skip": 0, "full": 0, "test": 0}
+    test_user_tests = 0.0
+    step = max(1, pairs_per_chunk // max(nb * lanes, 1))
+    for q0 in range(0, q_n, step):
+        pl = planes[q0 : q0 + step]
+        classes = ref.grid_block_classes_ref(bkt.boxes, bkt.ranks, pl)  # [q, NB, L]
+        walked = torch.arange(lanes, device=planes.device) < lens[q0 : q0 + step][:, cells, None]
+        real = walked & ~_degenerate(pl)[:, cells]  # [q, NB, L]
+        for name, cls in (("skip", ref.TILE_SKIP), ("full", ref.TILE_FULL), ("test", ref.TILE_TEST)):
+            counts[name] += int((real & (classes == cls)).sum())
+        test = (real & (classes == ref.TILE_TEST)).sum(-1).to(torch.float64)  # [q, NB]
+        test_user_tests += float((test * users[None, :]).sum())
+    pairs = sum(counts.values())
+    lane_tests = float(q_n * n_sorted * lanes)
+    lens_tests = float(lens[:, cells].to(torch.float64).sum() * block)
+    real_tests = float((real_lane[:, cells].to(torch.float64) * users[None, :]).sum())
+
+    def ops_ms(tests: float) -> float:
+        return 12 * tests / PEAK_FP32_OPS_S * 1e3
+
+    return {
+        "real_pairs": pairs, **{k: v / max(pairs, 1) for k, v in counts.items()},
+        "lane_tests_walked": lane_tests, "lane_tests_ops_ms": ops_ms(lane_tests),
+        "lens_tests": lens_tests, "lens_tests_ops_ms": ops_ms(lens_tests),
+        "real_tests": real_tests, "real_tests_ops_ms": ops_ms(real_tests),
+        "test_user_tests": test_user_tests, "test_user_tests_ops_ms": ops_ms(test_user_tests),
+        "mean_len": float(lens.to(torch.float64).mean()), "L": lanes,
+    }
 
 
 def _grid_filter_breakdown(scenes, users, rect, dev) -> dict:
@@ -243,7 +310,13 @@ def _grid_filter_breakdown(scenes, users, rect, dev) -> dict:
 
     from repro_torch.core.backends import stack_cell_planes
     from repro_torch.core.grid import build_grid
-    from repro_torch.kernels.grid_raycast import pack_cell_coeff_planes, prepare_cell_buckets
+    from repro_torch.kernels.grid_raycast import (
+        block_boxes,
+        order_cell_runs,
+        pack_cell_coeff_planes,
+        prepare_cell_buckets,
+        unsort_index,
+    )
 
     out = {}
     t0 = time.perf_counter()
@@ -254,14 +327,20 @@ def _grid_filter_breakdown(scenes, users, rect, dev) -> dict:
     out["plane_pack_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     u32 = users.astype(np.float32)
-    _xs_s, _ys_s, _order, cell_map, _nb = prepare_cell_buckets(u32[:, 0], u32[:, 1], rect, GRID_G,
-                                                               block=None)
-    out["bucketing_s"] = time.perf_counter() - t0
+    xs_s, ys_s, order, cell_map, nb = prepare_cell_buckets(u32[:, 0], u32[:, 1], rect, GRID_G,
+                                                           block=None)
     occ = np.unique(cell_map)
+    ranks = torch.from_numpy(np.searchsorted(occ, cell_map).astype(np.int32)).to(dev)
+    block = len(xs_s) // nb
+    xs_d, ys_d, order_d = order_cell_runs(torch.from_numpy(xs_s).to(dev), torch.from_numpy(ys_s).to(dev),
+                                          torch.from_numpy(order).to(dev), ranks, block, rect)
+    unsort_index(order_d, len(users))
+    block_boxes(xs_d, ys_d, block)
+    torch.cuda.synchronize(dev)
+    out["bucketing_s"] = time.perf_counter() - t0  # the backend's _bucket, in-cell order included
     t0 = time.perf_counter()
     stacked = torch.from_numpy(stack_cell_planes([p[occ] for p in planes])).to(dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    torch.cuda.synchronize(dev)
     out["stack_upload_s"] = time.perf_counter() - t0
     out["stacked_planes_mb"] = stacked.numel() * 4 / 1e6
     return out
@@ -279,6 +358,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     from repro_torch.core.scene import pad_scene_arrays
     from repro_torch.data.spatial import facility_user_split, road_network_points
     from repro_torch.kernels import build, grid_raycast, ops, rank_count, raycast, ref
+    from repro_torch.kernels.grid_raycast import order_cell_runs, prepare_cell_buckets
     from repro_torch.kernels.user_order import TILE_USERS, build_user_order
 
     # ---- setup ------------------------------------------------------------
@@ -415,9 +495,10 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     # the single-query kernel (Pallas row 4) has no engine path of its own:
     # run it on the batch's own bucketing and planes (the engine's prepared
     # batch, from its batch cache) for query 0
-    _req, (bk, base_q, planes_q), _sc = eng._snap.batch_cache.get(
+    _req, (bk, base_q, planes_q, lens_q), _sc = eng._snap.batch_cache.get(
         ("grid-pallas", K, tuple(qs), eng.rect))
-    row4 = cells_one(bk.xs_s, bk.ys_s, bk.ranks, base_q[0], planes_q[0], block=bk.block)
+    row4 = cells_one(bk.xs_s, bk.ys_s, bk.ranks, base_q[0], planes_q[0], block=bk.block,
+                     lens=lens_q[0], boxes=bk.boxes)
     row4 = grid_raycast.unsort_cell_counts(row4, bk.unsort)
     torch.cuda.synchronize(dev)
     grid_counted = {"grid_raycast_cells_batch": grid_raycast.batch_launches,
@@ -469,7 +550,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
             got = torch.from_numpy(r.masks[i]).to(dev)
             np_wrong[name] += int(((got != want) & ~ties).sum())
     np_ties, np_cwrong = _count_diffs(np_grid.counts, np_dense.counts, np_grid.scenes, xs64, ys64)
-    _req2, (bk2, base_np, planes_np), _sc2 = eng_np._snap.batch_cache.get(
+    _req2, (bk2, base_np, planes_np, lens_np), _sc2 = eng_np._snap.batch_cache.get(
         ("grid-pallas", K, tuple(qs_np), eng_np.rect))
     _log("grid_nonpruned", users=len(U), queries=len(qs_np), k=K, G=GRID_G, strategy="none",
          m_max=max(sc.n_tris for sc in np_grid.scenes),
@@ -582,17 +663,20 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     # the grid kernels: each record at the grid path's shapes (the infzone
     # batch whose launches it counts); the non-pruned batch's larger L is
     # held and timed as well, and logged beside them
-    def grid_batch_check(bkt, planes):
-        got = cells_batch(bkt.xs_s, bkt.ys_s, bkt.ranks, planes, block=bkt.block)
+    def grid_batch_check(bkt, planes, lens):
+        def kernel():
+            return cells_batch(bkt.xs_s, bkt.ys_s, bkt.ranks, planes, block=bkt.block, lens=lens,
+                               boxes=bkt.boxes)
+
+        got = kernel()
         want = _cells_plain(bkt.xs_s, bkt.ys_s, bkt.ranks, planes, bkt.block)
         err = int((got - want).abs().max())
         if not torch.equal(got, want):
             raise AssertionError(f"grid batch kernel differs from its plain version: {err}")
-        b_ms, b_by = _grid_bound_ms(bkt.xs_s, bkt.ranks, planes, bkt.block, with_base=False)
+        b_ms, b_by = _grid_bound_ms(bkt, planes, with_base=False)
         return got, {
             "max_abs_err": err,
-            "ms": _sync_ms(lambda: cells_batch(bkt.xs_s, bkt.ys_s, bkt.ranks, planes,
-                                               block=bkt.block), 20, dev),
+            "ms": _sync_ms(kernel, 20, dev),
             "plain_ms": _sync_ms(lambda: _cells_plain(bkt.xs_s, bkt.ys_s, bkt.ranks, planes,
                                                       bkt.block), 1, dev),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -601,18 +685,19 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
                       "n_cells": int(planes.shape[1]), "L": int(planes.shape[-1])},
         }
 
-    def grid_one_check(bkt, base1, planes1, batch_row):
+    def grid_one_check(bkt, base1, planes1, lens1, batch_row):
         args = (bkt.xs_s, bkt.ys_s, bkt.ranks, base1, planes1)
-        got = cells_one(*args, block=bkt.block)
+        kw = {"block": bkt.block, "lens": lens1, "boxes": bkt.boxes}
+        got = cells_one(*args, **kw)
         want = ops.grid_count_cells(*args, block=bkt.block, backend="ref")
         err = int((got - want).abs().max())
         with_base = batch_row + base1[bkt.ranks.long()].repeat_interleave(bkt.block)
         if not torch.equal(got, want) or not torch.equal(got, with_base):
             raise AssertionError(f"grid single-query kernel differs from its plain version: {err}")
-        b_ms, b_by = _grid_bound_ms(bkt.xs_s, bkt.ranks, planes1[None], bkt.block, with_base=True)
+        b_ms, b_by = _grid_bound_ms(bkt, planes1[None], with_base=True)
         return {
             "max_abs_err": err,
-            "ms": _sync_ms(lambda: cells_one(*args, block=bkt.block), 20, dev),
+            "ms": _sync_ms(lambda: cells_one(*args, **kw), 20, dev),
             "plain_ms": _sync_ms(lambda: ops.grid_count_cells(*args, block=bkt.block,
                                                               backend="ref"), 2, dev),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -621,19 +706,29 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
         }
 
     grid_src, grid_rows = "src/repro_torch/csrc/grid_raycast.cu", "src/repro/kernels/grid_raycast.py"
-    got_g, rec_g = grid_batch_check(bk, planes_q)
+    got_g, rec_g = grid_batch_check(bk, planes_q, lens_q)
     records.append({"name": "grid_raycast_cells_batch", "route": "cuda", "source": grid_src,
                     "replaces": f"{grid_rows}:317",
                     "launches": grid_counted["grid_raycast_cells_batch"], **rec_g})
     records.append({"name": "grid_raycast_cells", "route": "cuda", "source": grid_src,
                     "replaces": f"{grid_rows}:242",
                     "launches": grid_counted["grid_raycast_cells"],
-                    **grid_one_check(bk, base_q[0], planes_q[0], got_g[0])})
-    got_np, rec_np = grid_batch_check(bk2, planes_np)
+                    **grid_one_check(bk, base_q[0], planes_q[0], lens_q[0], got_g[0])})
+    got_np, rec_np = grid_batch_check(bk2, planes_np, lens_np)
     nonpruned_grid = {
         "grid_raycast_cells_batch": {"launches": np_counted["grid_raycast_cells_batch"], **rec_np},
-        "grid_raycast_cells": grid_one_check(bk2, base_np[0], planes_np[0], got_np[0]),
+        "grid_raycast_cells": grid_one_check(bk2, base_np[0], planes_np[0], lens_np[0], got_np[0]),
     }
+    # the grid kernel's classes and tests, and the in-cell order's build
+    # (on the grid path's bucketing, from the host bucketing's rows)
+    u32 = U.astype(np.float32)
+    hb = prepare_cell_buckets(u32[:, 0], u32[:, 1], eng.rect, GRID_G, block=None)
+    host_rows = [torch.from_numpy(a).to(dev) for a in hb[:3]]
+    _log("grid_tiles", block=bk.block, n_blocks=int(bk.ranks.shape[0]),
+         in_cell_order_ms=_host_ms(
+             lambda: order_cell_runs(*host_rows, bk.ranks, bk.block, eng.rect), 5, dev),
+         grid_path=_grid_tiles(bk, planes_q, lens_q),
+         grid_nonpruned=_grid_tiles(bk2, planes_np, lens_np))
     empty = ops.raycast_count_batch(xs, ys, coeffs[:0])
     if empty.shape != (0, n_u):
         raise AssertionError(f"empty batch gave {tuple(empty.shape)}")

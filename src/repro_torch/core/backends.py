@@ -54,6 +54,9 @@ from repro_torch.core.grid import (
 from repro_torch.core.scene import Scene, _next_pad, pad_scene_arrays
 from repro_torch.kernels import ops as _ops
 from repro_torch.kernels.grid_raycast import (
+    block_boxes,
+    cell_list_lengths,
+    order_cell_runs,
     pack_cell_coeff_planes,
     prepare_cell_buckets,
     repack_cell_coeff_planes,
@@ -402,14 +405,17 @@ def stack_cell_planes(planes: list[np.ndarray]) -> np.ndarray:
 
 class CellBuckets(NamedTuple):
     """One user set sorted by grid cell (see
-    :func:`repro_torch.kernels.grid_raycast.prepare_cell_buckets`).
+    :func:`repro_torch.kernels.grid_raycast.prepare_cell_buckets`), each
+    cell's run in Morton order with its padding rows on its last user
+    (:func:`~repro_torch.kernels.grid_raycast.order_cell_runs`).
 
-    ``xs_s``, ``ys_s``, ``ranks`` and ``unsort`` live on the engine's
-    device; ``occ`` is a host array.  ``occ`` lists the user-occupied cell
-    ids and ``ranks`` maps each user block into that compact axis, so the
-    plane and base tables shipped to the device carry only occupied
-    cells.  ``unsort`` is the bucketing's
-    :func:`~repro_torch.kernels.grid_raycast.unsort_index`.
+    ``xs_s``, ``ys_s``, ``ranks``, ``unsort`` and ``boxes`` live on the
+    engine's device; ``occ`` is a host array.  ``occ`` lists the
+    user-occupied cell ids and ``ranks`` maps each user block into that
+    compact axis, so the plane and base tables shipped to the device carry
+    only occupied cells.  ``unsort`` is the rows'
+    :func:`~repro_torch.kernels.grid_raycast.unsort_index`, ``boxes`` their
+    :func:`~repro_torch.kernels.grid_raycast.block_boxes`.
     """
 
     xs_s: torch.Tensor  # [n_sorted] f32
@@ -418,6 +424,7 @@ class CellBuckets(NamedTuple):
     occ: np.ndarray  # [n_occupied] cell ids
     block: int
     unsort: torch.Tensor  # [N] int64
+    boxes: torch.Tensor  # [n_blocks, 4] f32
 
 
 @register_backend
@@ -429,18 +436,21 @@ class GridPallasBackend(GridBackend):
     The plain grid count pays a per-user ``[N, L, 3, 3]`` coefficient
     gather.  This backend instead
 
-    * sorts users by grid cell once per ``(users, rect, G)`` (all stacked
-      scenes share one domain rect; the bucketing is cached in the
-      snapshot's kernel memo, on the device, so successive batches over
-      the same user set reuse it),
+    * sorts users by grid cell once per ``(users, rect, G)``, in Morton
+      order inside each cell, and takes the bounding box of each user
+      block (all stacked scenes share one domain rect; the bucketing is
+      cached in the snapshot's kernel memo, on the device, so successive
+      batches over the same user set reuse it),
     * packs each grid index's per-cell coefficient planes
       ``[G*G, 3, 3, L]`` once (memoized on the index; incrementally
       re-packed for the cells a :meth:`refit_index` touches),
     * compacts the stacked plane/base tables to the user-OCCUPIED cells
-      (``cell_map`` becomes a rank into that compact axis), and
-    * dispatches one ``(user block, query)`` kernel launch where each
-      thread block stages one query's planes for one cell through shared
-      memory and adds ``base[q, cell]``.
+      (``cell_map`` becomes a rank into that compact axis) and takes each
+      (query, cell) list's length on the device, and
+    * dispatches one kernel launch in which each thread block takes one
+      user block and up to 16 queries, classifies each cell's listed
+      triangles on the block's box, tests single users only where an
+      edge crosses it, and adds ``base[q, cell]``.
 
     Everything host-side (bucketing, packing, stacking, upload) runs in
     :meth:`prepare_batch` (``t_filter_s``); :meth:`count_batch` is the one
@@ -491,13 +501,15 @@ class GridPallasBackend(GridBackend):
         )
         occ = np.unique(cell_map)
         dev = xs.device
+        block = xs_s.shape[0] // nb if nb else 0
+        ranks = torch.from_numpy(np.searchsorted(occ, cell_map).astype(np.int32)).to(dev)
+        xs_s, ys_s, order = order_cell_runs(
+            torch.from_numpy(xs_s).to(dev), torch.from_numpy(ys_s).to(dev),
+            torch.from_numpy(order).to(dev), ranks, block, rect,
+        )
         return CellBuckets(
-            xs_s=torch.from_numpy(xs_s).to(dev),
-            ys_s=torch.from_numpy(ys_s).to(dev),
-            ranks=torch.from_numpy(np.searchsorted(occ, cell_map).astype(np.int32)).to(dev),
-            occ=occ,
-            block=xs_s.shape[0] // nb if nb else 0,
-            unsort=torch.from_numpy(unsort_index(order, n)).to(dev),
+            xs_s=xs_s, ys_s=ys_s, ranks=ranks, occ=occ, block=block,
+            unsort=unsort_index(order, n), boxes=block_boxes(xs_s, ys_s, block),
         )
 
     # ---- filter phase ----------------------------------------------------
@@ -548,10 +560,12 @@ class GridPallasBackend(GridBackend):
         occ = buckets.occ
         planes_q = stack_cell_planes([self._planes_for(g)[occ] for g in indexes])
         base_q = np.stack([g.base[occ] for g in indexes]).astype(np.int32)
+        planes = torch.from_numpy(planes_q).to(req.device)
         return (
             buckets,
             torch.from_numpy(base_q).to(req.device),
-            torch.from_numpy(planes_q).to(req.device),
+            planes,
+            cell_list_lengths(planes),
         )
 
     # ---- verify phase ----------------------------------------------------
@@ -560,19 +574,20 @@ class GridPallasBackend(GridBackend):
         if grid is None:
             grid = self.build_index(req.scene, grid_g=req.grid_g)
         b = self._buckets_for(req, grid.rect, grid.G)
+        planes = torch.from_numpy(self._planes_for(grid)[b.occ]).to(req.device)
         counts = _ops.grid_count_cells(
             b.xs_s, b.ys_s, b.ranks,
-            torch.from_numpy(grid.base[b.occ]).to(req.device),
-            torch.from_numpy(self._planes_for(grid)[b.occ]).to(req.device),
+            torch.from_numpy(grid.base[b.occ]).to(req.device), planes,
             block=b.block, backend=self.kernel_backend,
+            lens=cell_list_lengths(planes), boxes=b.boxes,
         )
         return unsort_cell_counts(counts, b.unsort).cpu().numpy()
 
     def count_batch(self, req: BatchRequest, prepared) -> np.ndarray:
-        b, base_q, planes_q = prepared
+        b, base_q, planes_q, lens_q = prepared
         counts = _ops.grid_count_cells_batch(
             b.xs_s, b.ys_s, b.ranks, base_q, planes_q,
-            block=b.block, backend=self.kernel_backend,
+            block=b.block, backend=self.kernel_backend, lens=lens_q, boxes=b.boxes,
         )
         return unsort_cell_counts(counts, b.unsort).cpu().numpy()
 

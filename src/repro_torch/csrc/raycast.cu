@@ -13,55 +13,27 @@
 // (repro_torch/kernels/user_order.py).  One block owns one (tile, query)
 // pair, and each of its kThreads threads keeps kUsersPerThread users in
 // registers.  The block walks the query's triangles in chunks of kThreads,
-// one triangle per thread, and sorts each into one of three classes on
-// the tile's box:
-//   SKIP  some edge is below -delta on the whole box: no user is inside;
-//   FULL  every edge is at or above +delta on the whole box: every user is
-//         inside, so the triangle adds 1 to the whole tile with no test;
-//   TEST  anything else: the triangle goes into a list in shared memory.
-// Then every thread tests its users against the TEST list only, each
-// triangle read once from shared memory for all of its users.  An
-// infzone occluder is a half-plane clipped to the data rectangle, so its
-// triangles are large: for a tile of close users nearly every triangle is
-// SKIP or FULL, and the degenerate padding rows (a = b = 0, c = -1) are
-// always SKIP.  This culling is what the paper gets from the RT cores'
-// BVH traversal.  Nothing accumulates across blocks: Hopper runs blocks in
-// no order, and the loop over triangles inside the block takes the place
-// of the Pallas kernel's sequential Mp grid axis.  The counts are stored
-// in tile order, and the wrapper gathers them back to the users' order.
-// The users' order is random against space, so one side of the
-// permutation is always scattered; on the H100 stores through the
-// permutation inside the kernel cost more than the sorted store plus a
+// one triangle per thread, and sorts each into SKIP, FULL or TEST on the
+// tile's box with the exact classifier of tile_class.cuh (where its margin
+// is derived): FULL triangles add 1 to the whole tile with no test, TEST
+// triangles go into a list in shared memory.  Then every thread tests its
+// users against the TEST list only, each triangle read once from shared
+// memory for all of its users.  An infzone occluder is a half-plane
+// clipped to the data rectangle, so its triangles are large: for a tile of
+// close users nearly every triangle is SKIP or FULL, and the degenerate
+// padding rows are always SKIP.  This culling is what the paper gets from
+// the RT cores' BVH traversal.  Nothing accumulates across blocks: Hopper
+// runs blocks in no order, and the loop over triangles inside the block
+// takes the place of the Pallas kernel's sequential Mp grid axis.  The
+// counts are stored in tile order, and the wrapper gathers them back to
+// the users' order.  The users' order is random against space, so one
+// side of the permutation is always scattered; on the H100 stores through
+// the permutation inside the kernel cost more than the sorted store plus a
 // gather (PERF.md), so the kernel stores in tile order only.
 //
 // Shape.  128 threads x 8 users: a chunk of triangles is one per thread,
 // so the main path's Mp = 128 is classified in one pass with no idle
 // thread, and each triangle read from shared memory serves 8 tests.
-//
-// Why the classes are exact (delta).  Let u = 2^-24.  For a user (x, y)
-// the kernel computes r = fl(fl(fl(x a) + fl(y b)) + c) with one rounding
-// per operation.  fl(s + c) of two floats has the sign of s + c (an exact
-// sum of two floats that is not 0 is at least 2^-149 in magnitude, so it
-// never rounds to 0), so r >= 0 iff s + c >= 0 with s = fl(fl(x a) + fl(y b)).
-// Each product is off by at most u |x a| + 2^-150 (the second term for a
-// result among the subnormals), and the sum by u |fl(x a) + fl(y b)|, so
-//   |s - (x a + y b)| <= (2u + u^2)(|a| |x| + |b| |y|) + 2^-148.
-// Hence with e = x a + y b + c exact: e >= d(x, y) gives r >= 0, and
-// e < -d(x, y) gives r < 0, where d(x, y) is that bound.  Over the box,
-// |x| <= X = max(|x_min|, |x_max|) and |y| <= Y likewise, and e is linear,
-// so e_min and e_max are its values at two corners.  They are evaluated
-// in float64: the products of two floats are exact there, and the two
-// sums are off by at most 2^-52 ((|a| X + |b| Y) + |c|).  So with
-//   delta = ((|a| X + |b| Y) + |c|) * 2^-22 + 2^-126   (2^-22 = 4u)
-// an edge with e_max < -delta is negative at every user of the box, and
-// one with e_min >= delta is non-negative at every user: delta exceeds
-// d + the float64 error by a wide margin.  If (|a| X + |b| Y) + |c|
-// reaches 2^126 a float32 term may overflow, and the edge decides
-// neither class; NaNs fail every comparison and so land in TEST.  Every
-// TEST triangle is tested per user in the float32 order below, so the
-// counts are bit-identical to the plain version on every input.  The
-// plain twin of this classifier is repro_torch/kernels/ref.py
-// raycast_tile_classes_ref (same order, same delta).
 //
 // Bound.  The bytes: 8 per user in, 36 per (query, triangle slot) in, 4 per
 // (query, user) out; the per-user float32 work (12 operations a test,
@@ -78,36 +50,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_class.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kUsersPerThread = 8;
 constexpr int kTileUsers = kThreads * kUsersPerThread;  // user_order.py TILE_USERS
 constexpr int kWarps = kThreads / 32;
-constexpr int kSkip = 0, kFull = 1, kTest = 2;
 
-__device__ __forceinline__ double affine64(double x, double y, double a, double b, double c) {
-  return __dadd_rn(__dadd_rn(__dmul_rn(x, a), __dmul_rn(y, b)), c);
-}
-
-// The class of one triangle (coefficients e[0..8]) on the box
-// [x_lo, x_hi] x [y_lo, y_hi] whose largest |x|, |y| are X, Y.
-__device__ __forceinline__ int classify(const float* e, double x_lo, double y_lo,
-                                        double x_hi, double y_hi, double X, double Y) {
-  bool full = true;
-  for (int i = 0; i < 3; ++i) {
-    const double a = e[3 * i], b = e[3 * i + 1], c = e[3 * i + 2];
-    const bool pa = a >= 0.0, pb = b >= 0.0;
-    const double e_min = affine64(pa ? x_lo : x_hi, pb ? y_lo : y_hi, a, b, c);
-    const double e_max = affine64(pa ? x_hi : x_lo, pb ? y_hi : y_lo, a, b, c);
-    const double mag = affine64(X, Y, fabs(a), fabs(b), fabs(c));
-    const double delta = __dadd_rn(__dmul_rn(mag, 0x1p-22), 0x1p-126);
-    const bool ok = mag < 0x1p126;
-    if (ok && e_max < -delta) return kSkip;
-    full = full && ok && e_min >= delta;
-  }
-  return full ? kFull : kTest;
-}
+using tile_class::classify;
+using tile_class::kFull;
+using tile_class::kSkip;
+using tile_class::kTest;
 
 __global__ void __launch_bounds__(kThreads)
 raycast_tiles_kernel(const float* __restrict__ xs_s,      // [N] users in tile order

@@ -9,14 +9,18 @@
                    (``csrc/raycast.cu``), one kernel with a query axis
 * ``user_order`` — the spatial (Morton) order of the users and the tile
                    boxes that kernel classifies triangles on
-* ``grid_raycast`` — the cell bucketing and plane packing of the grid
-                   index, and launch of the cell-bucketed grid count
-                   kernel (``csrc/grid_raycast.cu``), one kernel with a
-                   query axis and an optional ``base``
+* ``grid_raycast`` — the cell bucketing (with the users in Morton order
+                   inside each cell and the boxes of the user blocks),
+                   the plane packing and list lengths of the grid index,
+                   and launch of the cell-bucketed grid count kernel
+                   (``csrc/grid_raycast.cu``), one kernel with a query
+                   axis and an optional ``base``
 * ``rank_count`` — launch of the distance-rank count kernel
                    (``csrc/rank_count.cu``), the exact on-card oracle
 * ``ref``        — the plain PyTorch versions
-* ``build``      — ``nvcc`` build of ``csrc/*.cu`` and ``ctypes`` loading
+* ``build``      — ``nvcc`` build of ``csrc/*.cu`` (which share the
+                   classifier header ``csrc/tile_class.cuh``) and
+                   ``ctypes`` loading
 
 The wrappers are not re-exported here, so ``kernels.rank_count`` always
 names the module (and its launch counter), never the function.

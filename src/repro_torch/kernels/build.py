@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface, at first use, into
 ``repro_torch/_build/`` (listed in ``.gitignore``).  The library's file
-name carries a digest of its source and flags, so an edited source is
-rebuilt and never confused with an old build.  :func:`build` starts one
+name carries a digest of its source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt and never
+confused with an old build.  :func:`build` starts one
 ``nvcc`` per source, all at once, and waits for them together.
 
 Nothing here runs at import: a machine without ``nvcc`` imports this
@@ -53,8 +54,13 @@ def nvcc_path() -> str:
 
 
 def _library(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path.  Its digest covers the source, every shared
+    header (``csrc/*.cuh``, which a source may include) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -9,12 +9,19 @@ list.
 
 The host sorts users by cell id and pads each cell's user run to a
 multiple of the block size (:func:`prepare_cell_buckets`, numpy carried
-over from the JAX package, as are the plane packers).  One CUDA kernel
+over from the JAX package, as are the plane packers).  The port then
+orders the users inside each run by a Morton code and gives the padding
+rows their run's last user (:func:`order_cell_runs`, torch on the users'
+device), so that each user block is small in space, and takes each
+block's bounding box (:func:`block_boxes`).  One CUDA kernel
 (``csrc/grid_raycast.cu``) replaces both Pallas kernels of the JAX
 module: :func:`grid_raycast_cells_batch` launches it over
 ``(user block, query)`` and :func:`grid_raycast_cells` at ``Q = 1`` with
-``base`` added in the kernel.  :func:`unsort_cell_counts` maps the sorted
-counts back to user order on the counts' device.
+``base`` added in the kernel.  The kernel walks only each cell's listed
+lanes (:func:`cell_list_lengths`) and classifies them once per user block
+on the block's box, testing single users only where an edge crosses the
+box.  :func:`unsort_cell_counts` maps the sorted counts back to user
+order on the counts' device.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.user_order import morton_codes, tile_boxes
 
 if TYPE_CHECKING:
     from repro_torch.core.grid import OccluderGrid
@@ -36,6 +44,9 @@ __all__ = [
     "prepare_cell_buckets",
     "pack_cell_coeff_planes",
     "repack_cell_coeff_planes",
+    "cell_list_lengths",
+    "order_cell_runs",
+    "block_boxes",
     "unsort_index",
     "unsort_cell_counts",
     "grid_raycast_cells",
@@ -52,8 +63,10 @@ single_launches = 0
 _MAX_QUERIES = 65_535  # gridDim.y
 _MAX_BLOCKS = 2**31 - 1  # gridDim.x
 
-#: Coordinate filler for padded user slots: far outside every domain rect,
-#: and the rows are dropped by :func:`unsort_cell_counts` regardless.
+#: Coordinate filler for padded user slots in :func:`prepare_cell_buckets`
+#: (the JAX package's): far outside every domain rect, and the rows are
+#: dropped by :func:`unsort_cell_counts` regardless.  :func:`order_cell_runs`
+#: replaces it with real coordinates, so that it does not widen the boxes.
 _PAD_COORD = np.float32(2e9)
 
 
@@ -203,14 +216,78 @@ def repack_cell_coeff_planes(
     return out
 
 
-def unsort_index(order: np.ndarray, n: int) -> np.ndarray:
-    """``[n]`` int64: the sorted row of each user, the inverse of
-    ``order`` (whose ``-1`` entries are padding rows)."""
-    order = np.asarray(order)
-    rows = np.flatnonzero(order >= 0)
-    index = np.empty(int(n), np.int64)
-    index[order[rows]] = rows
-    return index
+def cell_list_lengths(planes: torch.Tensor) -> torch.Tensor:
+    """``[..., n_cells]`` int32 on the planes' device: for packed planes
+    ``[..., n_cells, 3, 3, L]``, one past the last lane that is not the
+    degenerate plane (all three edges ``a = b = 0, c = -1``), 0 for a cell
+    with no other lane.
+
+    The degenerate plane holds no user, so a count over a cell's first
+    ``lens`` lanes equals one over all ``L``; a ``-1`` hole that
+    :func:`repro_torch.core.grid.refit_grid` leaves inside a list is a
+    degenerate lane below the length and counts nothing either.
+    """
+    lanes = planes.shape[-1]
+    if lanes == 0:
+        return torch.zeros(planes.shape[:-3], dtype=torch.int32, device=planes.device)
+    degenerate = (planes[..., 0, :] == 0) & (planes[..., 1, :] == 0) & (planes[..., 2, :] == -1)
+    live = ~degenerate.all(dim=-2)  # [..., n_cells, L]
+    lane = torch.arange(1, lanes + 1, dtype=torch.int32, device=planes.device)
+    return (live * lane).amax(dim=-1).to(torch.int32)
+
+
+def order_cell_runs(xs_s, ys_s, order, ranks, block: int, rect):
+    """Users in Morton order inside each cell run of a bucketing:
+    ``(xs_s, ys_s, order)`` with the rows of every run permuted.
+
+    ``xs_s, ys_s`` ``[n_sorted]`` f32, ``order`` ``[n_sorted]`` int64 and
+    ``block`` as :func:`prepare_cell_buckets` returns them (``-1`` marks a
+    padding row, and every run starts with its real users), ``ranks``
+    ``[n_blocks]`` the run key of each user block, non-decreasing (the
+    bucketing's ``cell_map`` or its rank among the occupied cells).
+    Inside each run the real users are sorted stably by their Morton code
+    on ``rect``, and every padding row takes the coordinates of its run's
+    last real user, so that a block's bounding box is that of its users.
+    Torch ops on the tensors' device, with no transfer to the host.  The
+    order decides only how much work the grid kernel skips, never a count.
+    """
+    n_sorted = xs_s.shape[0]
+    if n_sorted == 0:
+        return xs_s, ys_s, order
+    dev = xs_s.device
+    xy = torch.stack([xs_s, ys_s])  # [2, n_sorted]
+    lo = torch.tensor([[rect.xmin], [rect.ymin]], dtype=torch.float32, device=dev)
+    hi = torch.tensor([[rect.xmax], [rect.ymax]], dtype=torch.float32, device=dev)
+    real = order >= 0
+    # key: (run, real users by code, then the padding rows in place)
+    code = torch.where(real, morton_codes(xy, lo, hi).long(), 1 << 30)
+    run = ranks.long().repeat_interleave(int(block))
+    perm = torch.sort((run << 31) | code, stable=True).indices
+    order_r = order.index_select(0, perm)
+    rows = torch.arange(n_sorted, device=dev)
+    last_real = torch.cummax(torch.where(order_r >= 0, rows, -1), dim=0).values
+    xy_r = xy.index_select(1, perm.index_select(0, last_real))
+    return xy_r[0].contiguous(), xy_r[1].contiguous(), order_r
+
+
+def block_boxes(xs_s, ys_s, block: int) -> torch.Tensor:
+    """``[n_blocks, 4]`` f32 ``(x_lo, y_lo, x_hi, y_hi)``: the bounding box
+    of every row (padding included) of each user block, on the users'
+    device."""
+    if xs_s.shape[0] == 0:
+        return torch.zeros((0, 4), dtype=torch.float32, device=xs_s.device)
+    return tile_boxes(torch.stack([xs_s, ys_s]), int(block))
+
+
+def unsort_index(order, n: int) -> torch.Tensor:
+    """``[n]`` int64 on the order's device: the sorted row of each user,
+    the inverse of ``order`` (``[n_sorted]``, numpy or torch, whose ``-1``
+    entries are padding rows)."""
+    order = torch.as_tensor(order).long()
+    rows = torch.arange(order.shape[0], device=order.device)
+    dest = torch.where(order >= 0, order, int(n))  # padding rows land past the end
+    index = torch.empty(int(n) + 1, dtype=torch.int64, device=order.device)
+    return index.scatter_(0, dest, rows)[: int(n)]
 
 
 def unsort_cell_counts(counts: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -227,7 +304,7 @@ def unsort_cell_counts(counts: torch.Tensor, index: torch.Tensor) -> torch.Tenso
 def _lib() -> ctypes.CDLL:
     lib = build.load("grid_raycast")
     fn = lib.grid_raycast_cells
-    fn.argtypes = [ctypes.c_void_p] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
@@ -237,50 +314,60 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def grid_raycast_cells_batch(xs_sorted, ys_sorted, cell_map, planes, *, block: int, base=None):
+def grid_raycast_cells_batch(
+    xs_sorted, ys_sorted, cell_map, planes, *, block: int, lens, boxes, base=None
+):
     """Batched bucketed counting on the card: ``[Q, n_blocks*block]`` int32.
 
     ``xs_sorted, ys_sorted``: ``[n_blocks*block]`` f32 cell-sorted padded
     users (shared by the queries); ``cell_map``: ``[n_blocks]`` int32, each
     entry an index into the planes' cell axis; ``planes``:
     ``[Q, n_cells, 3, 3, L]`` f32.  Returns partial-list hit counts in
-    sorted order.  ``base`` ``[Q, n_cells]`` int32, if given, is added in
-    the kernel (the JAX kernel leaves it to its caller).  All contiguous
-    CUDA tensors on one device; launches on the current stream and does
-    not synchronize; an empty ``Q`` or ``n_blocks`` launches nothing.
+    sorted order.  ``lens``: ``[Q, n_cells]`` int32, the
+    :func:`cell_list_lengths` of these planes (the kernel walks no lane
+    past them: a shorter length gives wrong counts); ``boxes``:
+    ``[n_blocks, 4]`` f32, the :func:`block_boxes` of these users (a box
+    that misses a row gives it a wrong count).  ``base`` ``[Q, n_cells]``
+    int32, if given, is added in the kernel (the JAX kernel leaves it to
+    its caller).  All contiguous CUDA tensors on one device; launches on
+    the current stream and does not synchronize; an empty ``Q`` or
+    ``n_blocks`` launches nothing.
     """
     global batch_launches
-    out, launched = _launch(xs_sorted, ys_sorted, cell_map, base, planes, block)
+    out, launched = _launch(xs_sorted, ys_sorted, cell_map, base, planes, lens, boxes, block)
     batch_launches += launched
     return out
 
 
-def grid_raycast_cells(xs_sorted, ys_sorted, cell_map, base, planes, *, block: int):
+def grid_raycast_cells(xs_sorted, ys_sorted, cell_map, base, planes, *, block: int, lens, boxes):
     """Bucketed grid hit counting for one query on the card, ``base`` added
     in the kernel: ``[n_blocks*block]`` int32 in sorted order.
 
-    ``base``: ``[n_cells]`` int32; ``planes``: ``[n_cells, 3, 3, L]`` f32;
-    the rest as :func:`grid_raycast_cells_batch`.  The batched kernel at
-    ``Q = 1``.
+    ``base`` and ``lens``: ``[n_cells]`` int32; ``planes``:
+    ``[n_cells, 3, 3, L]`` f32; the rest as
+    :func:`grid_raycast_cells_batch`.  The batched kernel at ``Q = 1``.
     """
     global single_launches
-    if planes.ndim != 4 or base.ndim != 1:
+    if planes.ndim != 4 or base.ndim != 1 or lens.ndim != 1:
         raise ValueError(
-            f"planes must be [n_cells, 3, 3, L] and base [n_cells], got "
-            f"{tuple(planes.shape)}, {tuple(base.shape)}"
+            f"planes must be [n_cells, 3, 3, L], base and lens [n_cells], got "
+            f"{tuple(planes.shape)}, {tuple(base.shape)}, {tuple(lens.shape)}"
         )
-    out, launched = _launch(xs_sorted, ys_sorted, cell_map, base[None], planes[None], block)
+    out, launched = _launch(
+        xs_sorted, ys_sorted, cell_map, base[None], planes[None], lens[None], boxes, block
+    )
     single_launches += launched
     return out[0]
 
 
-def _launch(xs, ys, cell_map, base, planes, block: int) -> tuple[torch.Tensor, int]:
+def _launch(xs, ys, cell_map, base, planes, lens, boxes, block: int) -> tuple[torch.Tensor, int]:
     """Check, allocate and launch; returns ``(out, 1 if launched else 0)``."""
     dev = xs.device
     if dev.type != "cuda":
         raise ValueError(f"the grid ray-cast kernel needs CUDA tensors, got {dev}")
     checks = [("xs", xs, torch.float32), ("ys", ys, torch.float32),
-              ("cell_map", cell_map, torch.int32), ("planes", planes, torch.float32)]
+              ("cell_map", cell_map, torch.int32), ("planes", planes, torch.float32),
+              ("lens", lens, torch.int32), ("boxes", boxes, torch.float32)]
     if base is not None:
         checks.append(("base", base, torch.int32))
     for name, t, dtype in checks:
@@ -297,8 +384,11 @@ def _launch(xs, ys, cell_map, base, planes, block: int) -> tuple[torch.Tensor, i
     if planes.ndim != 5 or planes.shape[2:4] != (3, 3):
         raise ValueError(f"planes must be [Q, n_cells, 3, 3, L], got {tuple(planes.shape)}")
     q_n, n_cells, _, _, lanes = planes.shape
-    if base is not None and base.shape != (q_n, n_cells):
-        raise ValueError(f"base must be [Q, n_cells] = [{q_n}, {n_cells}], got {tuple(base.shape)}")
+    for name, t in (("base", base), ("lens", lens)):
+        if t is not None and t.shape != (q_n, n_cells):
+            raise ValueError(f"{name} must be [Q, n_cells] = [{q_n}, {n_cells}], got {tuple(t.shape)}")
+    if boxes.shape != (nb, 4):
+        raise ValueError(f"boxes must be [n_blocks, 4] = [{nb}, 4], got {tuple(boxes.shape)}")
     if q_n > _MAX_QUERIES or nb > _MAX_BLOCKS:
         raise ValueError(f"at most {_MAX_QUERIES} queries and {_MAX_BLOCKS} user blocks per launch")
     out = torch.empty((q_n, n_sorted), dtype=torch.int32, device=dev)
@@ -309,8 +399,8 @@ def _launch(xs, ys, cell_map, base, planes, block: int) -> tuple[torch.Tensor, i
     with torch.cuda.device(dev):
         rc = lib.grid_raycast_cells(
             xs.data_ptr(), ys.data_ptr(), cell_map.data_ptr(),
-            None if base is None else base.data_ptr(), planes.data_ptr(), out.data_ptr(),
-            nb, block, q_n, n_cells, lanes, stream,
+            None if base is None else base.data_ptr(), planes.data_ptr(), lens.data_ptr(),
+            boxes.data_ptr(), out.data_ptr(), nb, block, q_n, n_cells, lanes, stream,
         )
     if rc != 0:
         raise RuntimeError(

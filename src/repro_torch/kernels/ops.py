@@ -15,7 +15,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.grid_raycast import grid_raycast_cells_batch
+from repro_torch.kernels.grid_raycast import (
+    block_boxes,
+    cell_list_lengths,
+    grid_raycast_cells_batch,
+)
 from repro_torch.kernels.rank_count import rank_count_kernel_call
 from repro_torch.kernels.raycast import (
     raycast_count_batch_kernel_call,
@@ -117,7 +121,8 @@ def raycast_count_batch(
 
 
 def grid_count_cells_batch(
-    xs_sorted, ys_sorted, cell_map, base, planes, *, block: int, backend: str = "cuda"
+    xs_sorted, ys_sorted, cell_map, base, planes, *, block: int, backend: str = "cuda",
+    lens=None, boxes=None,
 ) -> torch.Tensor:
     """Batched cell-bucketed grid hit counts: ``[Q, n_sorted]`` int32.
 
@@ -128,7 +133,12 @@ def grid_count_cells_batch(
     Counts stay in sorted order on the device of ``xs_sorted`` — unsort
     with :func:`repro_torch.kernels.grid_raycast.unsort_cell_counts`.
     The kernel adds ``base[q, cell]`` itself; the plain path adds it with
-    a gather after the block-chunked count.
+    a gather after the block-chunked count.  ``lens`` (``[Q, n_cells]``,
+    :func:`~repro_torch.kernels.grid_raycast.cell_list_lengths` of these
+    planes) and ``boxes`` (``[n_blocks, 4]``,
+    :func:`~repro_torch.kernels.grid_raycast.block_boxes` of these users)
+    are what the kernel reads beside them; each is computed here on the
+    users' device when ``None``.  The plain version reads neither.
     """
     dev = _device_of(xs_sorted)
     xs = _f32(xs_sorted, dev)
@@ -142,7 +152,13 @@ def grid_count_cells_batch(
     if nb == 0:
         return torch.zeros((q_n, 0), dtype=torch.int32, device=dev)
     if use_kernel(backend, dev):
-        return grid_raycast_cells_batch(xs, ys, cell_map, planes, block=block, base=base)
+        if lens is None:
+            lens = cell_list_lengths(planes)
+        if boxes is None:
+            boxes = block_boxes(xs, ys, block)
+        return grid_raycast_cells_batch(
+            xs, ys, cell_map, planes, block=block, lens=lens, boxes=boxes, base=base
+        )
     chunk = max(_CELL_CHUNK_ELEMS // max(q_n * block * int(planes.shape[-1]), 1), 1)
     counts = torch.cat(
         [
@@ -160,13 +176,14 @@ def grid_count_cells_batch(
 
 
 def grid_count_cells(
-    xs_sorted, ys_sorted, cell_map, base, planes, *, block: int, backend: str = "cuda"
+    xs_sorted, ys_sorted, cell_map, base, planes, *, block: int, backend: str = "cuda",
+    lens=None, boxes=None,
 ) -> torch.Tensor:
     """Single-query bucketed grid hit counts: ``[n_sorted]`` int32.
 
-    ``base``: ``[n_cells]``; ``planes``: ``[n_cells, 3, 3, L]``.  Same
-    contract as :func:`grid_count_cells_batch` at ``Q = 1``, whose kernel
-    it launches.
+    ``base``: ``[n_cells]``; ``planes``: ``[n_cells, 3, 3, L]``; ``lens``:
+    ``[n_cells]`` or ``None``.  Same contract as
+    :func:`grid_count_cells_batch` at ``Q = 1``, whose kernel it launches.
     """
     dev = _device_of(xs_sorted)
     return grid_count_cells_batch(
@@ -177,6 +194,8 @@ def grid_count_cells(
         _f32(planes, dev)[None],
         block=block,
         backend=backend,
+        lens=None if lens is None else lens[None],
+        boxes=boxes,
     )[0]
 
 

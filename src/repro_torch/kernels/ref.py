@@ -13,10 +13,11 @@ multiply-add, exactly as ``repro_torch/csrc/*.cu`` writes them.
 ``calls`` counts calls into this module's functions, so a run can show
 that it took no plain version.
 
-:func:`raycast_tile_classes_ref` is the plain twin of the ray-cast
-kernel's tile classifier, for tests and diagnostics: it repeats the
-kernel's float64 arithmetic and its margin (derived in
-``csrc/raycast.cu``).
+:func:`raycast_tile_classes_ref` is the plain twin of the classifier
+the ray-cast kernel applies per tile of users, and
+:func:`grid_block_classes_ref` of the one the grid kernel applies per user
+block, for tests and diagnostics: they repeat the kernels' float64
+arithmetic and margin (derived in ``csrc/tile_class.cuh``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ __all__ = [
     "raycast_count_ref",
     "raycast_count_batch_ref",
     "raycast_tile_classes_ref",
+    "grid_block_classes_ref",
     "TILE_SKIP",
     "TILE_FULL",
     "TILE_TEST",
@@ -100,8 +102,28 @@ def raycast_tile_classes_ref(boxes, coeffs):
     ``e_max < -delta``; FULL: every edge ``e_min >= delta``; an edge whose
     terms reach ``2^126`` decides neither."""
     _count()
-    b = boxes.to(torch.float64)[None, :, None, None, :]  # [1, T, 1, 1, 4]
-    c = coeffs.to(torch.float64)[:, None]  # [Q, 1, Mp, 3, 3]
+    return _classes(boxes[None, :, None, :], coeffs[:, None])
+
+
+def grid_block_classes_ref(boxes, cell_map, planes):
+    """Class of every (query, user block, lane) of the grid kernel:
+    ``boxes`` ``[n_blocks, 4]`` f32 of each user block's rows, ``cell_map``
+    ``[n_blocks]`` the cell of each block, ``planes``
+    ``[Q, n_cells, 3, 3, L]`` f32.  Returns ``[Q, n_blocks, L]`` int8 of
+    ``TILE_SKIP`` / ``TILE_FULL`` / ``TILE_TEST``, each lane of the
+    block's cell classified on the block's box as
+    :func:`raycast_tile_classes_ref` does (the degenerate lanes past a
+    cell's list length are SKIP)."""
+    _count()
+    per_block = planes[:, cell_map.long()].permute(0, 1, 4, 2, 3)  # [Q, NB, L, 3, 3]
+    return _classes(boxes[None, :, None, :], per_block)
+
+
+def _classes(boxes, coeffs):
+    """Classes of the triangles ``coeffs`` ``[..., 3, 3]`` on the boxes
+    ``[..., 4]`` (broadcast against the triangles' leading axes)."""
+    b = boxes.to(torch.float64)[..., None, :]  # one box for the three edges
+    c = coeffs.to(torch.float64)
     x_lo, y_lo, x_hi, y_hi = b.unbind(-1)
     a, bb, cc = c.unbind(-1)
     pos_a, pos_b = a >= 0, bb >= 0

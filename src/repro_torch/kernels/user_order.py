@@ -13,7 +13,9 @@ any order is correct; the Morton code is quantized on the users' own
 bounding box.  Everything runs as plain torch ops on the users' device,
 once per user set (the engine keeps the result in its snapshot's kernel
 memo), with no transfer to the host, so that on the card the build is a
-short queue of launches that the host does not wait for.
+short queue of launches that the host does not wait for.  The grid
+kernel's bucketing (:mod:`repro_torch.kernels.grid_raycast`) orders the
+users inside each grid cell with the same code and boxes.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["TILE_USERS", "UserOrder", "build_user_order"]
+__all__ = ["TILE_USERS", "UserOrder", "build_user_order", "morton_codes", "tile_boxes"]
 
 #: Users per tile: the kernel's 128 threads times 8 users a thread.
 TILE_USERS = 1024
@@ -51,6 +53,28 @@ def _spread_bits(v: torch.Tensor) -> torch.Tensor:
     return (v | (v << 1)) & 0x55555555
 
 
+def morton_codes(xy: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``[N]`` int32 Morton codes of the points ``xy`` (``[2, N]`` f32),
+    each coordinate quantized to 15 bits on ``[lo, hi]`` (``[2, 1]``);
+    points outside clamp to the edge, NaNs to 0."""
+    top = (1 << _MORTON_BITS) - 1
+    cells = torch.nan_to_num((xy - lo) * (top / (hi - lo).clamp_min(1e-30)), nan=0.0)
+    spread = _spread_bits(cells.clamp_(0, top).to(torch.int32))
+    return spread[0] | (spread[1] << 1)
+
+
+def tile_boxes(xy_s: torch.Tensor, tile: int) -> torch.Tensor:
+    """``[n_tiles, 4]`` f32 boxes ``(x_lo, y_lo, x_hi, y_hi)`` of the
+    points ``xy_s`` (``[2, N]``, ``N >= 1``) cut into runs of ``tile``, the
+    last one ragged: it repeats its last point, so its box does not change."""
+    n = xy_s.shape[1]
+    n_tiles = -(-n // tile)
+    pad = n_tiles * tile - n
+    tiled = torch.cat([xy_s, xy_s[:, -1:].expand(2, pad)], dim=1).reshape(2, n_tiles, tile)
+    t_lo, t_hi = torch.aminmax(tiled.transpose(0, 1), dim=2)  # [n_tiles, 2] each
+    return torch.cat([t_lo, t_hi], dim=1)
+
+
 def build_user_order(xs: torch.Tensor, ys: torch.Tensor) -> UserOrder:
     """The :class:`UserOrder` of users ``xs, ys`` (``[N]`` f32), on their
     device."""
@@ -63,16 +87,8 @@ def build_user_order(xs: torch.Tensor, ys: torch.Tensor) -> UserOrder:
                          torch.zeros((0, 4), dtype=torch.float32, device=dev))
     xy = torch.stack([xs, ys])  # [2, N]
     lo, hi = torch.aminmax(xy, dim=1, keepdim=True)
-    top = (1 << _MORTON_BITS) - 1
-    cells = torch.nan_to_num((xy - lo) * (top / (hi - lo).clamp_min(1e-30)), nan=0.0)
-    spread = _spread_bits(cells.clamp_(0, top).to(torch.int32))
-    perm = torch.sort(spread[0] | (spread[1] << 1), stable=True).indices
+    perm = torch.sort(morton_codes(xy, lo, hi), stable=True).indices
     xy_s = xy.index_select(1, perm)
-    n_tiles = -(-n // TILE_USERS)
-    pad = n_tiles * TILE_USERS - n  # repeat the last user: the boxes do not change
-    tiled = torch.cat([xy_s, xy_s[:, -1:].expand(2, pad)], dim=1).reshape(2, n_tiles, TILE_USERS)
-    t_lo, t_hi = torch.aminmax(tiled.transpose(0, 1), dim=2)  # [n_tiles, 2] each
     unsort = torch.empty(n, dtype=torch.int32, device=dev).scatter_(
         0, perm, torch.arange(n, dtype=torch.int32, device=dev))
-    return UserOrder(xy_s[0], xy_s[1], perm.to(torch.int32), unsort,
-                     torch.cat([t_lo, t_hi], dim=1))  # boxes: x_lo, y_lo, x_hi, y_hi
+    return UserOrder(xy_s[0], xy_s[1], perm.to(torch.int32), unsort, tile_boxes(xy_s, TILE_USERS))

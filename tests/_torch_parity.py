@@ -114,3 +114,22 @@ def adversarial_coeffs(seed, q_n, mp, ax, ay, *, coef_scale=1.0):
     out[..., 2] = np.where((kind == 2)[..., None], wide_c, c)
     out[kind == 0] = np.array([0.0, 0.0, -1.0], np.float32)
     return out
+
+
+def ragged_cell_planes(seed, q_n, n_cells, lanes, ax, ay, coef_scale):
+    """``[Q, n_cells, 3, 3, L]`` planes of adversarial triangles anchored on
+    ``ax, ay``: each (query, cell) list cut to a random length (some 0, some
+    ``L``) with degenerate lanes past it and degenerate holes inside it."""
+    rng = np.random.default_rng(seed)
+    tris = adversarial_coeffs(seed, q_n * n_cells, lanes, ax, ay, coef_scale=coef_scale)
+    planes = tris.reshape(q_n, n_cells, lanes, 3, 3).transpose(0, 1, 3, 4, 2).copy()
+    deg = np.array([0.0, 0.0, -1.0], np.float32)[None, :, None]  # [1, 3, 1] over (edge, coef, lane)
+    lengths = rng.integers(0, lanes + 1, (q_n, n_cells))
+    lengths[0, 0], lengths[-1, -1] = 0, lanes
+    for q in range(q_n):
+        for c in range(n_cells):
+            n = lengths[q, c]
+            planes[q, c, :, :, n:] = deg
+            holes = rng.random(lanes) < 0.15
+            planes[q, c, :, :, holes] = np.broadcast_to(deg[:, :, 0], (int(holes.sum()), 3, 3))
+    return planes

@@ -23,7 +23,7 @@ from repro_torch.core.scene import build_scene
 from repro_torch.kernels import build, grid_raycast, ops, raycast, ref
 from repro_torch.kernels.user_order import build_user_order
 
-from _torch_parity import adversarial_coeffs, adversarial_users
+from _torch_parity import adversarial_coeffs, adversarial_users, ragged_cell_planes
 
 pytestmark = pytest.mark.cuda
 
@@ -160,33 +160,77 @@ def _cells(rng, n_blocks, block, lanes, q_n, n_cells=5):
 def test_grid_kernel_matches_plain_on_card(cuda_device, block, lanes, q_n):
     rng = np.random.default_rng(block * 1000 + lanes * 10 + q_n)
     xs, ys, cm, planes, base = (_t(a).to(cuda_device) for a in _cells(rng, 37, block, lanes, q_n))
-    got = grid_raycast.grid_raycast_cells_batch(xs, ys, cm, planes, block=block)
+    lens = grid_raycast.cell_list_lengths(planes)
+    boxes = grid_raycast.block_boxes(xs, ys, block)
+    kw = {"block": block, "lens": lens, "boxes": boxes}
+    got = grid_raycast.grid_raycast_cells_batch(xs, ys, cm, planes, **kw)
     want = ref.grid_cells_count_batch_ref(xs, ys, cm, planes)
     assert got.shape == (q_n, 37 * block) and torch.equal(got, want)
-    with_base = grid_raycast.grid_raycast_cells_batch(xs, ys, cm, planes, block=block, base=base)
+    with_base = grid_raycast.grid_raycast_cells_batch(xs, ys, cm, planes, base=base, **kw)
     want_base = want + base[:, cm.long().repeat_interleave(block)]
     assert torch.equal(with_base, want_base)
+    assert torch.equal(ops.grid_count_cells_batch(xs, ys, cm, base, planes, **kw), want_base)
+    # without lens and boxes the wrapper computes them on the card
     assert torch.equal(ops.grid_count_cells_batch(xs, ys, cm, base, planes, block=block), want_base)
     assert torch.equal(
         ops.grid_count_cells_batch(xs, ys, cm, base, planes, block=block, backend="ref"), want_base
     )
-    single = grid_raycast.grid_raycast_cells(xs, ys, cm, base[0], planes[0], block=block)
+    single = grid_raycast.grid_raycast_cells(xs, ys, cm, base[0], planes[0], block=block,
+                                             lens=lens[0], boxes=boxes)
     assert torch.equal(single, want_base[0])
     assert torch.equal(ops.grid_count_cells(xs, ys, cm, base[0], planes[0], block=block), single)
+    # the engine's layout: clustered users in Morton order inside each cell
+    # run (padding rows on their run's last user), adversarial triangles
+    # through users and block corners, lists cut below L with holes
+    for i, (scale, offset, coef_scale) in enumerate(SCALES):
+        seed = block * 100 + lanes * 10 + q_n + i
+        ux, uy = adversarial_users(seed, 40 * block, scale=scale, offset=offset)
+        m = 0.01 * scale
+        rect = Rect(float(ux.min()) - m, float(uy.min()) - m, float(ux.max()) + m, float(uy.max()) + m)
+        xs_s, ys_s, order, cell_map, nb = grid_raycast.prepare_cell_buckets(ux, uy, rect, 4,
+                                                                           block=block)
+        ranks = _t(np.searchsorted(np.unique(cell_map), cell_map).astype(np.int32)).to(cuda_device)
+        xs_s, ys_s, order = grid_raycast.order_cell_runs(
+            _t(xs_s).to(cuda_device), _t(ys_s).to(cuda_device), _t(order).to(cuda_device),
+            ranks, block, rect)
+        bx = grid_raycast.block_boxes(xs_s, ys_s, block)
+        b = bx.cpu().numpy()
+        anchors = (np.concatenate([ux, b[:, 0], b[:, 2], b[:, 0], b[:, 2]]),
+                   np.concatenate([uy, b[:, 1], b[:, 3], b[:, 3], b[:, 1]]))
+        pl = _t(ragged_cell_planes(seed, q_n, int(ranks.max()) + 1, lanes, *anchors,
+                                   coef_scale)).to(cuda_device)
+        ln = grid_raycast.cell_list_lengths(pl)
+        got = grid_raycast.grid_raycast_cells_batch(xs_s, ys_s, ranks, pl, block=block, lens=ln,
+                                                    boxes=bx)
+        want = ref.grid_cells_count_batch_ref(xs_s, ys_s, ranks, pl)
+        assert torch.equal(got, want), (scale, offset)
+        assert bool((ln < lanes).any()) or lanes == 1
 
 
 def test_grid_kernel_empty_launches_nothing_and_refuses_cpu(cuda_device):
     rng = np.random.default_rng(0)
     xs, ys, cm, planes, base = (_t(a).to(cuda_device) for a in _cells(rng, 4, 8, 3, 2))
+    lens = grid_raycast.cell_list_lengths(planes)
+    boxes = grid_raycast.block_boxes(xs, ys, 8)
     before = grid_raycast.batch_launches
     none = ops.grid_count_cells_batch(xs[:0], ys[:0], cm[:0], base, planes, block=8)
-    no_q = grid_raycast.grid_raycast_cells_batch(xs, ys, cm, planes[:0], block=8)
+    no_q = grid_raycast.grid_raycast_cells_batch(xs, ys, cm, planes[:0], block=8, lens=lens[:0],
+                                                 boxes=boxes)
     assert none.shape == (2, 0) and no_q.shape == (0, 32)
     assert grid_raycast.batch_launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        grid_raycast.grid_raycast_cells_batch(xs.cpu(), ys.cpu(), cm.cpu(), planes.cpu(), block=8)
+        grid_raycast.grid_raycast_cells_batch(xs.cpu(), ys.cpu(), cm.cpu(), planes.cpu(), block=8,
+                                              lens=lens.cpu(), boxes=boxes.cpu())
+    kw = {"block": 8, "lens": lens, "boxes": boxes}
     with pytest.raises(ValueError, match="contiguous"):
-        grid_raycast.grid_raycast_cells_batch(xs, ys, cm.long(), planes, block=8)
+        grid_raycast.grid_raycast_cells_batch(xs, ys, cm.long(), planes, **kw)
+    for bad in ({"lens": lens[:, 1:]}, {"lens": lens.long()}, {"lens": lens.cpu()},
+                {"boxes": boxes[:-1]}, {"boxes": boxes.double()}, {"boxes": boxes[:, :3]}):
+        with pytest.raises(ValueError, match="lens|boxes"):
+            grid_raycast.grid_raycast_cells_batch(xs, ys, cm, planes, **{**kw, **bad})
+    with pytest.raises(ValueError, match="lens"):
+        grid_raycast.grid_raycast_cells(xs, ys, cm, base[0], planes[0], block=8, lens=lens,
+                                        boxes=boxes)
     assert {"raycast", "rank_count", "grid_raycast"} <= set(build.build())
 
 

@@ -337,11 +337,14 @@ def test_cpu_path_takes_the_plain_version_and_no_kernel():
 def test_kernel_wrappers_refuse_cpu_tensors_and_build_lists_the_source():
     x = torch.zeros(8)
     cm = torch.zeros(1, dtype=torch.int32)
+    lens, boxes = torch.zeros((1, 1), dtype=torch.int32), torch.zeros((1, 4))
     with pytest.raises(ValueError, match="CUDA"):
-        grid_raycast.grid_raycast_cells_batch(x, x, cm, torch.zeros(1, 1, 3, 3, 2), block=8)
+        grid_raycast.grid_raycast_cells_batch(x, x, cm, torch.zeros(1, 1, 3, 3, 2), block=8,
+                                              lens=lens, boxes=boxes)
     with pytest.raises(ValueError, match="CUDA"):
         grid_raycast.grid_raycast_cells(
-            x, x, cm, torch.zeros(1, dtype=torch.int32), torch.zeros(1, 3, 3, 2), block=8
+            x, x, cm, torch.zeros(1, dtype=torch.int32), torch.zeros(1, 3, 3, 2), block=8,
+            lens=lens[0], boxes=boxes,
         )
     with pytest.raises(ValueError, match="unknown backend"):
         ops.grid_count_cells(x, x, cm, torch.zeros(1), torch.zeros(1, 3, 3, 2), block=8,
@@ -497,10 +500,16 @@ def test_bucket_memo_reused_across_batches_and_kept_on_device():
     pinned, buckets = entry
     assert pinned is eng.xs
     assert all(isinstance(t, torch.Tensor) and t.device == CPU
-               for t in (buckets.xs_s, buckets.ys_s, buckets.ranks, buckets.unsort))
+               for t in (buckets.xs_s, buckets.ys_s, buckets.ranks, buckets.unsort, buckets.boxes))
+    # JAX's bucketing, then the port's Morton order inside each cell run
     j = jgr.prepare_cell_buckets(U[:, 0], U[:, 1], eng.rect, 64, block=None)
-    np.testing.assert_array_equal(buckets.xs_s.numpy(), j[0])
-    np.testing.assert_array_equal(buckets.unsort.numpy(), grid_raycast.unsort_index(j[2], len(U)))
+    j_ranks = _t(np.searchsorted(np.unique(j[3]), j[3]).astype(np.int32))
+    assert torch.equal(buckets.ranks, j_ranks) and buckets.block * j[4] == len(j[0])
+    xs_s, ys_s, order = grid_raycast.order_cell_runs(_t(j[0]), _t(j[1]), _t(j[2]), j_ranks,
+                                                     buckets.block, eng.rect)
+    assert torch.equal(buckets.xs_s, xs_s) and torch.equal(buckets.ys_s, ys_s)
+    assert torch.equal(buckets.unsort, grid_raycast.unsort_index(order, len(U)))
+    assert torch.equal(buckets.boxes, grid_raycast.block_boxes(xs_s, ys_s, buckets.block))
     eng.query_batch([3, 4], 4)  # different queries, same user sort
     eng.query(5, 4)
     assert memo.get(keys[0]) is entry and len(memo) == 1
