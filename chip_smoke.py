@@ -35,6 +35,14 @@ user block, listed triangle) pairs from the plain twin of its per-block
 classifier, the tests that the lanes walked, the real (user, listed
 triangle) pairs and the TEST pairs' users each need, with their
 operations terms, and the time to order the users inside each cell run.
+The rank-count kernel is the main path's exactness oracle: launched once
+per query (Pallas row 5) and once over the whole batch through its query
+axis (``rank_count_batch``), which must agree bit for bit.  The
+``rank_tiles`` line logs what its facility classifier does (shares of
+SKIP, FULL and TEST (query, sub-tile, facility) pairs from its plain twin,
+at its sub-tile of 256 users, with the user tests the TEST pairs need),
+and the kernel's device time alone (a CUDA graph of launches, without the
+wrapper's host work) at the wrapper's cut of the facilities into splits.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -65,6 +73,7 @@ STREAM_BATCHES = 4
 MONO_POINTS = 20_000
 TIE_EPS = 1e-6  # the JAX package's near-tie rule (tests/test_kernels.py)
 RANK_CHECK_QUERIES = 8  # rank kernel against its plain version
+RANK_SUB_TILE = 256  # users a warp of the rank kernel classifies for
 GRID_G = 64  # the engine's default grid raster
 # H100 SXM peaks at the full 700 W power limit.  Bytes: the data sheet.
 # Operations: the kernels keep one rounding per operation (no multiply and
@@ -89,6 +98,31 @@ def _sync_ms(fn, reps: int, dev) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(stop) / reps
+
+
+def _graph_ms(fn, reps: int, dev) -> float:
+    """Mean device milliseconds of ``fn()``: ``reps`` runs captured in one
+    CUDA graph and replayed, so the host's work per call is not timed."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()  # warm-up on a side stream, as graph capture asks
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(stop) / reps
@@ -142,6 +176,61 @@ def _tile_classes(order, coeffs, real_slots: int) -> dict:
         "user_tests": user_tests,
         "all_pairs_ops_ms": 12 * order.xs_s.shape[0] * real_slots / PEAK_FP32_OPS_S * 1e3,
         "tile_test_ops_ms": 12 * user_tests / PEAK_FP32_OPS_S * 1e3,
+    }
+
+
+def _rank_tiles(order, fac, q_pts, excl, q_chunk: int = 4) -> dict:
+    """What the rank kernel's classifier does on this batch, from its plain
+    twin (query-chunked), on its sub-tiles of ``RANK_SUB_TILE`` sorted
+    users: shares of SKIP / FULL / TEST among the (query, sub-tile,
+    facility) pairs (each query's excluded row left out), the user tests
+    the TEST pairs need, the TEST facilities per (query, sub-tile) (mean,
+    99th percentile and most: the heaviest warps), and the operations
+    terms (5 a test) of testing every (user, facility) and of those
+    tests."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.user_order import tile_boxes
+
+    xy_s = torch.stack([order.xs_s, order.ys_s])
+    n, m, tile = xy_s.shape[1], fac.shape[0], RANK_SUB_TILE
+    n_tiles = -(-n // tile)
+    boxes = tile_boxes(xy_s, tile)
+    users = torch.full((n_tiles,), float(tile), dtype=torch.float64, device=fac.device)
+    users[-1] = n - (n_tiles - 1) * tile
+    counts = {"skip": 0, "full": 0, "test": 0}
+    test_user_tests = 0.0
+    per_tile = []  # TEST facilities of each (query, sub-tile)
+    for q0 in range(0, q_pts.shape[0], q_chunk):
+        qp = q_pts[q0 : q0 + q_chunk]
+        dx, dy = xy_s[0][None] - qp[:, :1], xy_s[1][None] - qp[:, 1:]
+        thr = dx * dx + dy * dy  # [q, N], the kernel's order
+        tiled = torch.cat([thr, thr[:, -1:].expand(-1, n_tiles * tile - n)], 1).reshape(
+            thr.shape[0], n_tiles, tile)
+        classes = ref.rank_tile_classes_ref(boxes, tiled.amin(-1), tiled.amax(-1),
+                                            fac[:, 0], fac[:, 1])  # [q, T, M]
+        keep = torch.ones((thr.shape[0], 1, m), dtype=torch.bool, device=fac.device)
+        for i, e in enumerate(excl[q0 : q0 + q_chunk]):
+            keep[i, 0, e] = False
+        for name, cls in (("skip", ref.TILE_SKIP), ("full", ref.TILE_FULL),
+                          ("test", ref.TILE_TEST)):
+            counts[name] += int(((classes == cls) & keep).sum())
+        test = ((classes == ref.TILE_TEST) & keep).sum(-1).to(torch.float64)  # [q, T]
+        test_user_tests += float((test * users[None]).sum())
+        per_tile.append(test.flatten())
+    pairs = sum(counts.values())
+    per_tile = torch.cat(per_tile)
+    all_tests = float(n) * (m - 1) * q_pts.shape[0]
+    return {
+        "tile": tile, "n_tiles": n_tiles, "pairs": pairs,
+        **{k: v / max(pairs, 1) for k, v in counts.items()},
+        "test_per_tile_mean": float(per_tile.mean()),
+        "test_per_tile_p99": float(torch.quantile(per_tile, 0.99)),
+        "test_per_tile_max": float(per_tile.max()),
+        "test_user_tests": test_user_tests, "all_pairs_tests": all_tests,
+        "all_pairs_ops_ms": 5 * all_tests / PEAK_FP32_OPS_S * 1e3,
+        "test_user_tests_ops_ms": 5 * test_user_tests / PEAK_FP32_OPS_S * 1e3,
     }
 
 
@@ -404,7 +493,8 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     # ---- main path, counted --------------------------------------------
     eng = RkNNEngine(F, U, RkNNConfig(backend="dense"), device=dev)
     eng.xs  # noqa: B018 — upload the users before the counted window
-    raycast.batch_launches = raycast.single_launches = rank_count.launches = 0
+    raycast.batch_launches = raycast.single_launches = 0
+    rank_count.launches = rank_count.batch_launches = 0
     ref.calls = 0
 
     res = eng.query_batch(qs, K)
@@ -436,8 +526,15 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     n_ties = n_wrong = 0
     rank_out = []
     oracle = []  # (rank mask, near ties) per query, reused by the non-pruned phase
+    # the oracle: the rank kernel over one order of the users, once per
+    # query (Pallas row 5) and once for the whole batch (its query axis),
+    # which must agree bit for bit
+    rank_order = build_user_order(users_dev[:, 0].contiguous(), users_dev[:, 1].contiguous())
+    rank_batch = ops.rank_count_batch(users_dev, fac_dev, fac_dev[qs], exclude=qs, order=rank_order)
     for i, qi in enumerate(qs):
-        rc = ops.rank_count(users_dev, fac_dev, fac_dev[qi], exclude=qi)
+        rc = ops.rank_count(users_dev, fac_dev, fac_dev[qi], exclude=qi, order=rank_order)
+        if not torch.equal(rc, rank_batch[i]):
+            raise AssertionError(f"rank_count_batch row {i} differs from the single-query launch")
         if i < RANK_CHECK_QUERIES:
             rank_out.append(rc)
         ties = _tie_mask(u64, f64, qi)
@@ -457,6 +554,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
         "raycast_count_batch": raycast.batch_launches,
         "raycast_count": raycast.single_launches,
         "rank_count": rank_count.launches,
+        "rank_count_batch": rank_count.batch_launches,
     }
     plain_calls = ref.calls
 
@@ -478,8 +576,8 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     dispatches = 1 + STREAM_BATCHES  # query_batch + stream
     if counted["raycast_count_batch"] < dispatches or counted["raycast_count"] < 2:
         raise AssertionError(f"the main path did not go through the kernels: {counted}")
-    if counted["rank_count"] < q_n or plain_calls:
-        raise AssertionError(f"oracle launches {counted['rank_count']}, plain calls {plain_calls}")
+    if counted["rank_count"] < q_n or counted["rank_count_batch"] < 1 or plain_calls:
+        raise AssertionError(f"oracle launches {counted}, plain calls {plain_calls}")
 
     # ---- grid path, full size, infzone: the same engine and scene cache --
     cells_batch, cells_one = grid_raycast.grid_raycast_cells_batch, grid_raycast.grid_raycast_cells
@@ -633,33 +731,69 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
         "shape": {"Q": 1, "N": n_u, "Mp": mp, "real_triangles": res.scenes[0].n_tris},
     })
 
-    err_r = n_rank_off = 0
+    # the rank kernel (Pallas row 5, and its query axis for
+    # rank_count_batch): bit for bit against its plain version on the card
+    err_r = 0
     for i, rc in enumerate(rank_out):
         qi = qs[i]
         want_r = ops.rank_count(users_dev, fac_dev, fac_dev[qi], exclude=qi, backend="ref")
-        diff = (rc - want_r).abs()
-        ties = _tie_mask(u64, f64, qi)
-        err_r = max(err_r, int(diff.max()))
-        n_rank_off += int((diff > 0).sum())
-        if bool((diff[~ties] != 0).any()) or err_r > 1:
-            raise AssertionError(f"rank kernel differs from its plain version on query {qi}")
+        err_r = max(err_r, int((rc - want_r).abs().max()))
+
+    def rank_batch_plain():
+        return ops.rank_count_batch(users_dev, fac_dev, fac_dev[qs], exclude=qs, backend="ref")
+
+    err_b = int((rank_batch - rank_batch_plain()).abs().max())  # every query's row
+    if err_r or err_b:
+        raise AssertionError(f"rank kernel differs from its plain version: {err_r}, {err_b}")
     q0 = qs[0]
     xs_u, ys_u = users_dev[:, 0].contiguous(), users_dev[:, 1].contiguous()
-    fx, fy = fac_dev[:, 0].clone(), fac_dev[:, 1].clone()
-    fx[q0] = fy[q0] = float("inf")
-    thr = (xs_u - fac_dev[q0, 0]) ** 2 + (ys_u - fac_dev[q0, 1]) ** 2
-    b_ms, b_by = _bound_ms(16 * n_u + 8 * len(F), 5 * n_u * (len(F) - 1))
+    q_one, excl_one = fac_dev[q0], torch.tensor([q0], dtype=torch.int32, device=dev)
+    q_all, excl_all = fac_dev[qs], torch.tensor(qs, dtype=torch.int32, device=dev)
+
+    def rank_bound(q_rows) -> dict:
+        """The bytes: the users and the facilities in once, the counts out
+        once (the kernel computes the thresholds itself).  With exact
+        classes the function needs no test per (user, facility), so no
+        operations term bounds it (the ``rank_tiles`` line logs those terms)."""
+        n_bytes = 8 * n_u + 8 * len(F) + 12 * q_rows + 4 * q_rows * n_u
+        return {"bound_ms": n_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes"}
+
+    def rank_device(q_pts, excl) -> dict:
+        """The launch's device time alone (CUDA graph, no host work) at the
+        wrapper's cut of the facilities into splits."""
+        per_split = rank_count.facilities_per_split(
+            -(-n_u // TILE_USERS) * q_pts.shape[0], len(F), dev)
+        return {"facilities_per_split": per_split, "kernel_device_ms": _graph_ms(
+            lambda: rank_count._launch(xs_u, ys_u, fac_dev, q_pts, excl, rank_order),
+            20 if q_pts.shape[0] == 1 else 5, dev)}
+
     records.append({
         "name": "rank_count", "route": "cuda",
         "source": "src/repro_torch/csrc/rank_count.cu",
         "replaces": "src/repro/kernels/rank_count.py:59",
         "launches": counted["rank_count"], "max_abs_err": err_r,
-        "ms": _sync_ms(lambda: rank_count.rank_count_kernel_call(xs_u, ys_u, fx, fy, thr), 20, dev),
+        "ms": _sync_ms(lambda: rank_count.rank_count_kernel_call(
+            xs_u, ys_u, fac_dev, q_one, excl_one, rank_order), 20, dev),
         "plain_ms": _sync_ms(
             lambda: ops.rank_count(users_dev, fac_dev, fac_dev[q0], exclude=q0, backend="ref"), 2, dev),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": {"N": n_u, "M": len(F)},
+        **rank_bound(1), "library_ms": None,
+        "shape": {"Q": 1, "N": n_u, "M": len(F)},
     })
+    records.append({
+        "name": "rank_count_batch", "route": "cuda",
+        "source": "src/repro_torch/csrc/rank_count.cu",
+        "replaces": "src/repro/kernels/ops.py:381 (jnp rank_count_batch, not a Pallas site)",
+        "launches": counted["rank_count_batch"], "max_abs_err": err_b,
+        "ms": _sync_ms(lambda: rank_count.rank_count_batch_kernel_call(
+            xs_u, ys_u, fac_dev, q_all, excl_all, rank_order), 20, dev),
+        "plain_ms": _sync_ms(rank_batch_plain, 1, dev),
+        **rank_bound(q_n), "library_ms": None,
+        "shape": {"Q": q_n, "N": n_u, "M": len(F)},
+    })
+    _log("rank_tiles", sub_tile=RANK_SUB_TILE,
+         single=rank_device(q_one[None], excl_one), batch=rank_device(q_all, excl_all),
+         classes_single=_rank_tiles(rank_order, fac_dev, q_one[None], [q0]),
+         classes_batch=_rank_tiles(rank_order, fac_dev, q_all, qs))
     # the grid kernels: each record at the grid path's shapes (the infzone
     # batch whose launches it counts); the non-pruned batch's larger L is
     # held and timed as well, and logged beside them
@@ -744,8 +878,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
          classes_batch=_tile_classes(order, coeffs, real_tris),
          classes_single=_tile_classes(order, coeffs[:1], res.scenes[0].n_tris))
     _log("kernels", bit_identical_raycast=True, bit_identical_grid=True,
-         rank_checked_queries=len(rank_out),
-         rank_users_off_by_one=n_rank_off, d2h_counts_ms=d2h_ms,
+         rank_checked_queries=len(rank_out), d2h_counts_ms=d2h_ms,
          d2h_counts_pinned_ms=d2h_pinned_ms, counts_mb=got.numel() * 4 / 1e6,
          records=records, grid_nonpruned_shapes=nonpruned_grid)
     return records

@@ -106,9 +106,9 @@ class QueryRequest:
     exclude: int | None = None
     #: Optional per-snapshot kernel memo (an ``LruCache``): the engine
     #: injects its snapshot's store so per-user-set state (the grid-pallas
-    #: cell bucketing, the dense kernel's user order) is cached per
-    #: snapshot, not on the backend singleton.  ``None`` (raw protocol
-    #: use) builds that state afresh.
+    #: cell bucketing, the user order the dense and rank-count kernels
+    #: read) is cached per snapshot, not on the backend singleton.
+    #: ``None`` (raw protocol use) builds that state afresh.
     memo: Any = None
 
 
@@ -235,6 +235,18 @@ def _per_user_set(req, key, build):
     return value
 
 
+def _user_order_for(req, kernel_backend: str) -> UserOrder | None:
+    """The kernels' spatial order of the request's users (the dense and the
+    rank-count kernel read the same one), built on their device once per
+    snapshot; ``None`` where the plain version runs, which needs no order."""
+    xs = req.xs
+    if not _ops.use_kernel(kernel_backend, xs.device):
+        return None
+    return _per_user_set(
+        req, ("user-order", id(xs), int(xs.shape[0])), lambda: build_user_order(xs, req.ys)
+    )
+
+
 # --------------------------------------------------------------------------
 # Dense (stacked edge functions, no index)
 # --------------------------------------------------------------------------
@@ -247,21 +259,11 @@ class DenseBackend(Backend):
     name = "dense"
     kernel_backend = "cuda"
 
-    def _order_for(self, req) -> UserOrder | None:
-        """The kernel's spatial order of the request's users, built on their
-        device once per snapshot; ``None`` where the plain version runs,
-        which needs no order."""
-        xs = req.xs
-        if not _ops.use_kernel(self.kernel_backend, xs.device):
-            return None
-        return _per_user_set(
-            req, ("user-order", id(xs), int(xs.shape[0])), lambda: build_user_order(xs, req.ys)
-        )
-
     def count(self, req: QueryRequest) -> np.ndarray:
         coeffs = torch.from_numpy(req.scene.coeffs).to(req.device)
+        order = _user_order_for(req, self.kernel_backend)
         return _ops.raycast_count(
-            req.xs, req.ys, coeffs, backend=self.kernel_backend, order=self._order_for(req)
+            req.xs, req.ys, coeffs, backend=self.kernel_backend, order=order
         ).cpu().numpy()
 
     def prepare_batch(self, req: BatchRequest) -> torch.Tensor:
@@ -288,8 +290,9 @@ class DenseBackend(Backend):
         return torch.from_numpy(stacked).to(req.device)
 
     def count_batch(self, req: BatchRequest, prepared) -> np.ndarray:
+        order = _user_order_for(req, self.kernel_backend)
         return _ops.raycast_count_batch(
-            req.xs, req.ys, prepared, backend=self.kernel_backend, order=self._order_for(req)
+            req.xs, req.ys, prepared, backend=self.kernel_backend, order=order
         ).cpu().numpy()
 
 
@@ -610,6 +613,7 @@ class GridPallasRefBackend(GridPallasBackend):
 class BruteBackend(Backend):
     name = "brute"
     uses_scene = False
+    kernel_backend = "cuda"  # the batch's; ``count`` runs the plain version, as in JAX
 
     def count(self, req: QueryRequest) -> np.ndarray:
         return _ops.rank_count(
@@ -621,11 +625,17 @@ class BruteBackend(Backend):
         ).cpu().numpy()
 
     def count_batch(self, req: BatchRequest, prepared) -> np.ndarray:
-        return _ops.rank_count_batch(
-            _on(req.users, req.device),
+        """The rank-count kernel's query axis over the engine's device users
+        (``req.xs, req.ys``, the same f32 cast as ``_on(req.users)``), in
+        the user order the dense backend keeps in the snapshot memo."""
+        return _ops.rank_count_batch_xy(
+            req.xs,
+            req.ys,
             _on(req.facilities, req.device),
             _on(req.q_pts, req.device),
             exclude=req.excludes,
+            backend=self.kernel_backend,
+            order=_user_order_for(req, self.kernel_backend),
         ).cpu().numpy()
 
 

@@ -403,17 +403,19 @@ class RkNNEngine:
         return req, prepared, scenes
 
     def _brute_batch(self, snap: EngineSnapshot, k: int, q_pts, excludes) -> BatchRequest:
-        """Batch request of a geometry-free backend: no scenes, no device
-        user arrays."""
+        """Batch request of a geometry-free backend: no scenes; the device
+        users (uploaded once per snapshot) and the snapshot's memo, where
+        the rank-count kernel's user order is kept."""
         return BatchRequest(
-            xs=None,
-            ys=None,
+            xs=snap.xs,
+            ys=snap.ys,
             k=k,
             device=snap.device,
             users=snap.users,
             facilities=snap.facilities,
             q_pts=q_pts,
             excludes=excludes,
+            memo=snap.kernel_memo,
         )
 
     # ------------------------------------------------------------------

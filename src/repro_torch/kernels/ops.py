@@ -11,6 +11,8 @@ triangle padding: the kernels mask their ragged edges themselves.
 
 from __future__ import annotations
 
+import operator
+
 import numpy as np
 import torch
 
@@ -20,7 +22,7 @@ from repro_torch.kernels.grid_raycast import (
     cell_list_lengths,
     grid_raycast_cells_batch,
 )
-from repro_torch.kernels.rank_count import rank_count_kernel_call
+from repro_torch.kernels.rank_count import rank_count_batch_kernel_call, rank_count_kernel_call
 from repro_torch.kernels.raycast import (
     raycast_count_batch_kernel_call,
     raycast_count_kernel_call,
@@ -34,6 +36,7 @@ __all__ = [
     "grid_count_cells_batch",
     "rank_count",
     "rank_count_batch",
+    "rank_count_batch_xy",
     "use_kernel",
 ]
 
@@ -199,26 +202,39 @@ def grid_count_cells(
     )[0]
 
 
-def rank_count(users, facilities, q, *, exclude: int | None = None, backend: str = "cuda"):
+def rank_count(
+    users, facilities, q, *, exclude: int | None = None, backend: str = "cuda",
+    order: UserOrder | None = None,
+):
     """#facilities strictly closer than ``q`` per user (``[N]`` int32).
 
     ``users``: ``[N, 2]``; ``facilities``: ``[M, 2]``; ``q``: ``[2]``.
     ``exclude`` masks one facility row (the query itself for in-set
-    queries) by pushing it to infinity.  The thresholds ``d^2(u, q)`` are
-    taken in f32 after the f32 cast of the users, as the JAX wrapper does.
+    queries): the plain version pushes it to infinity, the kernel skips
+    it.  The thresholds ``d^2(u, q)`` are taken in f32 after the f32 cast
+    of the users, as the JAX wrapper does (the kernel computes them itself,
+    in the same order).  ``order``: the kernel's spatial order of these
+    users, as in :func:`raycast_count`; the plain version does not read it.
     """
     dev = _device_of(users)
     users, facilities, q = _f32(users, dev), _f32(facilities, dev), _f32(q, dev)
-    xs, ys = users[:, 0].contiguous(), users[:, 1].contiguous()
+    xs, ys = users[:, 0], users[:, 1]
+    m = facilities.shape[0]
+    if exclude is not None:
+        exclude = operator.index(exclude)
+        if not -m <= exclude < m:
+            raise IndexError(f"exclude {exclude} is out of range for {m} facilities")
+        exclude %= m
+    if use_kernel(backend, dev):
+        excl = torch.full((1,), -1 if exclude is None else exclude, dtype=torch.int32, device=dev)
+        return rank_count_kernel_call(xs, ys, facilities, q, excl, order)
     fx, fy = facilities[:, 0].clone(), facilities[:, 1].clone()  # written below
     if exclude is not None:
         fx[exclude] = float("inf")
         fy[exclude] = float("inf")
     dx, dy = xs - q[0], ys - q[1]
     thr = dx * dx + dy * dy
-    if use_kernel(backend, dev):
-        return rank_count_kernel_call(xs, ys, fx, fy, thr)
-    chunk = max(1, _RANK_CHUNK_ELEMS // max(fx.shape[0], 1))
+    chunk = max(1, _RANK_CHUNK_ELEMS // max(m, 1))
     return torch.cat(
         [
             _ref.rank_count_ref(xs[s : s + chunk], ys[s : s + chunk], fx, fy, thr[s : s + chunk])
@@ -228,26 +244,52 @@ def rank_count(users, facilities, q, *, exclude: int | None = None, backend: str
     )
 
 
-def rank_count_batch(users, facilities, q_pts, *, exclude=None) -> torch.Tensor:
-    """Batched distance-rank counting: ``[Q, N]`` int32, plain PyTorch.
+def rank_count_batch(
+    users, facilities, q_pts, *, exclude=None, backend: str = "cuda",
+    order: UserOrder | None = None,
+) -> torch.Tensor:
+    """Batched distance-rank counting: ``[Q, N]`` int32, one kernel launch
+    for the whole batch on the card.
 
     ``users``: ``[N, 2]``; ``facilities``: ``[M, 2]``; ``q_pts``: ``[Q, 2]``.
     ``exclude`` is an optional length-``Q`` sequence of facility rows to
     mask per query (``-1`` / ``None`` entries mask nothing).  The JAX
-    package has no kernel for this either.
+    package computes this with plain jnp ops in one dispatch; here the
+    rank-count kernel's query axis does it.  ``order`` as in
+    :func:`rank_count`.
     """
-    dev = _device_of(users)
-    users, facilities, q_pts = _f32(users, dev), _f32(facilities, dev), _f32(q_pts, dev)
-    xs, ys = users[:, 0], users[:, 1]
+    users = _f32(users, _device_of(users))
+    return rank_count_batch_xy(
+        users[:, 0], users[:, 1], facilities, q_pts, exclude=exclude, backend=backend, order=order
+    )
+
+
+def rank_count_batch_xy(
+    xs, ys, facilities, q_pts, *, exclude=None, backend: str = "cuda",
+    order: UserOrder | None = None,
+) -> torch.Tensor:
+    """:func:`rank_count_batch` of the users ``xs, ys`` (``[N]`` each, as
+    the engine keeps them on its device): no ``[N, 2]`` copy is made."""
+    dev = _device_of(xs)
+    xs, ys = (torch.as_tensor(v, dtype=torch.float32, device=dev) for v in (xs, ys))
+    facilities, q_pts = _f32(facilities, dev), _f32(q_pts, dev)
     q_n, m = q_pts.shape[0], facilities.shape[0]
-    fx = facilities[:, 0].expand(q_n, m).clone()
-    fy = facilities[:, 1].expand(q_n, m).clone()
+    excl = np.full(q_n, -1, dtype=np.int64)
     if exclude is not None:
         excl = np.asarray([-1 if e is None else int(e) for e in exclude], dtype=np.int64)
-        rows = np.flatnonzero(excl >= 0)
-        if len(rows):
-            fx[rows, excl[rows]] = float("inf")
-            fy[rows, excl[rows]] = float("inf")
+        if excl.shape != (q_n,):
+            raise ValueError(f"exclude must have one entry per query ({q_n}), got {excl.shape}")
+        if np.any(excl >= m):
+            raise IndexError(f"exclude {int(excl.max())} is out of range for {m} facilities")
+    if use_kernel(backend, dev):
+        excl_d = torch.from_numpy(np.maximum(excl, -1).astype(np.int32)).to(dev)
+        return rank_count_batch_kernel_call(xs, ys, facilities, q_pts, excl_d, order)
+    fx = facilities[:, 0].expand(q_n, m).clone()
+    fy = facilities[:, 1].expand(q_n, m).clone()
+    rows = np.flatnonzero(excl >= 0)
+    if len(rows):
+        fx[rows, excl[rows]] = float("inf")
+        fy[rows, excl[rows]] = float("inf")
     dx = xs[None, :] - q_pts[:, 0, None]
     dy = ys[None, :] - q_pts[:, 1, None]
     thr = dx * dx + dy * dy

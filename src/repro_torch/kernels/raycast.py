@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.user_order import TILE_USERS, UserOrder, build_user_order
+from repro_torch.kernels.user_order import TILE_USERS, UserOrder, build_user_order, check_order
 
 __all__ = [
     "raycast_count_batch_kernel_call",
@@ -107,7 +107,7 @@ def _launch_sorted(xs, ys, coeffs, order) -> tuple[torch.Tensor, UserOrder | Non
         return out, order, 0
     if order is None:
         order = build_user_order(xs, ys)
-    _check_order(order, n, dev)
+    check_order(order, n, dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -121,14 +121,3 @@ def _launch_sorted(xs, ys, coeffs, order) -> tuple[torch.Tensor, UserOrder | Non
         )
     return out, order, 1
 
-
-def _check_order(order: UserOrder, n: int, dev: torch.device) -> None:
-    n_tiles = -(-n // TILE_USERS)
-    for name, t, shape, dtype in (
-        ("xs_s", order.xs_s, (n,), torch.float32),
-        ("ys_s", order.ys_s, (n,), torch.float32),
-        ("unsort", order.unsort, (n,), torch.int32),
-        ("boxes", order.boxes, (n_tiles, 4), torch.float32),
-    ):
-        if t.device != dev or t.dtype != dtype or t.shape != shape or not t.is_contiguous():
-            raise ValueError(f"order.{name} must be contiguous {dtype} {shape} on {dev}")

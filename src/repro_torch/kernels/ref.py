@@ -18,6 +18,9 @@ the ray-cast kernel applies per tile of users, and
 :func:`grid_block_classes_ref` of the one the grid kernel applies per user
 block, for tests and diagnostics: they repeat the kernels' float64
 arithmetic and margin (derived in ``csrc/tile_class.cuh``).
+:func:`rank_tile_classes_ref` is the twin of the rank-count kernel's
+per-sub-tile facility classifier, in its float32 order with no margin
+(derived in ``csrc/rank_count.cu``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ __all__ = [
     "TILE_TEST",
     "rank_count_ref",
     "rank_count_batch_ref",
+    "rank_tile_classes_ref",
     "grid_raycast_ref",
     "grid_cells_count_batch_ref",
 ]
@@ -157,6 +161,37 @@ def rank_count_batch_ref(xs, ys, fx, fy, thr):
     dx = xs[None, :, None] - fx[:, None, :]
     dy = ys[None, :, None] - fy[:, None, :]
     return (dx * dx + dy * dy < thr[:, :, None]).sum(dim=-1, dtype=torch.int32)
+
+
+def rank_tile_classes_ref(boxes, tmin, tmax, fx, fy):
+    """Class of every (query, user sub-tile, facility) of the rank-count
+    kernel: ``boxes`` ``[T, 4]`` f32 ``(x_min, y_min, x_max, y_max)`` of
+    each sub-tile's users, ``tmin, tmax`` ``[Q, T]`` f32 the least and
+    greatest threshold ``d^2(u, q)`` of each sub-tile's users (NaN if any
+    is NaN), ``fx, fy`` ``[M]`` (or ``[Q, M]``) f32.  Returns
+    ``[Q, T, M]`` int8 of ``TILE_SKIP`` / ``TILE_FULL`` / ``TILE_TEST``.
+
+    In float32, in the kernel's order, per axis ``a = x_lo - fx`` and
+    ``b = x_hi - fx``, the nearest offset ``max(a, -b, 0)`` and the
+    farthest ``max(|a|, |b|)`` (maxima that ignore a NaN, as CUDA's
+    ``fmaxf``); ``gmin`` and ``gmax`` the sums of their squares.  SKIP:
+    ``gmin >= tmax``; FULL: ``gmax < tmin``; a NaN fails both (TEST)."""
+    _count()
+    x_lo, y_lo, x_hi, y_hi = (boxes[:, i, None] for i in range(4))  # [T, 1] each
+    fx, fy = fx[..., None, :], fy[..., None, :]  # [(Q,) 1, M]
+    zero = torch.zeros((), dtype=fx.dtype, device=fx.device)
+
+    def near_far(lo, hi, f):
+        a, b = lo - f, hi - f
+        return torch.fmax(torch.fmax(a, -b), zero), torch.fmax(a.abs(), b.abs())
+
+    nx, wx = near_far(x_lo, x_hi, fx)
+    ny, wy = near_far(y_lo, y_hi, fy)
+    skip = nx * nx + ny * ny >= tmax[..., None]
+    full = wx * wx + wy * wy < tmin[..., None]
+    return torch.where(
+        skip, TILE_SKIP, torch.where(full, TILE_FULL, TILE_TEST)
+    ).to(torch.int8)
 
 
 def grid_cells_count_batch_ref(xs_sorted, ys_sorted, cell_map, planes):

@@ -13,8 +13,10 @@ any order is correct; the Morton code is quantized on the users' own
 bounding box.  Everything runs as plain torch ops on the users' device,
 once per user set (the engine keeps the result in its snapshot's kernel
 memo), with no transfer to the host, so that on the card the build is a
-short queue of launches that the host does not wait for.  The grid
-kernel's bucketing (:mod:`repro_torch.kernels.grid_raycast`) orders the
+short queue of launches that the host does not wait for.  The rank-count
+kernel (``csrc/rank_count.cu``) reads the same order and computes the
+boxes of its smaller sub-tiles itself.  The grid kernel's bucketing
+(:mod:`repro_torch.kernels.grid_raycast`) orders the
 users inside each grid cell with the same code and boxes.
 """
 
@@ -24,7 +26,9 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["TILE_USERS", "UserOrder", "build_user_order", "morton_codes", "tile_boxes"]
+__all__ = [
+    "TILE_USERS", "UserOrder", "build_user_order", "check_order", "morton_codes", "tile_boxes",
+]
 
 #: Users per tile: the kernel's 128 threads times 8 users a thread.
 TILE_USERS = 1024
@@ -92,3 +96,18 @@ def build_user_order(xs: torch.Tensor, ys: torch.Tensor) -> UserOrder:
     unsort = torch.empty(n, dtype=torch.int32, device=dev).scatter_(
         0, perm, torch.arange(n, dtype=torch.int32, device=dev))
     return UserOrder(xy_s[0], xy_s[1], perm.to(torch.int32), unsort, tile_boxes(xy_s, TILE_USERS))
+
+
+def check_order(order: UserOrder, n: int, dev: torch.device) -> None:
+    """Raise ``ValueError`` unless ``order`` has the shapes, types and
+    device of an order of ``n`` users on ``dev`` (what a kernel reads)."""
+    n_tiles = -(-n // TILE_USERS)
+    for name, t, shape, dtype in (
+        ("xs_s", order.xs_s, (n,), torch.float32),
+        ("ys_s", order.ys_s, (n,), torch.float32),
+        ("perm", order.perm, (n,), torch.int32),
+        ("unsort", order.unsort, (n,), torch.int32),
+        ("boxes", order.boxes, (n_tiles, 4), torch.float32),
+    ):
+        if t.device != dev or t.dtype != dtype or t.shape != shape or not t.is_contiguous():
+            raise ValueError(f"order.{name} must be contiguous {dtype} {shape} on {dev}")

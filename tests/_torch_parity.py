@@ -133,3 +133,46 @@ def ragged_cell_planes(seed, q_n, n_cells, lanes, ax, ay, coef_scale):
             holes = rng.random(lanes) < 0.15
             planes[q, c, :, :, holes] = np.broadcast_to(deg[:, :, 0], (int(holes.sum()), 3, 3))
     return planes
+
+
+def adversarial_rank_inputs(seed, n, m, q_n, *, scale=1.0, offset=0.0):
+    """Float32 ``(users [N, 2], facilities [M, 2], q_pts [Q, 2], exclude)``
+    for the rank-count kernel's facility classifier (``M >= 16``).
+
+    Users: :func:`adversarial_users` (clusters, exact copies, copies moved
+    1-3 ulps), half of them snapped to a grid of step ``scale * 2^-8`` so
+    that the constructions below are exact.  Query points: snapped users;
+    the first half of the queries are facility rows (their ``exclude``),
+    the rest free points (``None``).  Facilities: the queries' rows; the
+    mirror ``2u - q`` of a snapped user through a query point (the user's
+    squared distance to it equals its threshold exactly, in float32 and
+    exactly), some moved 1-3 ulps; copies of users and of query points
+    (a tie for every user); points around the clusters; and a facility at
+    ``(+inf, +inf)`` and one at ``(+inf, y)``.  Imports nothing of JAX."""
+    rng = np.random.default_rng(seed)
+    xs, ys = adversarial_users(seed, n, scale=scale, offset=offset)
+    users = np.stack([xs, ys], axis=1)
+    step = np.float32(scale * 2.0**-8)
+    snap = rng.random(n) < 0.5
+    users[snap] = (np.round(users[snap] / step) * step).astype(np.float32)
+    snapped = users[snap] if snap.any() else users
+    q_pts = snapped[rng.integers(0, len(snapped), q_n)].copy()
+    q_pts[q_n // 2 :] += (rng.integers(-8, 9, (q_n - q_n // 2, 2)) * step).astype(np.float32)
+    kinds = rng.choice(4, m, p=[0.35, 0.25, 0.15, 0.25])
+    near = users[rng.integers(0, n, m)] + rng.normal(0.0, 0.05 * scale, (m, 2))
+    u_pick = snapped[rng.integers(0, len(snapped), m)]
+    q_pick = q_pts[rng.integers(0, q_n, m)]
+    mirror = (2 * u_pick.astype(np.float64) - q_pick).astype(np.float32)
+    mirror = _ulp_steps(mirror, rng.integers(-3, 4, (m, 2)) * (rng.random((m, 1)) < 0.4))
+    copies = np.where(rng.random((m, 1)) < 0.5, users[rng.integers(0, n, m)], q_pick)
+    fac = np.select([kinds[:, None] == 0, kinds[:, None] == 1, kinds[:, None] == 2],
+                    [near, mirror, copies], rng.uniform(-1.0, 1.0, (m, 2)) * scale + offset)
+    fac = fac.astype(np.float32)
+    rows = rng.permutation(m)
+    fac[rows[0]] = (np.inf, np.inf)
+    fac[rows[1]] = (np.inf, q_pts[0, 1])
+    exclude = [None] * q_n
+    for i in range(q_n // 2):
+        fac[rows[2 + i]] = q_pts[i]
+        exclude[i] = int(rows[2 + i])
+    return users, fac, q_pts, exclude

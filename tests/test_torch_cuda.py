@@ -20,10 +20,15 @@ import torch
 from repro_torch.core import RkNNEngine
 from repro_torch.core.geometry import Rect
 from repro_torch.core.scene import build_scene
-from repro_torch.kernels import build, grid_raycast, ops, raycast, ref
+from repro_torch.kernels import build, grid_raycast, ops, rank_count, raycast, ref
 from repro_torch.kernels.user_order import build_user_order
 
-from _torch_parity import adversarial_coeffs, adversarial_users, ragged_cell_planes
+from _torch_parity import (
+    adversarial_coeffs,
+    adversarial_rank_inputs,
+    adversarial_users,
+    ragged_cell_planes,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -137,6 +142,81 @@ def test_rank_kernel_matches_plain_on_card(cuda_device):
     ok = non_tie_mask(U, F, 5)
     np.testing.assert_array_equal(got[ok], want[ok])
     assert np.all(np.abs(got - want) <= 1)
+
+
+# (coordinate scale, offset): unit square, squares among the subnormals,
+# near 1e4
+RANK_SCALES = [(1.0, 0.0), (1e-20, 0.0), (1e3, 1e4)]
+
+
+@pytest.mark.parametrize("n_users", [1, 255, 257, 1025, 20_000])
+@pytest.mark.parametrize("q_n", [1, 5])
+def test_rank_tiles_kernel_matches_plain_bit_for_bit(cuda_device, q_n, n_users):
+    """The classified kernel equals its plain version on the card bit for
+    bit (one rounding contract, exact classes), ties and the excluded rows
+    included; the batch rows equal single launches, and every cut of the
+    facilities into splits (atomic adds) gives the same counts."""
+    for i, (scale, offset) in enumerate(RANK_SCALES):
+        seed = n_users * 5 + q_n + i
+        U, F, Q, excl = adversarial_rank_inputs(seed, n_users, 64, max(q_n, 2),
+                                                scale=scale, offset=offset)
+        Q, excl = Q[:q_n], excl[:q_n]
+        U_d, F_d, Q_d = (_t(a).to(cuda_device) for a in (U, F, Q))
+        xs, ys = U_d[:, 0].contiguous(), U_d[:, 1].contiguous()
+        order = build_user_order(xs, ys)
+        got = ops.rank_count_batch(U_d, F_d, Q_d, exclude=excl, order=order)
+        want = ops.rank_count_batch(U_d, F_d, Q_d, exclude=excl, backend="ref")
+        assert got.shape == (q_n, n_users) and torch.equal(got, want), (scale, offset)
+        assert torch.equal(got.cpu(), ops.rank_count_batch(_t(U), _t(F), _t(Q), exclude=excl))
+        # the order built inside
+        assert torch.equal(ops.rank_count_batch(U_d, F_d, Q_d, exclude=excl), got)
+        # the users as the engine keeps them, without the [N, 2] stack
+        assert torch.equal(ops.rank_count_batch_xy(xs, ys, F_d, Q_d, exclude=excl, order=order), got)
+        for q in range(q_n):
+            one = ops.rank_count(U_d, F_d, Q_d[q], exclude=excl[q], order=order)
+            assert torch.equal(one, got[q])
+            plain = ops.rank_count(U_d, F_d, Q_d[q], exclude=excl[q], backend="ref")
+            assert torch.equal(one, plain)
+        excl_d = torch.tensor([-1 if e is None else e for e in excl], dtype=torch.int32,
+                              device=cuda_device)
+        for per_split in (32, 64, 96):  # two splits of the 64 facilities, then one
+            split, launched = rank_count._launch(xs, ys, F_d, Q_d, excl_d, order, per_split)
+            assert launched == 1 and torch.equal(split, got)
+
+
+def test_rank_kernel_counts_launches_and_refuses_bad_orders(cuda_device):
+    xs = torch.rand(3000, device=cuda_device)
+    F = torch.rand(40, 2, device=cuda_device)
+    before = rank_count.launches, rank_count.batch_launches
+    ops.rank_count(torch.stack([xs, xs], 1), F, F[0], exclude=0)
+    ops.rank_count_batch(torch.stack([xs, xs], 1), F, F[:3], exclude=[0, 1, None])
+    out = ops.rank_count_batch(torch.stack([xs, xs], 1), F, F[:0])
+    assert out.shape == (0, 3000)
+    assert (rank_count.launches - before[0], rank_count.batch_launches - before[1]) == (1, 1)
+    order = build_user_order(xs, xs)
+    with pytest.raises(ValueError, match="order.xs_s"):
+        ops.rank_count(torch.stack([xs, xs], 1), F, F[0], order=build_user_order(xs[:9], xs[:9]))
+    with pytest.raises(ValueError, match="order.perm"):
+        ops.rank_count_batch(torch.stack([xs, xs], 1), F, F[:2],
+                             order=order._replace(perm=order.perm[1:]))
+
+
+def test_brute_engine_shares_the_dense_user_order_on_card(cuda_device):
+    """The brute backend's batch launches the rank kernel once over the
+    order the dense backend keeps in the snapshot memo (one entry for
+    both), and equals the engine on the CPU."""
+    rng = np.random.default_rng(9)
+    F, U = rng.random((60, 2)), rng.random((5000, 2))
+    eng = RkNNEngine(F, U, backend="dense", device=cuda_device)
+    eng.query_batch([1, 2], 5)
+    before = rank_count.batch_launches
+    got = eng.query_batch([1, 2, 3, np.array([0.4, 0.6])], 5, backend="brute")
+    assert rank_count.batch_launches - before == 1
+    keys = [k for k in eng._snap.kernel_memo._store if k[0] == "user-order"]
+    assert len(keys) == 1
+    cpu = RkNNEngine(F, U, backend="brute", device=CPU).query_batch(
+        [1, 2, 3, np.array([0.4, 0.6])], 5)
+    np.testing.assert_array_equal(got.counts, cpu.counts)
 
 
 def _cells(rng, n_blocks, block, lanes, q_n, n_cells=5):
