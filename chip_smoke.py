@@ -18,7 +18,17 @@ read just after:
 * ``grid_nonpruned`` — a second engine without pruning (``strategy=
   "none"``, one occluder per competitor: the regime the grid index is
   for) on the same Q = 64 batch, ``grid-pallas`` and ``dense`` both
-  against the oracle.
+  against the oracle;
+* ``bvh_path`` — the main path's engine and batch through ``bvh`` (the
+  paper's LBVH walk, the CUDA stack-traversal kernel with an early exit
+  at k; ``query`` and ``query_mono`` too), its masks equal to the dense
+  ones and its counts to ``min(dense, k)`` off edge ties;
+* ``bvh_nonpruned`` — the ``grid_nonpruned`` engine's 64 scenes (999
+  triangles each), reused, through ``bvh``, with the same checks;
+* ``scenarios`` — each of the paper's regimes
+  (``repro_torch.workloads.SCENARIOS``, at most 60,000 users) through
+  ``dense``, ``grid-pallas``, ``bvh`` and ``brute``, every backend's masks
+  against a float64 rank oracle that shares no code with the port.
 
 Wherever the grid and dense paths both count, their counts must be equal
 on every user: the port evaluates every edge with one rounding order.
@@ -43,6 +53,10 @@ SKIP, FULL and TEST (query, sub-tile, facility) pairs from its plain twin,
 at its sub-tile of 256 users, with the user tests the TEST pairs need),
 and the kernel's device time alone (a CUDA graph of launches, without the
 wrapper's host work) at the wrapper's cut of the facilities into splits.
+The BVH kernel is held against its plain version over all 64 queries at
+both shapes and at Q = 1; the ``bvh_tiles`` line logs the nodes each lane
+popped (mean, 99th percentile, most), the share of lanes that stopped at
+k, and the host time of the 64 BVH builds and of their stacking.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -81,6 +95,13 @@ GRID_G = 64  # the engine's default grid raster
 # 1.98 GHz, half the data sheet's 67 TFLOP/s, which counts an FMA as two.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_OPS_S = 132 * 128 * 1.98e9
+# Operations the BVH walk's function needs on each node a lane pops, as
+# the other rows count a triangle test: a leaf's three edges of two
+# multiplies and two adds, an internal node's two child boxes of four
+# compares.  The kernel counts the two kinds of pops (its pops output).
+BVH_OPS_PER_LEAF = 12
+BVH_OPS_PER_INNER = 8
+SCENARIO_MAX_USERS = 60_000
 
 
 def _log(phase: str, **fields) -> None:
@@ -234,23 +255,31 @@ def _rank_tiles(order, fac, q_pts, excl, q_chunk: int = 4) -> dict:
     }
 
 
-def _tie_mask(users, facilities, q_row: int, chunk: int = 16_384):
-    """Users with a competitor facility (every row but ``q_row``) at a
-    near-tie distance to the query, in float64 on the users' device: the
-    strict-< verdict of such a user may flip at the last ulp, so exactness
-    is checked on the others.  The JAX tests' rule, minus the query's own
-    row, which is excluded from the count and always "ties"."""
+def _rank64(users, facilities, q_row: int, chunk: int = 16_384):
+    """Per user, in float64 on the users' device: the competitors (every
+    facility row but ``q_row``) strictly closer than the query, an exact
+    rank that shares no code with the rank kernel, and whether one of them
+    is at a near-tie distance, where the strict-< verdict of a float32
+    path may flip at the last ulp (so exactness is checked on the others:
+    the JAX tests' rule, minus the query's own row, which is excluded from
+    the count and always "ties")."""
     import torch
 
     q = facilities[q_row]
     comp = torch.cat([facilities[:q_row], facilities[q_row + 1 :]])
-    out = []
+    ranks, ties = [], []
     for s in range(0, users.shape[0], chunk):
         u = users[s : s + chunk]
         d2q = ((u - q) ** 2).sum(1)
         d2 = ((u[:, None, :] - comp[None, :, :]) ** 2).sum(-1)
-        out.append(((d2 - d2q[:, None]).abs() < TIE_EPS * (1.0 + d2q[:, None])).any(1))
-    return torch.cat(out)
+        ranks.append((d2 < d2q[:, None]).sum(1))
+        ties.append(((d2 - d2q[:, None]).abs() < TIE_EPS * (1.0 + d2q[:, None])).any(1))
+    return torch.cat(ranks), torch.cat(ties)
+
+
+def _tie_mask(users, facilities, q_row: int, chunk: int = 16_384):
+    """The near-tie users of :func:`_rank64`."""
+    return _rank64(users, facilities, q_row, chunk)[1]
 
 
 def _edge_tie_mask(xs64, ys64, coeffs, rel: float = 1e-6, chunk_elems: int = 1 << 25):
@@ -435,6 +464,89 @@ def _grid_filter_breakdown(scenes, users, rect, dev) -> dict:
     return out
 
 
+def _once_ms(fn, dev):
+    """``(milliseconds, result)`` of one call of ``fn()`` by CUDA events
+    (for the plain versions, which take seconds)."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(stop), out
+
+
+def _saturated_diffs(res_b, res_d, xs64, ys64, k: int) -> dict:
+    """A BVH batch result against the dense one on the card, query by
+    query: the user-queries whose count differs from ``min(dense count,
+    k)`` and those whose mask differs, each with the ones not at an edge
+    tie of the query's scene (which must be none: the walk may miss a
+    triangle only where rounding puts a user inside it but outside its
+    box)."""
+    import torch
+
+    out = dict.fromkeys(("count_diffs", "count_diffs_off_edge_ties", "mask_diffs",
+                         "mask_diffs_off_edge_ties"), 0)
+    for i, sc in enumerate(res_d.scenes):
+        a = torch.from_numpy(res_b.counts[i]).to(xs64.device)
+        bad = a != torch.from_numpy(res_d.counts[i]).to(xs64.device).clamp(max=k)
+        mbad = torch.from_numpy(res_b.masks[i] != res_d.masks[i]).to(xs64.device)
+        either = bad | mbad
+        if not bool(either.any()):
+            continue
+        ties = torch.zeros_like(either)
+        ties[either] = _edge_tie_mask(xs64[either], ys64[either], sc.coeffs[: sc.n_tris])
+        for name, diff in (("count_diffs", bad), ("mask_diffs", mbad)):
+            out[name] += int(diff.sum())
+            out[f"{name}_off_edge_ties"] += int((diff & ~ties).sum())
+    return out
+
+
+def _oracle_mismatches(masks, oracle, dev) -> int:
+    """Users whose ``[Q, N]`` mask differs from the rank oracle's (a list of
+    ``(rank < k, near ties)`` per query), off near ties."""
+    import torch
+
+    wrong = 0
+    for i, (want, ties) in enumerate(oracle):
+        got = torch.from_numpy(masks[i]).to(dev)
+        wrong += int(((got != want) & ~ties).sum())
+    return wrong
+
+
+def _bvh_pops(pops, counts, k: int) -> dict:
+    """Nodes popped per (query, user) lane of the BVH walk (``pops``: the
+    kernel's ``[2, Q, N]``, internal nodes and leaves): the mean, 99th
+    percentile and most of all pops, the sums of each kind, and the share
+    of lanes that stopped at ``k``."""
+    import torch
+
+    both = pops[0] + pops[1]
+    hist = torch.bincount(both.flatten().long())
+    cum = torch.cumsum(hist, 0)
+    lanes = int(cum[-1])
+    p99 = int(torch.searchsorted(cum, torch.tensor(0.99 * lanes, device=cum.device).ceil().long()))
+    inner, leaves = int(pops[0].sum(dtype=torch.int64)), int(pops[1].sum(dtype=torch.int64))
+    return {"lanes": lanes, "inner_total": inner, "leaf_total": leaves,
+            "pops_mean": (inner + leaves) / max(lanes, 1),
+            "leaf_share": leaves / max(inner + leaves, 1),
+            "pops_p99": p99, "pops_max": int(both.max()),
+            "stopped_at_k": float((counts == k).sum()) / max(lanes, 1)}
+
+
+def _bvh_bound_ms(n: int, batch, stats: dict) -> tuple[float, str]:
+    """Bound of the BVH kernel: the bytes (8 per user, 24 per node and 36
+    per triangle per query in, 4 per (query, user) out) or the operations
+    on the nodes this run's lanes popped (``BVH_OPS_PER_LEAF`` a leaf,
+    ``BVH_OPS_PER_INNER`` an internal node)."""
+    q_n, nn = batch.left.shape
+    n_bytes = 8 * n + q_n * (24 * nn + 36 * batch.coeffs.shape[1]) + 4 * q_n * n
+    ops = BVH_OPS_PER_LEAF * stats["leaf_total"] + BVH_OPS_PER_INNER * stats["inner_total"]
+    return _bound_ms(n_bytes, ops)
+
+
 def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_points: int,
         seed: int):
     """All phases on the card ``dev``; returns the kernels' record.  Each
@@ -446,7 +558,8 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     from repro_torch.core.brute import rknn_brute_np, rknn_mono_brute_np
     from repro_torch.core.scene import pad_scene_arrays
     from repro_torch.data.spatial import facility_user_split, road_network_points
-    from repro_torch.kernels import build, grid_raycast, ops, rank_count, raycast, ref
+    from repro_torch.core.bvh import build_bvh, stack_bvhs
+    from repro_torch.kernels import build, bvh, grid_raycast, ops, rank_count, raycast, ref
     from repro_torch.kernels.grid_raycast import order_cell_runs, prepare_cell_buckets
     from repro_torch.kernels.user_order import TILE_USERS, build_user_order
 
@@ -666,6 +779,60 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
         raise AssertionError(f"the non-pruned path did not go through the kernels: {np_counted}, "
                              f"plain calls {np_plain}")
 
+    # ---- bvh path, full size, infzone: the same engine and scene cache ---
+    # (scene cache hits: t_filter_s is the 64 BVH builds, the stack and the
+    # upload); query() and query_mono() launch the kernel at Q = 1
+    bvh.batch_launches = bvh.launches = 0
+    ref.calls = 0
+    b_res = eng.query_batch(qs, K, backend="bvh")
+    b_one = eng.query(qs[0], K, backend="bvh")
+    b_mono = mono_eng.query_mono(0, K, backend="bvh")
+    torch.cuda.synchronize(dev)
+    bvh_counted = {"bvh_count_batch": bvh.batch_launches, "bvh_count": bvh.launches}
+    bvh_plain = ref.calls
+    b_checks = {
+        **_saturated_diffs(b_res, res, xs64, ys64, K),
+        "oracle_mismatches": _oracle_mismatches(b_res.masks, oracle, dev),
+        "mono_mismatches": int((mono_want != b_mono.mask)[~mono_ties].sum()),
+    }
+    _log("bvh_path", users=len(U), queries=q_n, k=K,
+         query_batch={"t_filter_s": b_res.t_filter_s, "t_verify_s": b_res.t_verify_s},
+         query={"t_filter_s": b_one.t_filter_s, "t_verify_s": b_one.t_verify_s},
+         query_mono={"points": len(P), "t_filter_s": b_mono.t_filter_s,
+                     "t_verify_s": b_mono.t_verify_s},
+         near_tie_excluded=n_ties, **b_checks, launches=bvh_counted, plain_calls=bvh_plain)
+    if (b_checks["count_diffs_off_edge_ties"] or b_checks["mask_diffs_off_edge_ties"]
+            or b_checks["oracle_mismatches"] or b_checks["mono_mismatches"]):
+        raise AssertionError(f"bvh path differs from dense or the rank oracle: {b_checks}")
+    if not (np.array_equal(b_one.mask, b_res.masks[0]) and np.array_equal(b_one.counts, b_res.counts[0])):
+        raise AssertionError("bvh query() differs from row 0 of query_batch()")
+    if bvh_counted["bvh_count_batch"] < 1 or bvh_counted["bvh_count"] < 2 or bvh_plain:
+        raise AssertionError(f"the bvh path did not go through the kernel: {bvh_counted}, "
+                             f"plain calls {bvh_plain}")
+
+    # ---- bvh, non-pruned: the grid_nonpruned engine's 64 scenes, reused ---
+    bvh.batch_launches = 0
+    ref.calls = 0
+    np_bvh = eng_np.query_batch(qs_np, K, backend="bvh")
+    torch.cuda.synchronize(dev)
+    np_bvh_counted = {"bvh_count_batch": bvh.batch_launches}
+    np_bvh_plain = ref.calls
+    nb_checks = {
+        **_saturated_diffs(np_bvh, np_dense, xs64, ys64, K),
+        "oracle_mismatches": _oracle_mismatches(np_bvh.masks, oracle, dev),
+    }
+    _log("bvh_nonpruned", users=len(U), queries=len(qs_np), k=K, strategy="none",
+         m_max=max(sc.n_tris for sc in np_bvh.scenes),
+         query_batch={"t_filter_s": np_bvh.t_filter_s, "t_verify_s": np_bvh.t_verify_s},
+         near_tie_excluded=np_near, **nb_checks, launches=np_bvh_counted,
+         plain_calls=np_bvh_plain)
+    if (nb_checks["count_diffs_off_edge_ties"] or nb_checks["mask_diffs_off_edge_ties"]
+            or nb_checks["oracle_mismatches"]):
+        raise AssertionError(f"non-pruned bvh differs from dense or the rank oracle: {nb_checks}")
+    if np_bvh_counted["bvh_count_batch"] < 1 or np_bvh_plain:
+        raise AssertionError(f"the non-pruned bvh path did not go through the kernel: "
+                             f"{np_bvh_counted}, plain calls {np_bvh_plain}")
+
     # ---- each kernel against its plain version, at the main path's shapes --
     mp = max(128, 1 << int(np.ceil(np.log2(max(s.tris.shape[0] for s in res.scenes)))))
     stack = np.stack([
@@ -863,6 +1030,76 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
              lambda: order_cell_runs(*host_rows, bk.ranks, bk.block, eng.rect), 5, dev),
          grid_path=_grid_tiles(bk, planes_q, lens_q),
          grid_nonpruned=_grid_tiles(bk2, planes_np, lens_np))
+    # the BVH kernel (the jnp walk of core/bvh.py, not a Pallas site): bit
+    # for bit against its plain version over all 64 queries at both shapes
+    # and at Q = 1; its pops per lane give the operations term of the bound
+    bvh_src, bvh_rows = "src/repro_torch/csrc/bvh_traverse.cu", "src/repro/core/bvh.py"
+
+    def bvh_host_s(scenes) -> dict:
+        """Host seconds of the 64 BVH builds and of their stacking, run once
+        more on their own."""
+        t0 = time.perf_counter()
+        trees = [build_bvh(sc.tris[: sc.n_tris]) for sc in scenes]
+        t1 = time.perf_counter()
+        stack_bvhs(trees, [sc.coeffs[: sc.n_tris] for sc in scenes])
+        return {"build_s": t1 - t0, "stack_s": time.perf_counter() - t1}
+
+    def bvh_check(batch, engine_counts, label: str):
+        def kernel():
+            return ops.bvh_count_stacked(xs, ys, batch, k=K, order=order)
+
+        got = kernel()
+        plain_ms, want = _once_ms(
+            lambda: ops.bvh_count_stacked(xs, ys, batch, k=K, backend="ref"), dev)
+        err = int((got - want).abs().max())
+        if not torch.equal(got, want) or not np.array_equal(got.cpu().numpy(), engine_counts):
+            raise AssertionError(f"bvh kernel ({label}) differs from its plain version: {err}")
+        _, pops, _ = bvh._launch(xs, ys, batch, K, order, with_pops=True)
+        stats = _bvh_pops(pops, got, K)
+        b_ms, b_by = _bvh_bound_ms(n_u, batch, stats)
+        shape = {"Q": int(batch.left.shape[0]), "N": n_u, "Nn": int(batch.left.shape[1]),
+                 "Mt": int(batch.coeffs.shape[1]), "depth": batch.depth}
+        return stats, {"max_abs_err": err, "ms": _sync_ms(kernel, 10, dev), "plain_ms": plain_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shape": shape}
+
+    _r, b_batch, _s = eng._snap.batch_cache.get(("bvh", K, tuple(qs), eng.rect))
+    _r, nb_batch, _s = eng_np._snap.batch_cache.get(("bvh", K, tuple(qs_np), eng_np.rect))
+    bvh_stats, rec_b = bvh_check(b_batch, b_res.counts, "infzone")
+    records.append({"name": "bvh_count_batch", "route": "cuda", "source": bvh_src,
+                    "replaces": f"{bvh_rows}:302 (jnp while_loop, not a Pallas site)",
+                    "launches": bvh_counted["bvh_count_batch"], **rec_b})
+    np_bvh_stats, rec_nb = bvh_check(nb_batch, np_bvh.counts, "non-pruned")
+    records.append({"name": "bvh_count_batch (non-pruned)", "route": "cuda", "source": bvh_src,
+                    "replaces": f"{bvh_rows}:302 (jnp while_loop, not a Pallas site)",
+                    "launches": np_bvh_counted["bvh_count_batch"], **rec_nb})
+    # Q = 1: query 0's tree on its unpadded triangles, as BvhBackend.count
+    sc0 = res.scenes[0]
+    tree0 = build_bvh(sc0.tris[: sc0.n_tris])
+    one_batch = bvh.bvh_batch(*(a[None] for a in (
+        tree0.left, tree0.right, tree0.bbox, sc0.coeffs[: sc0.n_tris])), dev)
+    depth0 = one_batch.depth
+    got_b1 = bvh.bvh_count_kernel_call(xs, ys, one_batch, K, order)
+    plain_b1_ms, want_b1 = _once_ms(
+        lambda: ops.bvh_count_stacked(xs, ys, one_batch, k=K, backend="ref")[0], dev)
+    err_b1 = int((got_b1 - want_b1).abs().max())
+    if not torch.equal(got_b1, want_b1) or not np.array_equal(got_b1.cpu().numpy(), b_one.counts):
+        raise AssertionError(f"bvh single-query kernel differs from its plain version: {err_b1}")
+    _, pops1, _ = bvh._launch(xs, ys, one_batch, K, order, with_pops=True)
+    one_stats = _bvh_pops(pops1, got_b1[None], K)
+    b1_ms, b1_by = _bvh_bound_ms(n_u, one_batch, one_stats)
+    records.append({
+        "name": "bvh_count", "route": "cuda", "source": bvh_src,
+        "replaces": f"{bvh_rows}:207 (jnp while_loop, not a Pallas site)",
+        "launches": bvh_counted["bvh_count"], "max_abs_err": err_b1,
+        "ms": _sync_ms(lambda: bvh.bvh_count_kernel_call(xs, ys, one_batch, K, order), 20, dev),
+        "plain_ms": plain_b1_ms, "bound_ms": b1_ms, "bound_by": b1_by, "library_ms": None,
+        "shape": {"Q": 1, "N": n_u, "Nn": tree0.n_nodes, "Mt": sc0.n_tris, "depth": depth0},
+    })
+    _log("bvh_tiles", ops_per_leaf=BVH_OPS_PER_LEAF, ops_per_inner=BVH_OPS_PER_INNER,
+         infzone={**bvh_stats, **rec_b["shape"], **bvh_host_s(res.scenes)},
+         nonpruned={**np_bvh_stats, **rec_nb["shape"], **bvh_host_s(np_dense.scenes)},
+         single={**one_stats, "depth": depth0})
+
     empty = ops.raycast_count_batch(xs, ys, coeffs[:0])
     if empty.shape != (0, n_u):
         raise AssertionError(f"empty batch gave {tuple(empty.shape)}")
@@ -877,11 +1114,73 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
          kernel_alone_ms_batch=sorted_ms(coeffs), kernel_alone_ms_single=sorted_ms(coeffs[:1]),
          classes_batch=_tile_classes(order, coeffs, real_tris),
          classes_single=_tile_classes(order, coeffs[:1], res.scenes[0].n_tris))
-    _log("kernels", bit_identical_raycast=True, bit_identical_grid=True,
+    _scenarios(dev)
+    _log("kernels", bit_identical_raycast=True, bit_identical_grid=True, bit_identical_bvh=True,
          rank_checked_queries=len(rank_out), d2h_counts_ms=d2h_ms,
          d2h_counts_pinned_ms=d2h_pinned_ms, counts_mb=got.numel() * 4 / 1e6,
          records=records, grid_nonpruned_shapes=nonpruned_grid)
     return records
+
+
+def _scenarios(dev) -> None:
+    """Each of the paper's regimes (``repro_torch.workloads.SCENARIOS``) at
+    scale 1 (at most ``SCENARIO_MAX_USERS`` users) through ``dense``,
+    ``grid-pallas``, ``bvh`` and ``brute`` on the card, one line each, with
+    every kernel's launches counted over the whole phase.  Masks: each
+    backend's equal those of a float64 rank oracle (:func:`_rank64`, no
+    kernel of the port) off near ties; ``grid-pallas``'s masks and counts
+    equal ``dense``'s; ``bvh``'s counts equal ``min(dense, k)`` and its
+    masks ``dense``'s off edge ties.  The first backend (``dense``) builds
+    the scenes, the others hit the scene cache."""
+    import torch
+
+    from repro_torch.core import RkNNConfig, RkNNEngine
+    from repro_torch.kernels import bvh, grid_raycast, rank_count, raycast, ref
+    from repro_torch.workloads import SCENARIOS
+
+    raycast.batch_launches = grid_raycast.batch_launches = 0
+    bvh.batch_launches = rank_count.batch_launches = 0
+    ref.calls = 0
+    backends = ("dense", "grid-pallas", "bvh", "brute")
+    for name, sc in SCENARIOS.items():
+        w = sc.generate(1.0)
+        if len(w.users) > SCENARIO_MAX_USERS:
+            raise AssertionError(f"{name}: {len(w.users)} users, more than {SCENARIO_MAX_USERS}")
+        eng = RkNNEngine(w.facilities, w.users, RkNNConfig(backend="dense"), device=dev)
+        out = {b: eng.query_batch(w.qs, w.k, backend=b) for b in backends}
+        u64 = torch.from_numpy(w.users).to(dev)
+        f64 = torch.from_numpy(w.facilities).to(dev)
+        # the oracle in float64, independent of every backend's kernels
+        # (``brute`` launches the rank kernel)
+        oracle = []
+        for qi in w.qs:
+            rank, ties = _rank64(u64, f64, int(qi))
+            oracle.append((rank < w.k, ties))
+        dense = out["dense"]
+        xs64, ys64 = u64[:, 0].contiguous(), u64[:, 1].contiguous()
+        checks = {
+            "oracle_mismatches": {b: _oracle_mismatches(r.masks, oracle, dev) for b, r in out.items()},
+            "grid_mask_diffs": int((out["grid-pallas"].masks != dense.masks).sum()),
+            "grid_count_diffs": int((out["grid-pallas"].counts != dense.counts).sum()),
+            **_saturated_diffs(out["bvh"], dense, xs64, ys64, w.k),
+        }
+        _log("scenarios", name=name, distribution=sc.distribution, facilities=len(w.facilities),
+             users=len(w.users), k=w.k, q=len(w.qs), m_max=max(s.n_tris for s in dense.scenes),
+             near_tie_excluded=sum(int(t.sum()) for _, t in oracle),
+             t_filter_s={b: r.t_filter_s for b, r in out.items()},
+             t_verify_s={b: r.t_verify_s for b, r in out.items()}, **checks)
+        if (any(checks["oracle_mismatches"].values()) or checks["grid_mask_diffs"]
+                or checks["grid_count_diffs"] or checks["count_diffs_off_edge_ties"]
+                or checks["mask_diffs_off_edge_ties"]):
+            raise AssertionError(f"scenario {name}: {checks}")
+    torch.cuda.synchronize(dev)
+    counted = {"raycast_count_batch": raycast.batch_launches,
+               "grid_raycast_cells_batch": grid_raycast.batch_launches,
+               "bvh_count_batch": bvh.batch_launches, "rank_count_batch": rank_count.batch_launches}
+    _log("scenarios_launches", launches=counted, plain_calls=ref.calls)
+    if min(counted.values()) < len(SCENARIOS) or ref.calls:
+        raise AssertionError(f"the scenarios did not go through every kernel: {counted}, "
+                             f"plain calls {ref.calls}")
 
 
 def main(argv=None) -> int:

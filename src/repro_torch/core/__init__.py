@@ -6,12 +6,15 @@ Public surface:
     query/batch/mono/stream), on ``device`` (default ``"cuda"``)
   * :mod:`repro_torch.core.backends` — verification backend registry
     (``dense``, ``dense-ref``, ``grid``, ``grid-pallas``,
-    ``grid-pallas-ref``, ``brute``)
+    ``grid-pallas-ref``, ``bvh``, ``brute``)
   * :func:`repro_torch.core.rknn.rt_rknn_query` — one-shot bichromatic shim
   * :func:`repro_torch.core.rknn.rt_rknn_query_batch` — one-shot batched shim
   * :func:`repro_torch.core.rknn.rknn_mono_query` — monochromatic variant
   * :mod:`repro_torch.core.scene` — per-query occluder scene construction
   * :mod:`repro_torch.core.grid` — the uniform-grid occluder index
+  * :mod:`repro_torch.core.bvh` — the paper's LBVH and its traversal
+  * :mod:`repro_torch.core.baselines` — the paper's comparison methods
+    (SIX, TPL, InfZone, SLICE over an STR R-tree)
   * :func:`scene_from_arrays`, :func:`grid_from_arrays` — a scene or grid
     index of this package from another package's arrays
 """

@@ -27,11 +27,15 @@ Built-in backends (all produce identical verdict sets):
                     name is the JAX package's, so configurations carry over.
 * ``"grid-pallas-ref"`` — the plain PyTorch version of the same bucketed
                     count.
-* ``"brute"``     — exact distance-rank counting (no geometry; baseline),
-                    plain PyTorch as in the JAX package.
+* ``"bvh"``       — the paper-faithful LBVH traversal with early exit at
+                    ``k`` (:mod:`repro_torch.core.bvh`), through the
+                    hand-written CUDA stack-walk kernel
+                    (``repro_torch/csrc/bvh_traverse.cu``).
+* ``"brute"``     — exact distance-rank counting (no geometry; baseline):
+                    the rank-count kernel's query axis for a batch.
 
-The BVH and ``auto`` planner backends of the JAX package are not part of
-this package yet.
+The ``auto`` planner backend of the JAX package is not part of this
+package yet.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import Any, ClassVar, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.bvh import BVH, build_bvh, refit_bvh, stack_bvhs
 from repro_torch.core.geometry import Rect
 from repro_torch.core.grid import (
     OccluderGrid,
@@ -63,6 +68,7 @@ from repro_torch.kernels.grid_raycast import (
     unsort_cell_counts,
     unsort_index,
 )
+from repro_torch.kernels.bvh import BvhBatch, bvh_batch
 from repro_torch.kernels.user_order import UserOrder, build_user_order
 
 __all__ = [
@@ -79,6 +85,8 @@ __all__ = [
     "GridBackend",
     "GridPallasBackend",
     "GridPallasRefBackend",
+    "BvhBatch",
+    "BvhBackend",
     "BruteBackend",
 ]
 
@@ -602,6 +610,66 @@ class GridPallasRefBackend(GridPallasBackend):
 
     name = "grid-pallas-ref"
     kernel_backend = "ref"
+
+
+# --------------------------------------------------------------------------
+# BVH (paper-faithful traversal with early termination at k)
+# --------------------------------------------------------------------------
+
+
+@register_backend
+class BvhBackend(Backend):
+    """LBVH per scene, counted by the CUDA stack-walk kernel with an early
+    exit at ``k`` (counts saturate at ``k``; masks equal every other
+    backend's).  The users are read in the snapshot's spatial order, the
+    one the dense and brute backends share."""
+
+    name = "bvh"
+    kernel_backend = "cuda"
+
+    def build_index(self, scene: Scene, *, grid_g: int = 64, memo: dict | None = None):
+        return build_bvh(scene.tris[: scene.n_tris])
+
+    def refit_index(
+        self,
+        index,
+        old_scene: Scene,
+        new_scene: Scene,
+        changed: np.ndarray,
+        *,
+        grid_g: int = 64,
+    ):
+        if index is not None:
+            bvh = refit_bvh(index, new_scene.tris[: new_scene.n_tris])
+            if bvh is not None:
+                return bvh, True
+        return self.build_index(new_scene, grid_g=grid_g), False
+
+    def count(self, req: QueryRequest) -> np.ndarray:
+        bvh: BVH = req.index
+        if bvh is None:
+            bvh = self.build_index(req.scene, grid_g=req.grid_g)
+        return _ops.bvh_count(
+            req.xs, req.ys, bvh.left, bvh.right, bvh.bbox,
+            req.scene.coeffs[: req.scene.n_tris], k=req.k, backend=self.kernel_backend,
+            order=_user_order_for(req, self.kernel_backend),
+        ).cpu().numpy()
+
+    def prepare_batch(self, req: BatchRequest) -> BvhBatch:
+        indexes = req.indexes
+        if indexes is None:
+            indexes = [self.build_index(s, grid_g=req.grid_g) for s in req.scenes]
+        # the depth is taken once here, on the host; the upload belongs to
+        # the filter phase, and the batch LRU then keeps it on the device
+        return bvh_batch(
+            *stack_bvhs(indexes, [s.coeffs[: s.n_tris] for s in req.scenes]), req.device
+        )
+
+    def count_batch(self, req: BatchRequest, prepared: BvhBatch) -> np.ndarray:
+        return _ops.bvh_count_stacked(
+            req.xs, req.ys, prepared, k=req.k, backend=self.kernel_backend,
+            order=_user_order_for(req, self.kernel_backend),
+        ).cpu().numpy()
 
 
 # --------------------------------------------------------------------------

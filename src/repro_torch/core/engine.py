@@ -14,7 +14,9 @@ object state hangs off:
   host filter phase;
 * sticky power-of-two scene pads, so repeat workloads stack to one shape.
 
-Verification backends are pluggable via :mod:`repro_torch.core.backends`;
+Verification backends are pluggable via :mod:`repro_torch.core.backends`
+(every backend, the ``bvh`` one included, goes through the same generic
+paths);
 the free functions (``rt_rknn_query`` etc.) are one-shot shims over a
 throwaway engine.  The JAX engine's device mesh, query planner,
 persistence, flight recorder and health endpoints are not part of this
@@ -563,7 +565,8 @@ class RkNNEngine:
         Reduces to the bichromatic machinery with ``F = U = facilities`` at
         threshold ``k + 1`` (every point's ray hits its own occluder), then
         self-hit-corrects the counts (see :func:`repro_torch.core.rknn.
-        rknn_mono_query` for the derivation).
+        rknn_mono_query` for the derivation).  The ``bvh`` backend's counts
+        saturate at ``k + 1`` before the correction, so at ``k`` after it.
         """
         q_idx = int(q_idx)
         snap = self._snap

@@ -10,8 +10,9 @@ bit-for-bit: same masks, same counts, same two-stage timing convention.
 
 Backend names resolve through the registry in
 :mod:`repro_torch.core.backends` (``dense``, ``dense-ref``, ``grid``,
-``grid-pallas``, ``grid-pallas-ref`` and ``brute`` built in).  Every shim takes ``device=None``, which means ``"cuda"`` and
-raises without a card; ``device="cpu"`` runs the plain PyTorch versions.
+``grid-pallas``, ``grid-pallas-ref``, ``bvh`` and ``brute`` built in).
+Every shim takes ``device=None``, which means ``"cuda"`` and raises
+without a card; ``device="cpu"`` runs the plain PyTorch versions.
 
 Timing semantics (§4.1 / [62] two-stage convention): *filtering*
 (``t_filter_s``) covers everything on the host that prepares the query —

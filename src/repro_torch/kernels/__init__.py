@@ -3,7 +3,8 @@
 * ``ops``        — public wrappers (``raycast_count``,
                    ``raycast_count_batch``, ``grid_count_cells``,
                    ``grid_count_cells_batch``, ``rank_count``,
-                   ``rank_count_batch(_xy)``): kernel on CUDA tensors, plain
+                   ``rank_count_batch(_xy)``, ``bvh_count``,
+                   ``bvh_count_batch(_stacked)``): kernel on CUDA tensors, plain
                    PyTorch version on CPU tensors
 * ``raycast``    — launch of the dense ray-cast count kernel
                    (``csrc/raycast.cu``), one kernel with a query axis
@@ -20,6 +21,11 @@
                    (``csrc/rank_count.cu``), one kernel with a query
                    axis: the exact on-card oracle and the ``brute``
                    backend's batch
+* ``bvh``        — launch of the BVH stack-traversal kernel
+                   (``csrc/bvh_traverse.cu``), one thread per (query,
+                   user) with an early exit at ``k``, and ``bvh_batch``,
+                   the checked, uploaded trees with the depth the walk's
+                   stack is checked against
 * ``ref``        — the plain PyTorch versions
 * ``build``      — ``nvcc`` build of ``csrc/*.cu`` (which share the
                    classifier header ``csrc/tile_class.cuh``) and

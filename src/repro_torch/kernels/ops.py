@@ -17,6 +17,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.bvh import MAX_STACK as BVH_MAX_STACK
+from repro_torch.kernels.bvh import (
+    BvhBatch,
+    bvh_batch,
+    bvh_count_batch_kernel_call,
+    bvh_count_kernel_call,
+)
 from repro_torch.kernels.grid_raycast import (
     block_boxes,
     cell_list_lengths,
@@ -37,6 +44,10 @@ __all__ = [
     "rank_count",
     "rank_count_batch",
     "rank_count_batch_xy",
+    "bvh_count",
+    "bvh_count_batch",
+    "bvh_count_stacked",
+    "BVH_MAX_STACK",
     "use_kernel",
 ]
 
@@ -45,6 +56,9 @@ _RANK_CHUNK_ELEMS = 1 << 22  # bounds the [Q, chunk, M] distance temporaries
 #: Element budget of one [Q, chunk, block, L] edge temporary of the plain
 #: bucketed grid count (the JAX package's ``_CELL_CHUNK_ELEMS``).
 _CELL_CHUNK_ELEMS = 4_194_304
+#: (query, user) lanes of one chunk of the plain BVH walk: bounds its
+#: ``[lanes, depth]`` stacks and temporaries (a few GB on the card).
+_BVH_CHUNK_LANES = 1 << 24
 
 
 def _device_of(x) -> torch.device:
@@ -304,3 +318,73 @@ def rank_count_batch_xy(
         or [torch.zeros((q_n, 0), dtype=torch.int32, device=dev)],
         dim=1,
     )
+
+
+def _bvh_k_cap(k, mt: int) -> int:
+    """The walk's cap: ``k``, or ``Mt + 1`` (every hit) when ``None``."""
+    if k is not None and k < 0:
+        raise ValueError(f"k must be >= 0 or None, got {k}")
+    # a count never exceeds Mt, so min(count, k) == min(count, Mt + 1) for k > Mt
+    return mt + 1 if k is None else min(int(k), mt + 1)
+
+
+def bvh_count_batch(
+    xs, ys, left, right, bbox, coeffs, *, k: int | None = None,
+    max_stack: int = BVH_MAX_STACK, backend: str = "cuda", order: UserOrder | None = None,
+) -> torch.Tensor:
+    """Batched BVH hit counts (``repro.core.bvh.bvh_hit_counts_batch``):
+    ``[Q, N]`` int32 on the device of ``xs``, saturated at ``k`` (all hits,
+    at most ``Mt``, when ``None``).
+
+    ``xs, ys``: ``[N]`` shared users; ``left, right``: ``[Q, Nn]``;
+    ``bbox``: ``[Q, Nn, 4]``; ``coeffs``: ``[Q, Mt, 3, 3]`` (from
+    :func:`repro_torch.core.bvh.stack_bvhs`).  The stack the walk needs is
+    taken from a host copy of ``left, right``; a tree deeper than
+    ``max_stack`` (at most :data:`BVH_MAX_STACK`) raises ``ValueError``,
+    where the JAX walk drops the push.  ``order`` as in
+    :func:`raycast_count`; the plain version does not read it."""
+    batch = bvh_batch(left, right, bbox, coeffs, _device_of(xs), max_stack=max_stack)
+    return bvh_count_stacked(xs, ys, batch, k=k, backend=backend, order=order)
+
+
+def bvh_count_stacked(
+    xs, ys, batch: BvhBatch, *, k: int | None = None, backend: str = "cuda",
+    order: UserOrder | None = None,
+) -> torch.Tensor:
+    """:func:`bvh_count_batch` on trees already put on the users' device by
+    :func:`repro_torch.kernels.bvh.bvh_batch` (what ``BvhBackend`` keeps
+    in the batch LRU)."""
+    dev = _device_of(xs)
+    xs, ys = _f32(xs, dev), _f32(ys, dev)
+    k_cap = _bvh_k_cap(k, batch.coeffs.shape[1])
+    if use_kernel(backend, dev):
+        return bvh_count_batch_kernel_call(xs, ys, batch, k_cap, order)
+    q_n = batch.left.shape[0]
+    chunk = max(1, _BVH_CHUNK_LANES // max(q_n, 1))
+    return torch.cat(
+        [
+            _ref.bvh_hit_counts_ref(xs[s : s + chunk], ys[s : s + chunk], *batch[:4], k_cap,
+                                    batch.depth)
+            for s in range(0, xs.shape[0], chunk)
+        ]
+        or [torch.zeros((q_n, 0), dtype=torch.int32, device=dev)],
+        dim=1,
+    )
+
+
+def bvh_count(
+    xs, ys, left, right, bbox, coeffs, *, k: int | None = None,
+    max_stack: int = BVH_MAX_STACK, backend: str = "cuda", order: UserOrder | None = None,
+) -> torch.Tensor:
+    """Single-tree BVH hit counts (``repro.core.bvh.bvh_hit_counts``):
+    ``[N]`` int32.  ``left, right``: ``[Nn]``; ``bbox``: ``[Nn, 4]``;
+    ``coeffs``: ``[M, 3, 3]`` (unpadded: ``k=None`` caps at ``M + 1``, and
+    ``M = 0`` counts 0).  Same contract as :func:`bvh_count_batch` at
+    ``Q = 1``, whose kernel it launches."""
+    dev = _device_of(xs)
+    batch = bvh_batch(*(torch.as_tensor(v)[None] for v in (left, right, bbox, coeffs)), dev,
+                      max_stack=max_stack)
+    if use_kernel(backend, dev):
+        k_cap = _bvh_k_cap(k, batch.coeffs.shape[1])
+        return bvh_count_kernel_call(_f32(xs, dev), _f32(ys, dev), batch, k_cap, order)
+    return bvh_count_stacked(xs, ys, batch, k=k, backend="ref")[0]

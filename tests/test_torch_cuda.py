@@ -6,7 +6,7 @@ that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: ray-cast and grid counts bit-identical (kernels and plain
+Tolerances: ray-cast, grid and BVH counts bit-identical (kernels and plain
 versions share one rounding contract, and the ray-cast kernel's tile
 classes are exact); rank counts equal on users with no near-tie
 competitor and within ±1 on the rest.  The adversarial ray-cast inputs
@@ -20,7 +20,8 @@ import torch
 from repro_torch.core import RkNNEngine
 from repro_torch.core.geometry import Rect
 from repro_torch.core.scene import build_scene
-from repro_torch.kernels import build, grid_raycast, ops, rank_count, raycast, ref
+from repro_torch.core import bvh as tbvh
+from repro_torch.kernels import build, bvh, grid_raycast, ops, rank_count, raycast, ref
 from repro_torch.kernels.user_order import build_user_order
 
 from _torch_parity import (
@@ -315,7 +316,7 @@ def test_grid_kernel_empty_launches_nothing_and_refuses_cpu(cuda_device):
 
 
 @pytest.mark.parametrize(
-    "backend", ["dense", "dense-ref", "grid", "grid-pallas", "grid-pallas-ref", "brute"]
+    "backend", ["dense", "dense-ref", "grid", "grid-pallas", "grid-pallas-ref", "bvh", "brute"]
 )
 def test_engine_on_card_matches_engine_on_cpu(cuda_device, backend):
     rng = np.random.default_rng(3)
@@ -326,3 +327,122 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device, backend):
     np.testing.assert_array_equal(a.masks, b.masks)
     if backend != "brute":
         np.testing.assert_array_equal(a.counts, b.counts)
+
+
+def _bvh_batch(seed, q_n, m, n, *, refit=False, empty_rows=()):
+    """Adversarial users (``adversarial_users``) and per-query trees whose
+    triangles have users as vertices, so box edges fall exactly on users,
+    with adversarial edge functions (``adversarial_coeffs``) anchored on
+    the users.  ``refit``: each tree refit to its triangles moved a little;
+    ``empty_rows``: queries whose scene is empty.  Returns host arrays
+    ``(xs, ys, left, right, bbox, coeffs)``."""
+    rng = np.random.default_rng(seed)
+    xs, ys = adversarial_users(seed, n)
+    coeffs = adversarial_coeffs(seed, q_n, m, xs, ys)
+    pts = np.stack([xs, ys], axis=1).astype(np.float64)
+    bvhs, cfs = [], []
+    for q in range(q_n):
+        if q in empty_rows:
+            bvhs.append(tbvh.build_bvh(np.zeros((0, 3, 2))))
+            cfs.append(np.zeros((0, 3, 3), np.float32))
+            continue
+        tris = pts[rng.integers(0, n, (m, 3))]
+        tree = tbvh.build_bvh(tris)
+        if refit:
+            moved = tree if (r := tbvh.refit_bvh(
+                tree, tris + rng.normal(0.0, 1e-3, tris.shape), max_growth=1e9)) is None else r
+            tree = moved
+        bvhs.append(tree)
+        cfs.append(coeffs[q])
+    return (xs, ys, *tbvh.stack_bvhs(bvhs, cfs))
+
+
+@pytest.mark.parametrize("k", [None, 1, 3, 1000])
+@pytest.mark.parametrize("q_n,m,n", [(1, 1, 1), (1, 7, 129), (3, 40, 5000), (64, 120, 20_000)])
+def test_bvh_kernel_matches_plain_bit_for_bit(cuda_device, q_n, m, n, k):
+    xs, ys, *tree = _bvh_batch(q_n * 7 + m, q_n, m, n, empty_rows=(1,) if q_n > 1 else ())
+    d = [_t(a).to(cuda_device) for a in (xs, ys, *tree)]
+    before = bvh.batch_launches
+    got = ops.bvh_count_batch(*d, k=k)
+    assert bvh.batch_launches == before + 1
+    want = ops.bvh_count_batch(*d, k=k, backend="ref")
+    cpu = ops.bvh_count_batch(*(_t(a) for a in (xs, ys, *tree)), k=k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == (q_n, n)
+    assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+    if q_n > 1:
+        assert int(got[1].abs().sum()) == 0  # the empty scene
+
+
+@pytest.mark.parametrize("k", [None, 2])
+def test_bvh_kernel_on_refit_trees_and_single_query(cuda_device, k):
+    xs, ys, *tree = _bvh_batch(5, 4, 60, 3000, refit=True)
+    d = [_t(a).to(cuda_device) for a in (xs, ys, *tree)]
+    got = ops.bvh_count_batch(*d, k=k)
+    assert torch.equal(got, ops.bvh_count_batch(*d, k=k, backend="ref"))
+    before = bvh.launches
+    for q in range(4):  # every query has all 60 rows: no padding to drop
+        one = ops.bvh_count(d[0], d[1], d[2][q], d[3][q], d[4][q], d[5][q], k=k)
+        assert torch.equal(one, got[q])
+        assert torch.equal(one, ops.bvh_count(d[0], d[1], d[2][q], d[3][q], d[4][q], d[5][q],
+                                              k=k, backend="ref"))
+    assert bvh.launches == before + 4
+
+
+def test_bvh_kernel_pops_output_and_empty_shapes(cuda_device):
+    xs, ys, left, right, bbox, coeffs = (
+        _t(a).to(cuda_device) for a in _bvh_batch(9, 5, 80, 4000))
+    batch = bvh.bvh_batch(left, right, bbox, coeffs, cuda_device)
+    out, pops, launched = bvh._launch(xs, ys, batch, 4, None, with_pops=True)
+    torch.cuda.synchronize()
+    assert launched == 1 and torch.equal(out, ops.bvh_count_batch(xs, ys, left, right, bbox,
+                                                                  coeffs, k=4))
+    assert pops.shape == (2, 5, len(xs))
+    inner, leaves = pops[0], pops[1]
+    assert int(pops.min()) >= 0 and int((inner + leaves).min()) >= 1
+    assert int((inner + leaves).max()) <= left.shape[1]
+    assert bool((leaves >= out).all())  # every hit is a leaf the lane popped
+    before = bvh.batch_launches
+    assert ops.bvh_count_batch(xs, ys, left[:0], right[:0], bbox[:0], coeffs[:0],
+                               k=4).shape == (0, len(xs))
+    assert ops.bvh_count_batch(xs[:0], ys[:0], left, right, bbox, coeffs, k=4).shape == (5, 0)
+    assert bvh.batch_launches == before
+
+
+def test_bvh_kernel_refuses_deep_trees_and_bad_arguments(cuda_device):
+    xs, ys, left, right, bbox, coeffs = (
+        _t(a).to(cuda_device) for a in _bvh_batch(11, 2, 30, 500))
+    batch = bvh.bvh_batch(left, right, bbox, coeffs, cuda_device)
+    n_int = bvh.MAX_STACK  # a path of MAX_STACK + 1 levels
+    chain_l = np.array([i + 1 for i in range(n_int - 1)] + [2 * n_int]
+                       + [-(i + 1) for i in range(n_int + 1)], np.int32)
+    chain_r = np.array([n_int + i for i in range(n_int)] + [-1] * (n_int + 1), np.int32)
+    box = np.tile(np.array([-9.0, -9.0, 9.0, 9.0], np.float32), (len(chain_l), 1))
+    cf = np.tile(np.array([[0.0, 0.0, 1.0]] * 3, np.float32), (n_int + 1, 1, 1))
+    chain = [_t(a).to(cuda_device) for a in (chain_l, chain_r, box, cf)]
+    with pytest.raises(ValueError, match="stack"):
+        ops.bvh_count(xs, ys, *chain)
+    with pytest.raises(ValueError, match="stack"):
+        bvh.bvh_batch(*(a[None] for a in chain), cuda_device)
+    with pytest.raises(ValueError, match="CUDA"):
+        bvh.bvh_count_batch_kernel_call(xs.cpu(), ys.cpu(), batch, 3)
+    with pytest.raises(ValueError, match="float32"):
+        bvh.bvh_count_batch_kernel_call(xs.double(), ys, batch, 3)
+    with pytest.raises(ValueError, match="trees"):
+        bvh.bvh_count_batch_kernel_call(xs, ys, bvh.bvh_batch(left, right, bbox, coeffs, CPU), 3)
+    with pytest.raises(ValueError, match="bbox"):
+        bvh.bvh_batch(left, right, bbox[:, :-1], coeffs, cuda_device)
+    with pytest.raises(ValueError, match="coeffs"):
+        bvh.bvh_batch(left, right, bbox, coeffs[:1], cuda_device)
+    with pytest.raises(ValueError, match="one tree"):
+        bvh.bvh_count_kernel_call(xs, ys, batch, 3)
+    with pytest.raises(ValueError, match="k_cap"):
+        bvh.bvh_count_batch_kernel_call(xs, ys, batch, -1)
+    # int64 ids and a box table 4 bytes off 16 are converted, not refused
+    shifted = torch.empty(bbox.numel() + 1, device=cuda_device)[1:].view(bbox.shape)
+    shifted.copy_(bbox)
+    moved = bvh.bvh_batch(left.long(), right, shifted, coeffs, cuda_device)
+    assert moved.bbox.data_ptr() % 16 == 0
+    assert torch.equal(bvh.bvh_count_batch_kernel_call(xs, ys, moved, 3),
+                       bvh.bvh_count_batch_kernel_call(xs, ys, batch, 3))
+    assert "bvh_traverse" in build.build()

@@ -4,7 +4,8 @@ Masks and counts must be exactly equal between ``repro.core.engine``
 and ``repro_torch.core.engine(device="cpu")`` for every ported backend:
 ``dense`` and ``grid-pallas`` (the JAX side runs its Pallas kernels in
 interpret mode, so only at small N), ``dense-ref``, ``grid``,
-``grid-pallas-ref`` and ``brute``.  Brute counts are distance
+``grid-pallas-ref``, ``bvh`` (counts saturated at ``k``, as in JAX) and
+``brute``.  Brute counts are distance
 ranks in float32 and ties may split at one ulp, so their masks are also
 held against the float64 numpy oracle.
 """
@@ -27,7 +28,7 @@ from repro_torch.core.geometry import Rect
 
 from tests._torch_parity import CPU, instance
 
-BACKENDS = ("dense", "dense-ref", "grid", "grid-pallas", "grid-pallas-ref", "brute")
+BACKENDS = ("dense", "dense-ref", "grid", "grid-pallas", "grid-pallas-ref", "bvh", "brute")
 #: instance sizes per backend: the JAX dense and grid-pallas paths run
 #: interpret-mode Pallas
 SIZES = {
@@ -36,6 +37,7 @@ SIZES = {
     "grid": (60, 400),
     "grid-pallas": (30, 120),
     "grid-pallas-ref": (60, 400),
+    "bvh": (60, 400),
     "brute": (60, 400),
 }
 
@@ -57,7 +59,7 @@ def test_registry_and_default_backend():
     assert trknn.BACKENDS == BACKENDS
     assert RkNNConfig().backend == "dense"
     with pytest.raises(ValueError, match="backend must be one of"):
-        get_backend("bvh")
+        get_backend("auto")
     with pytest.raises(ValueError):
         RkNNEngine(np.zeros((4, 2)), np.zeros((4, 2)), RkNNConfig(backend="auto"), device=CPU)
 

@@ -38,5 +38,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
     )
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"repro_torch.core.engine", "repro_torch.core.grid", "repro_torch.kernels.ops",
-            "repro_torch.kernels.grid_raycast", "repro_torch.kernels.build"} <= set(report["modules"])
+            "repro_torch.kernels.grid_raycast", "repro_torch.kernels.build",
+            "repro_torch.core.bvh", "repro_torch.kernels.bvh",
+            "repro_torch.workloads.scenarios",
+            "repro_torch.core.baselines.tpl"} <= set(report["modules"])
     assert report["leaked"] == []
