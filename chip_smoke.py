@@ -53,10 +53,14 @@ SKIP, FULL and TEST (query, sub-tile, facility) pairs from its plain twin,
 at its sub-tile of 256 users, with the user tests the TEST pairs need),
 and the kernel's device time alone (a CUDA graph of launches, without the
 wrapper's host work) at the wrapper's cut of the facilities into splits.
-The BVH kernel is held against its plain version over all 64 queries at
-both shapes and at Q = 1; the ``bvh_tiles`` line logs the nodes each lane
-popped (mean, 99th percentile, most), the share of lanes that stopped at
-k, and the host time of the 64 BVH builds and of their stacking.
+The BVH kernel (one walk per warp for a span of 128 users, 4 a lane) is
+held against its plain version (one walk per user) over all 64 queries
+at both shapes and at Q = 1, its counts bit for bit and, from its
+counting instance, each user's pops (internal nodes and leaves) equal;
+the ``bvh_tiles`` line logs the nodes each user popped (mean, 99th
+percentile, most), the share of users that stopped at k, the lane
+efficiency, the nodes the warps took against their busiest users' pops,
+and the host time of the 64 BVH builds and of their stacking.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -545,6 +549,35 @@ def _bvh_bound_ms(n: int, batch, stats: dict) -> tuple[float, str]:
     n_bytes = 8 * n + q_n * (24 * nn + 36 * batch.coeffs.shape[1]) + 4 * q_n * n
     ops = BVH_OPS_PER_LEAF * stats["leaf_total"] + BVH_OPS_PER_INNER * stats["inner_total"]
     return _bound_ms(n_bytes, ops)
+
+
+def _bvh_warps(pops, steps, perm) -> dict:
+    """What the warp walk did (``pops`` ``[2, Q, N]`` in the users' order,
+    ``steps`` ``[Q, n_warps]`` from the kernel's counting instance, each
+    warp walking for a span of ``ceil(N / n_warps)`` consecutive sorted
+    users, ``perm`` the sorted order): the lane efficiency (the users' pops
+    over each warp's real users times its busiest user's pops) and the
+    nodes the warps took (each warp's union of its users' nodes, counted
+    by the kernel) against the sum of each warp's busiest user's pops,
+    which they can never be below."""
+    import torch
+
+    both = (pops[0] + pops[1]).index_select(1, perm.long()).long()  # [Q, N], sorted
+    q_n, n = both.shape
+    n_warps = steps.shape[1]
+    span = -(-n // n_warps)
+    padded = torch.zeros((q_n, n_warps * span), dtype=torch.int64, device=both.device)
+    padded[:, :n] = both
+    most = padded.view(q_n, n_warps, span).amax(dim=2)
+    users = torch.full((n_warps,), span, dtype=torch.int64, device=both.device)
+    users[-1] = n - span * (n_warps - 1)
+    if bool((steps.long() < most).any()):
+        raise AssertionError("a warp took fewer nodes than its busiest user popped")
+    taken, busiest = int(steps.sum(dtype=torch.int64)), int(most.sum())
+    return {"warps": q_n * n_warps, "span": span,
+            "lane_efficiency": int(both.sum()) / max(int((most * users).sum()), 1),
+            "warp_steps": taken, "warp_most_pops": busiest,
+            "steps_over_most": taken / max(busiest, 1)}
 
 
 def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_points: int,
@@ -1044,21 +1077,32 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
         stack_bvhs(trees, [sc.coeffs[: sc.n_tris] for sc in scenes])
         return {"build_s": t1 - t0, "stack_s": time.perf_counter() - t1}
 
+    def bvh_walk(batch, want, want_pops, label: str) -> dict:
+        """The kernel's counting instance: its counts and pops against the
+        plain walk's, lane for lane, and what its warps did."""
+        walk = bvh.walk_stats(xs, ys, batch, K, order)
+        if not (torch.equal(walk.counts, want) and torch.equal(walk.pops, want_pops)):
+            raise AssertionError(f"bvh kernel ({label}): its pops differ from the plain walk's")
+        return _bvh_warps(walk.pops, walk.steps, order.perm)
+
     def bvh_check(batch, engine_counts, label: str):
+        """The serving kernel against the plain walk (counts), its counting
+        instance against the plain walk's pops lane for lane, the warps'
+        steps, and the serving launch's time."""
         def kernel():
             return ops.bvh_count_stacked(xs, ys, batch, k=K, order=order)
 
         got = kernel()
-        plain_ms, want = _once_ms(
-            lambda: ops.bvh_count_stacked(xs, ys, batch, k=K, backend="ref"), dev)
+        plain_ms, (want, want_pops) = _once_ms(
+            lambda: ops.bvh_count_stacked(xs, ys, batch, k=K, backend="ref", pops=True), dev)
         err = int((got - want).abs().max())
         if not torch.equal(got, want) or not np.array_equal(got.cpu().numpy(), engine_counts):
             raise AssertionError(f"bvh kernel ({label}) differs from its plain version: {err}")
-        _, pops, _ = bvh._launch(xs, ys, batch, K, order, with_pops=True)
-        stats = _bvh_pops(pops, got, K)
+        stats = {**_bvh_pops(want_pops, got, K), **bvh_walk(batch, want, want_pops, label)}
         b_ms, b_by = _bvh_bound_ms(n_u, batch, stats)
         shape = {"Q": int(batch.left.shape[0]), "N": n_u, "Nn": int(batch.left.shape[1]),
-                 "Mt": int(batch.coeffs.shape[1]), "depth": batch.depth}
+                 "Mt": int(batch.coeffs.shape[1]), "depth": batch.depth,
+                 "n_inner": int(batch.nodes.shape[1])}
         return stats, {"max_abs_err": err, "ms": _sync_ms(kernel, 10, dev), "plain_ms": plain_ms,
                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shape": shape}
 
@@ -1079,13 +1123,14 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
         tree0.left, tree0.right, tree0.bbox, sc0.coeffs[: sc0.n_tris])), dev)
     depth0 = one_batch.depth
     got_b1 = bvh.bvh_count_kernel_call(xs, ys, one_batch, K, order)
-    plain_b1_ms, want_b1 = _once_ms(
-        lambda: ops.bvh_count_stacked(xs, ys, one_batch, k=K, backend="ref")[0], dev)
-    err_b1 = int((got_b1 - want_b1).abs().max())
-    if not torch.equal(got_b1, want_b1) or not np.array_equal(got_b1.cpu().numpy(), b_one.counts):
+    plain_b1_ms, (want_b1, want_pops1) = _once_ms(
+        lambda: ops.bvh_count_stacked(xs, ys, one_batch, k=K, backend="ref", pops=True), dev)
+    err_b1 = int((got_b1 - want_b1[0]).abs().max())
+    if not torch.equal(got_b1, want_b1[0]) or not np.array_equal(got_b1.cpu().numpy(),
+                                                                b_one.counts):
         raise AssertionError(f"bvh single-query kernel differs from its plain version: {err_b1}")
-    _, pops1, _ = bvh._launch(xs, ys, one_batch, K, order, with_pops=True)
-    one_stats = _bvh_pops(pops1, got_b1[None], K)
+    one_stats = {**_bvh_pops(want_pops1, got_b1[None], K),
+                 **bvh_walk(one_batch, want_b1, want_pops1, "Q = 1")}
     b1_ms, b1_by = _bvh_bound_ms(n_u, one_batch, one_stats)
     records.append({
         "name": "bvh_count", "route": "cuda", "source": bvh_src,

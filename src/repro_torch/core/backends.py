@@ -659,8 +659,9 @@ class BvhBackend(Backend):
         indexes = req.indexes
         if indexes is None:
             indexes = [self.build_index(s, grid_g=req.grid_g) for s in req.scenes]
-        # the depth is taken once here, on the host; the upload belongs to
-        # the filter phase, and the batch LRU then keeps it on the device
+        # the depth is taken and the records packed once here, on the host;
+        # their upload belongs to the filter phase, and the batch LRU then
+        # keeps them on the device
         return bvh_batch(
             *stack_bvhs(indexes, [s.coeffs[: s.n_tris] for s in req.scenes]), req.device
         )

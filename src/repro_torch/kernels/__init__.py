@@ -21,11 +21,13 @@
                    (``csrc/rank_count.cu``), one kernel with a query
                    axis: the exact on-card oracle and the ``brute``
                    backend's batch
-* ``bvh``        — launch of the BVH stack-traversal kernel
-                   (``csrc/bvh_traverse.cu``), one thread per (query,
-                   user) with an early exit at ``k``, and ``bvh_batch``,
-                   the checked, uploaded trees with the depth the walk's
-                   stack is checked against
+* ``bvh``        — launch of the BVH walk kernel
+                   (``csrc/bvh_traverse.cu``), one walk per warp for 128
+                   Morton-ordered users (4 a lane) and a query, each user
+                   stopping at ``k``, and ``bvh_batch``, the checked trees
+                   with the depth the walk's stack is checked against,
+                   packed on the host into one 48-byte record a node
+                   (``pack_bvh``) and uploaded for the card
 * ``ref``        — the plain PyTorch versions
 * ``build``      — ``nvcc`` build of ``csrc/*.cu`` (which share the
                    classifier header ``csrc/tile_class.cuh``) and

@@ -24,6 +24,7 @@ from repro_torch.kernels.bvh import (
     bvh_count_batch_kernel_call,
     bvh_count_kernel_call,
 )
+from repro_torch.kernels.bvh import walk_stats as bvh_walk_stats
 from repro_torch.kernels.grid_raycast import (
     block_boxes,
     cell_list_lengths,
@@ -343,33 +344,44 @@ def bvh_count_batch(
     ``max_stack`` (at most :data:`BVH_MAX_STACK`) raises ``ValueError``,
     where the JAX walk drops the push.  ``order`` as in
     :func:`raycast_count`; the plain version does not read it."""
-    batch = bvh_batch(left, right, bbox, coeffs, _device_of(xs), max_stack=max_stack)
+    dev = _device_of(xs)
+    batch = bvh_batch(left, right, bbox, coeffs, dev if use_kernel(backend, dev) else "cpu",
+                      max_stack=max_stack)
     return bvh_count_stacked(xs, ys, batch, k=k, backend=backend, order=order)
 
 
 def bvh_count_stacked(
     xs, ys, batch: BvhBatch, *, k: int | None = None, backend: str = "cuda",
-    order: UserOrder | None = None,
-) -> torch.Tensor:
-    """:func:`bvh_count_batch` on trees already put on the users' device by
+    order: UserOrder | None = None, pops: bool = False,
+):
+    """:func:`bvh_count_batch` on trees already checked by
     :func:`repro_torch.kernels.bvh.bvh_batch` (what ``BvhBackend`` keeps
-    in the batch LRU)."""
+    in the batch LRU; the kernel reads its records on the users' device,
+    the plain version moves its node arrays there).  With ``pops``,
+    ``(counts, pops)``: ``pops`` ``[2, Q, N]`` int32, the internal nodes and
+    the leaves each lane popped (on the card from the kernel's counting
+    instance, not a serving launch)."""
     dev = _device_of(xs)
     xs, ys = _f32(xs, dev), _f32(ys, dev)
     k_cap = _bvh_k_cap(k, batch.coeffs.shape[1])
     if use_kernel(backend, dev):
+        if pops:
+            stats = bvh_walk_stats(xs, ys, batch, k_cap, order)
+            return stats.counts, stats.pops
         return bvh_count_batch_kernel_call(xs, ys, batch, k_cap, order)
     q_n = batch.left.shape[0]
     chunk = max(1, _BVH_CHUNK_LANES // max(q_n, 1))
-    return torch.cat(
-        [
-            _ref.bvh_hit_counts_ref(xs[s : s + chunk], ys[s : s + chunk], *batch[:4], k_cap,
-                                    batch.depth)
-            for s in range(0, xs.shape[0], chunk)
-        ]
-        or [torch.zeros((q_n, 0), dtype=torch.int32, device=dev)],
-        dim=1,
-    )
+    trees = [v.to(dev) for v in batch[:4]]
+    parts = [
+        _ref.bvh_hit_counts_ref(xs[s : s + chunk], ys[s : s + chunk], *trees, k_cap,
+                                batch.depth, pops=pops)
+        for s in range(0, xs.shape[0], chunk)
+    ]
+    none = torch.zeros((2, q_n, 0), dtype=torch.int32, device=dev)
+    if not pops:
+        return torch.cat(parts or [none[0]], dim=1)
+    return (torch.cat([c for c, _ in parts] or [none[0]], dim=1),
+            torch.cat([p for _, p in parts] or [none], dim=2))
 
 
 def bvh_count(
@@ -382,9 +394,10 @@ def bvh_count(
     ``M = 0`` counts 0).  Same contract as :func:`bvh_count_batch` at
     ``Q = 1``, whose kernel it launches."""
     dev = _device_of(xs)
-    batch = bvh_batch(*(torch.as_tensor(v)[None] for v in (left, right, bbox, coeffs)), dev,
-                      max_stack=max_stack)
-    if use_kernel(backend, dev):
+    kernel = use_kernel(backend, dev)
+    batch = bvh_batch(*(torch.as_tensor(v)[None] for v in (left, right, bbox, coeffs)),
+                      dev if kernel else "cpu", max_stack=max_stack)
+    if kernel:
         k_cap = _bvh_k_cap(k, batch.coeffs.shape[1])
         return bvh_count_kernel_call(_f32(xs, dev), _f32(ys, dev), batch, k_cap, order)
     return bvh_count_stacked(xs, ys, batch, k=k, backend="ref")[0]

@@ -21,8 +21,9 @@ arithmetic and margin (derived in ``csrc/tile_class.cuh``).
 :func:`rank_tile_classes_ref` is the twin of the rank-count kernel's
 per-sub-tile facility classifier, in its float32 order with no margin
 (derived in ``csrc/rank_count.cu``).  :func:`bvh_hit_counts_ref` is the
-plain version of the BVH stack walk (``csrc/bvh_traverse.cu``), the same
-walk written out over all lanes at once.
+plain version of the BVH walk (``csrc/bvh_traverse.cu``): the reference
+walk, one stack per lane, written out over all lanes at once, whose pops
+the kernel's warp walk repeats lane for lane.
 """
 
 from __future__ import annotations
@@ -243,32 +244,38 @@ def grid_raycast_ref(xs, ys, base, lists, coeffs, rect_lo, rect_size, G: int):
     return base[cell] + inside.sum(dim=-1, dtype=torch.int32)
 
 
-def bvh_hit_counts_ref(xs, ys, left, right, bbox, coeffs, k_cap: int, depth: int):
-    """BVH hit counts (plain version of the stack-walk kernel): ``[Q, N]``
+def bvh_hit_counts_ref(xs, ys, left, right, bbox, coeffs, k_cap: int, depth: int,
+                       pops: bool = False):
+    """BVH hit counts (plain version of the walk kernel): ``[Q, N]``
     int32, per (query, user) ``min(#{t : every box on the path from the
-    root to leaf t holds the user, and the user is inside t}, k_cap)``.
+    root to leaf t holds the user, and the user is inside t}, k_cap)``;
+    with ``pops``, ``(counts, pops)``, ``pops`` ``[2, Q, N]`` int32 the
+    internal nodes (row 0) and the leaves (row 1) each lane popped.
 
     ``xs, ys`` ``[N]`` f32 users; ``left, right`` ``[Q, Nn]`` int32 (a
     leaf has ``left = -(tri + 1)``); ``bbox`` ``[Q, Nn, 4]`` f32
     ``(xmin, ymin, xmax, ymax)``; ``coeffs`` ``[Q, Mt, 3, 3]`` f32;
     ``depth``: the deepest tree's depth, the stack each lane needs.
 
-    The kernel's walk, written out over all ``(query, user)`` lanes at
-    once: every lane keeps a stack of node ids (a row of a ``[lanes,
-    depth]`` tensor) that starts at the root (with no box test); each step
-    pops one node from every lane still walking, tests a leaf's triangle
-    or pushes the children whose box holds the lane's user (left, then
-    right, so the right one pops first), and drops the lanes whose stack
-    is empty or whose count reached ``k_cap``.  The early exit keeps the
-    work that of the kernel: a level-by-level frontier without it would
-    visit every node whose box holds the user, on a non-pruned scene most
-    of the tree for every lane.  A leaf that names a row ``>= Mt``
-    counts nothing, and a child ``>= Nn`` is not pushed, as in the kernel."""
+    The reference walk, one stack per lane, written out over all
+    ``(query, user)`` lanes at once: every lane keeps a stack of node ids
+    (a row of a ``[lanes, depth]`` tensor) that starts at the root (with
+    no box test); each step pops one node from every lane still walking,
+    tests a leaf's triangle or pushes the children whose box holds the
+    lane's user (left, then right, so the right one pops first), and drops
+    the lanes whose stack is empty or whose count reached ``k_cap``.  The
+    kernel walks once per warp for a span of users, but each lane takes
+    part in exactly these pops.  The early exit keeps the work that of the
+    kernel: a level-by-level frontier without it would visit every node
+    whose box holds the user, on a non-pruned scene most of the tree for
+    every lane.  A leaf that names a row ``>= Mt`` counts nothing, and a
+    child ``>= Nn`` is not pushed, as in the kernel."""
     _count()
     dev = xs.device
     q_n, n, nn, mt = left.shape[0], xs.shape[0], left.shape[1], coeffs.shape[1]
     lanes = q_n * n
     counts = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    popped = torch.zeros((2, lanes if pops else 0), dtype=torch.int32, device=dev)
     stack = torch.zeros((lanes, max(int(depth), 1)), dtype=torch.int32, device=dev)
     sp = torch.ones(lanes, dtype=torch.long, device=dev)
     walking = torch.arange(lanes if k_cap > 0 else 0, device=dev)  # lane = q * N + user
@@ -279,6 +286,8 @@ def bvh_hit_counts_ref(xs, ys, left, right, bbox, coeffs, k_cap: int, depth: int
         q = a // n
         l = left[q, node].long()
         leaf = l < 0
+        if pops:
+            popped[1, a[leaf]] += 1
         al, ql, tri = a[leaf], q[leaf], -(l[leaf] + 1)
         ok = tri < mt
         al, ql, tri = al[ok], ql[ok], tri[ok]
@@ -290,6 +299,8 @@ def bvh_hit_counts_ref(xs, ys, left, right, bbox, coeffs, k_cap: int, depth: int
         counts[al[inside]] += 1
         inner = ~leaf
         ai, qi = a[inner], q[inner]
+        if pops:
+            popped[0, ai] += 1
         x, y = xs[ai % n], ys[ai % n]
         for kid in (l[inner], right[qi, node[inner]].long()):  # left pushed first
             b = bbox[qi, kid.clamp(0, nn - 1)]
@@ -299,4 +310,5 @@ def bvh_hit_counts_ref(xs, ys, left, right, bbox, coeffs, k_cap: int, depth: int
             stack[push, sp[push]] = kid[holds].to(torch.int32)
             sp[push] += 1
         walking = a[(sp[a] > 0) & (counts[a] < k_cap)]
-    return counts.reshape(q_n, n)
+    counts = counts.reshape(q_n, n)
+    return (counts, popped.reshape(2, q_n, n)) if pops else counts

@@ -176,3 +176,100 @@ def adversarial_rank_inputs(seed, n, m, q_n, *, scale=1.0, offset=0.0):
         fac[rows[2 + i]] = q_pts[i]
         exclude[i] = int(rows[2 + i])
     return users, fac, q_pts, exclude
+
+
+def chain_tree(depth, *, leaf_side="right", box=(0.0, 0.0, 1.0, 1.0)):
+    """A tree of ``depth`` levels that is a path: each internal node has
+    one leaf child (on ``leaf_side``) and the next internal node as its
+    other child, every box ``box``.  ``(left, right, bbox)`` as
+    ``build_bvh`` encodes them, with ``depth`` leaves, leaf ``i`` naming
+    triangle ``i``.  With the leaves on the left, the walk pushes every
+    leaf on its way down to the deepest node, so its stack reaches
+    ``depth - 1`` entries (the kernel's second register slot from 33 on);
+    with the leaves on the right, it never holds more than one."""
+    n_int = depth - 1
+    n_nodes = 2 * n_int + 1
+    left = np.full(n_nodes, -1, np.int32)
+    right = np.full(n_nodes, -1, np.int32)
+    for i in range(n_int):
+        nxt = i + 1 if i + 1 < n_int else n_int + n_int  # the last one: two leaves
+        leaf = n_int + i
+        left[i], right[i] = (leaf, nxt) if leaf_side == "left" else (nxt, leaf)
+    left[n_int:] = [-(i + 1) for i in range(n_int + 1)]
+    bbox = np.tile(np.asarray(box, np.float32), (n_nodes, 1))
+    return left, right, bbox
+
+
+def warp_walk_twin(xs_s, ys_s, nodes, tris, root, k_cap, warp=32):
+    """A numpy twin of the warp walk of ``csrc/bvh_traverse.cu`` over the
+    packed records (``repro_torch.kernels.bvh.pack_bvh``: ``nodes``
+    ``[Q, n_inner, 12]``, ``tris`` ``[Q, rows, 12]`` f32, ``root`` ``[Q]``)
+    and the users in their sorted order (``xs_s, ys_s`` ``[N]`` f32), in
+    warps of ``warp`` consecutive users, the last one ragged.
+
+    Each warp keeps a stack of (code, lane mask) entries; a step takes one
+    node for the lanes of its mask that are below ``k_cap``, enters the
+    right child when its mask is not empty (pushing the left one), else the
+    left one, else pops; a node whose lanes all stopped is skipped.  Float32
+    with one rounding per operation.  Returns ``(counts [Q, N], pops
+    [2, Q, N], steps [Q, n_warps], most)``, all in the sorted order; ``most``
+    is the most entries any warp's stack held."""
+    nodes = np.asarray(nodes, np.float32)
+    codes = nodes.view(np.int32)[..., 8:10]
+    tris = np.asarray(tris, np.float32)
+    xs_s, ys_s = np.asarray(xs_s, np.float32), np.asarray(ys_s, np.float32)
+    q_n, n = nodes.shape[0], len(xs_s)
+    n_warps = -(-n // warp)
+    counts = np.zeros((q_n, n), np.int32)
+    pops = np.zeros((2, q_n, n), np.int32)
+    steps = np.zeros((q_n, n_warps), np.int32)
+    most = 0
+
+    def edge(x, y, a, b, c):
+        return (x * np.float32(a) + y * np.float32(b)) + np.float32(c)
+
+    def in_box(x, y, b):
+        return (x >= b[0]) & (y >= b[1]) & (x <= b[2]) & (y <= b[3])
+
+    for q in range(q_n):
+        for w in range(n_warps):
+            sl = slice(w * warp, min((w + 1) * warp, n))
+            x, y = xs_s[sl], ys_s[sl]
+            count = np.zeros(len(x), np.int32)
+            inner = np.zeros(len(x), np.int32)
+            leaves = np.zeros(len(x), np.int32)
+            live = count < k_cap
+            code, mask, stack = int(root[q]), live.copy(), []
+            while live.any():
+                act = mask & live
+                descend = None
+                if act.any():
+                    steps[q, w] += 1
+                    if code >= 0:
+                        rec = nodes[q, code]
+                        ml, mr = act & in_box(x, y, rec[0:4]), act & in_box(x, y, rec[4:8])
+                        inner += act
+                        lc, rc = int(codes[q, code, 0]), int(codes[q, code, 1])
+                        if mr.any():
+                            if ml.any():
+                                stack.append((lc, ml))
+                                most = max(most, len(stack))
+                            descend = (rc, mr)
+                        elif ml.any():
+                            descend = (lc, ml)
+                    else:
+                        row = tris[q, ~code]
+                        inside = act.copy()
+                        for e in range(3):
+                            inside &= edge(x, y, *row[3 * e : 3 * e + 3]) >= 0
+                        count += inside
+                        leaves += act
+                        live = count < k_cap
+                if descend is not None:
+                    code, mask = descend
+                    continue
+                if not stack:
+                    break
+                code, mask = stack.pop()
+            counts[q, sl], pops[0, q, sl], pops[1, q, sl] = count, inner, leaves
+    return counts, pops, steps, most

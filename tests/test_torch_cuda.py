@@ -28,7 +28,9 @@ from _torch_parity import (
     adversarial_coeffs,
     adversarial_rank_inputs,
     adversarial_users,
+    chain_tree,
     ragged_cell_planes,
+    warp_walk_twin,
 )
 
 pytestmark = pytest.mark.cuda
@@ -393,7 +395,7 @@ def test_bvh_kernel_pops_output_and_empty_shapes(cuda_device):
     xs, ys, left, right, bbox, coeffs = (
         _t(a).to(cuda_device) for a in _bvh_batch(9, 5, 80, 4000))
     batch = bvh.bvh_batch(left, right, bbox, coeffs, cuda_device)
-    out, pops, launched = bvh._launch(xs, ys, batch, 4, None, with_pops=True)
+    out, pops, _steps, launched = bvh._launch(xs, ys, batch, 4, None, with_pops=True)
     torch.cuda.synchronize()
     assert launched == 1 and torch.equal(out, ops.bvh_count_batch(xs, ys, left, right, bbox,
                                                                   coeffs, k=4))
@@ -443,6 +445,67 @@ def test_bvh_kernel_refuses_deep_trees_and_bad_arguments(cuda_device):
     shifted.copy_(bbox)
     moved = bvh.bvh_batch(left.long(), right, shifted, coeffs, cuda_device)
     assert moved.bbox.data_ptr() % 16 == 0
+    # the node arrays stay on the host; only the kernel's records go to the card
+    assert moved.left.device.type == moved.bbox.device.type == "cpu"
+    assert all(t.device == xs.device and t.data_ptr() % 16 == 0
+               for t in (moved.nodes, moved.tris, moved.root))
     assert torch.equal(bvh.bvh_count_batch_kernel_call(xs, ys, moved, 3),
                        bvh.bvh_count_batch_kernel_call(xs, ys, batch, 3))
     assert "bvh_traverse" in build.build()
+
+
+def _walk_checks(xs, ys, batch, k, order=None):
+    """The serving kernel and its counting instance against the plain walk
+    (counts and pops, bit for bit) and the numpy twin of the warp walk
+    over spans of 32 * USERS_PER_LANE users (steps per warp); returns the
+    counts."""
+    k_cap = ops._bvh_k_cap(k, batch.coeffs.shape[1])
+    if order is None:
+        order = build_user_order(xs, ys)
+    got = bvh.bvh_count_batch_kernel_call(xs, ys, batch, k_cap, order)
+    want, want_pops = ops.bvh_count_stacked(xs, ys, batch, k=k, backend="ref", pops=True)
+    stats = bvh.walk_stats(xs, ys, batch, k_cap, order)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(stats.counts, want)
+    assert torch.equal(stats.pops, want_pops)
+    perm = order.perm.long().cpu().numpy()
+    twin = warp_walk_twin(order.xs_s.cpu().numpy(), order.ys_s.cpu().numpy(),
+                          batch.nodes.cpu().numpy(), batch.tris.cpu().numpy(),
+                          batch.root.cpu().numpy(), k_cap, warp=32 * bvh.USERS_PER_LANE)
+    np.testing.assert_array_equal(twin[0], want.cpu().numpy()[:, perm])
+    np.testing.assert_array_equal(stats.steps.cpu().numpy(), twin[2])
+    return got
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, None, 1000])
+@pytest.mark.parametrize("q_n,m,n", [(1, 1, 1), (2, 7, 33), (3, 40, 1001), (4, 90, 2001)])
+def test_bvh_warp_walk_pops_and_steps_equal_the_plain_walk(cuda_device, q_n, m, n, k):
+    """N not a multiple of 32 (ragged last warps), k = 0, and k above every
+    count (1000 and None): counts and pops of every lane equal the plain
+    walk's, and the steps of every warp the twin's."""
+    xs, ys, *tree = _bvh_batch(q_n * 11 + m, q_n, m, n, empty_rows=(1,) if q_n > 1 else ())
+    d = [_t(a).to(cuda_device) for a in (xs, ys, *tree)]
+    batch = bvh.bvh_batch(*d[2:], cuda_device)
+    got = _walk_checks(d[0], d[1], batch, k)
+    if k == 0:
+        assert int(got.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("leaf_side", ["left", "right"])
+@pytest.mark.parametrize("depth", [33, 34, 64])
+def test_bvh_warp_walk_on_deep_chains(cuda_device, depth, leaf_side):
+    """Paths of depth 33, 34 and 64 (the deepest tree the kernel takes):
+    with the leaves on the left the stack reaches depth - 1 entries, from
+    depth 34 on into the second register slot; depth 65 is refused."""
+    left, right, bbox = chain_tree(depth, leaf_side=leaf_side)
+    cf = np.tile(np.array([[0.0, 0.0, 1.0]] * 3, np.float32), (depth, 1, 1))
+    cf[::3, 0] = (0.0, 0.0, -1.0)  # every third triangle holds no user
+    xs, ys = adversarial_users(depth, 777)
+    d = [_t(a).to(cuda_device) for a in (xs, ys)]
+    batch = bvh.bvh_batch(*(_t(a)[None] for a in (left, right, bbox, cf)), cuda_device)
+    assert batch.depth == depth
+    for k in (0, 5, depth - depth // 3, None):
+        _walk_checks(d[0], d[1], batch, k)
+    deeper = chain_tree(bvh.MAX_STACK + 1, leaf_side=leaf_side)
+    with pytest.raises(ValueError, match="stack"):
+        bvh.bvh_batch(*(_t(a)[None] for a in (*deeper, cf)), cuda_device)
