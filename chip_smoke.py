@@ -28,7 +28,17 @@ read just after:
 * ``scenarios`` — each of the paper's regimes
   (``repro_torch.workloads.SCENARIOS``, at most 60,000 users) through
   ``dense``, ``grid-pallas``, ``bvh`` and ``brute``, every backend's masks
-  against a float64 rank oracle that shares no code with the port.
+  against a float64 rank oracle that shares no code with the port;
+* ``planner`` — the query planner on the main path's engine: a calibration
+  on the card (``planner_calibration``: each shape's and backend's filter
+  and verify seconds, the fingerprint, which must name the card), the
+  committed profile of this runner class loaded strictly, the CAL batch
+  priced with the fresh profile next to the observed times of the same
+  batch forced through each backend (``planner_pricing``), then
+  ``query_batch``, ``query``, ``stream`` and ``query_mono`` through
+  ``auto``, a batch dealt over the four kernel backends and an
+  online-recalibrating engine (``planner_auto``): masks against the rank
+  oracle, every dispatched backend's kernel launched, no plain call.
 
 Wherever the grid and dense paths both count, their counts must be equal
 on every user: the port evaluates every edge with one rounding order.
@@ -1160,6 +1170,8 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
          classes_batch=_tile_classes(order, coeffs, real_tris),
          classes_single=_tile_classes(order, coeffs[:1], res.scenes[0].n_tris))
     _scenarios(dev)
+    _planner(dev, eng, mono_eng, qs, stream_qs, oracle, (users_dev, fac_dev, u64, f64, rank_order),
+             (mono_want, mono_ties), {"dense": res, "grid-pallas": g_res, "bvh": b_res})
     _log("kernels", bit_identical_raycast=True, bit_identical_grid=True, bit_identical_bvh=True,
          rank_checked_queries=len(rank_out), d2h_counts_ms=d2h_ms,
          d2h_counts_pinned_ms=d2h_pinned_ms, counts_mb=got.numel() * 4 / 1e6,
@@ -1226,6 +1238,202 @@ def _scenarios(dev) -> None:
     if min(counted.values()) < len(SCENARIOS) or ref.calls:
         raise AssertionError(f"the scenarios did not go through every kernel: {counted}, "
                              f"plain calls {ref.calls}")
+
+
+#: The forced mixed batch's rotation: the four kernel backends.
+MIXED_ROTATION = ("dense", "grid-pallas", "bvh", "brute")
+RECAL_BATCHES = 3  # batches of 8 queries through an online-recalibrating engine
+
+
+def _plan_line(plan: dict) -> dict:
+    """One ``explain()`` entry for the log: the per-query lists summed up."""
+    return {key: plan[key] for key in ("mode", "backend", "predicted_s", "observed_s", "assignments",
+                                       "candidates", "groups", "split", "amortized",
+                                       "plan_cache_hit", "observed_group_s", "decisions")
+            if key in plan}
+
+
+def _planner(dev, eng, mono_eng, qs, stream_qs, oracle, users, mono_oracle, observed) -> None:
+    """The query planner on the card: calibrate (the fast grid, ``repeats=2``),
+    load the committed profile of this runner class, price the CAL batch
+    with the fresh profile next to the forced backends' observed times,
+    serve ``query_batch``, ``query``, ``stream`` and ``query_mono`` through
+    ``auto``, force a batch mixed over the four kernel backends, and run an
+    online-recalibrating engine.  Every mask is held against the rank
+    oracle off near ties; over the served runs every kernel of a backend
+    that ``auto`` dispatched must launch and no plain version may run.
+    The active profile is restored at the end."""
+    import copy
+
+    import torch
+
+    from repro_torch.core import RkNNConfig, RkNNEngine, get_backend, register_backend
+    from repro_torch.kernels import bvh, grid_raycast, ops, rank_count, raycast, ref
+    from repro_torch.planner.backend import PlannerBackend
+    from repro_torch.planner.calibrate import calibrate
+    from repro_torch.planner.models import WorkloadShape
+    from repro_torch.planner.profiles import (
+        PROFILE_STORE, get_active_profile, load_runner_profile, runner_class,
+        set_active_profile,
+    )
+
+    users_dev, fac_dev, u64, f64, rank_order = users
+    mono_want, mono_ties = mono_oracle
+    n_f, n_u, q_n = len(eng.facilities), len(eng.users), len(qs)
+    prev_profile = get_active_profile()
+
+    # ---- calibrate on the card -----------------------------------------
+    t0 = time.perf_counter()
+    fresh = calibrate(device=dev, fast=True, repeats=2)
+    cal_s = time.perf_counter() - t0
+    names = [sh["name"] for sh in fresh.meta["shapes"]]
+    _log("planner_calibration", seconds=cal_s, hardware=fresh.hardware,
+         runner_class=runner_class(fresh.hardware), backends=fresh.meta["backends"],
+         shapes=fresh.meta["shapes"],
+         measured={b: {name: [m["t_filter_s"][i], m["t_verify_s"][i]]
+                       for i, name in enumerate(names)}
+                   for b, m in fresh.meta["measured"].items()})
+    card = torch.cuda.get_device_name(dev)
+    if fresh.hardware.get("platform") != "gpu" or fresh.hardware.get("device_kind") != card:
+        raise AssertionError(f"calibration fingerprint does not name the card: {fresh.hardware}")
+    twins = [b for b in fresh.models if b != "slice" and get_backend(b).plain_twin_of]
+    if twins:
+        raise AssertionError(f"the card's calibration timed plain twins: {twins}")
+    committed = load_runner_profile(PROFILE_STORE)
+    if committed is None:
+        raise AssertionError(f"no committed profile for {runner_class()} under {PROFILE_STORE}")
+
+    # ---- price the CAL batch next to the forced backends' observed times --
+    set_active_profile(fresh)
+    brute_res = eng.query_batch(qs, K, backend="brute")
+    observed = {**observed, "brute": brute_res}
+    planner = get_backend("auto")
+    cands = planner.candidates(device=dev)
+    pw = eng._snap.pad_waste(eng.rect, GRID_G)
+    amortized = WorkloadShape(n_f, n_u, K, q_n, cache_hit=True, pad_waste=pw)
+    cold = WorkloadShape(n_f, n_u, K, q_n, cache_hit=False, pad_waste=pw)
+    pricing = {}
+    for name in cands:
+        row = {"pred_amortized_s": fresh.predict_s(name, amortized),
+               "pred_cold_s": fresh.predict_s(name, cold),
+               "pred_committed_amortized_s": committed.predict_s(name, amortized)
+               if name in committed.models else None}
+        r = observed.get(name)
+        if r is not None:
+            obs = r.t_filter_s + r.t_verify_s
+            row.update(obs_t_filter_s=r.t_filter_s, obs_t_verify_s=r.t_verify_s,
+                       ratio_amortized=row["pred_amortized_s"] / obs,
+                       ratio_cold=row["pred_cold_s"] / obs,
+                       ratio_verify=fresh.models[name].verify.predict_s(amortized) / r.t_verify_s)
+        pricing[name] = row
+    _log("planner_pricing", users=n_u, facilities=n_f, k=K, q=q_n, pad_waste=pw,
+         candidates=list(cands), ranked=planner.rank(amortized, cands), backends=pricing,
+         brute_oracle_mismatches=_oracle_mismatches(brute_res.masks, oracle, dev))
+
+    # the stream's oracle, before the counted window (it launches row 5)
+    stream_batches = stream_qs[:2]
+    stream_oracle = []
+    for batch in stream_batches:
+        rc = ops.rank_count_batch(users_dev, fac_dev, fac_dev[batch], exclude=batch, order=rank_order)
+        stream_oracle.append([(rc[i] < K, _tie_mask(u64, f64, qi)) for i, qi in enumerate(batch)])
+
+    # ---- serve through auto, counted --------------------------------------
+    raycast.batch_launches = raycast.single_launches = 0
+    grid_raycast.batch_launches = grid_raycast.single_launches = 0
+    bvh.batch_launches = bvh.launches = 0
+    rank_count.launches = rank_count.batch_launches = 0
+    ref.calls = 0
+    n_plans = len(eng.explain())
+    a_res = eng.query_batch(qs, K, backend="auto")
+    a_plan = eng.explain()[-1]
+    a_one = eng.query(qs[0], K, backend="auto")
+    t0 = time.perf_counter()
+    a_stream = [m for _, m in eng.stream(stream_batches, K, backend="auto")]
+    stream_s = time.perf_counter() - t0
+    a_mono = mono_eng.query_mono(0, K, backend="auto")
+
+    class MixedPlanner(PlannerBackend):
+        """The scenes' path, then the batch dealt over the kernel backends."""
+
+        name = "auto-mixed"
+
+        def rank(self, shape, candidates=None):
+            return [(MIXED_ROTATION[0], 1.0)]
+
+        def assign_batch(self, shapes, candidates=None):
+            return [(MIXED_ROTATION[i % len(MIXED_ROTATION)], 1.0) for i in range(len(shapes))]
+
+    register_backend(MixedPlanner)
+    set_active_profile(fresh)  # a new epoch: the auto batch's memoized plan is not reused
+    mixed = eng.query_batch(qs, K, backend="auto-mixed")
+    mixed_plan = eng.explain()[-1]
+
+    set_active_profile(copy.deepcopy(fresh))  # online recalibration edits it in place
+    recal_eng = RkNNEngine(eng.facilities, eng.users,
+                           RkNNConfig(backend="auto", online_recalibration=True), device=dev)
+    recal_rows = [list(range(8 * (i % 2), 8 * (i % 2) + 8)) for i in range(RECAL_BATCHES)]
+    recal = [recal_eng.query_batch([qs[i] for i in rows], K) for rows in recal_rows]
+    recal_profile = get_active_profile()
+    torch.cuda.synchronize(dev)
+    counted = {"raycast": raycast.batch_launches + raycast.single_launches,
+               "grid_raycast": grid_raycast.batch_launches + grid_raycast.single_launches,
+               "bvh": bvh.batch_launches + bvh.launches,
+               "rank_count": rank_count.launches + rank_count.batch_launches}
+    plain_calls = ref.calls
+    set_active_profile(prev_profile)
+
+    # ---- checks -------------------------------------------------------------
+    plans = eng.explain()[n_plans:] + mono_eng.explain()[-1:] + recal_eng.explain()
+    dispatched = sorted({b for p in plans for b in p.get("decisions", {})})
+    kernel_of = {"dense": "raycast", "grid-pallas": "grid_raycast", "bvh": "bvh",
+                 "brute": "rank_count"}
+    served_twins = [b for b in dispatched if get_backend(b).plain_twin_of]
+    off_ties = [~t.cpu().numpy() for _, t in oracle]
+    dense_masks = observed["dense"].masks
+    checks = {
+        "query_batch": _oracle_mismatches(a_res.masks, oracle, dev),
+        "query": _oracle_mismatches(a_one.mask[None], oracle[:1], dev),
+        "stream": sum(_oracle_mismatches(m, o, dev) for m, o in zip(a_stream, stream_oracle)),
+        "query_mono": int((mono_want != a_mono.mask)[~mono_ties].sum()),
+        "mixed": _oracle_mismatches(mixed.masks, oracle, dev),
+        "recal": sum(_oracle_mismatches(r.masks, [oracle[i] for i in rows], dev)
+                     for r, rows in zip(recal, recal_rows)),
+        "query_batch_vs_dense_off_near_ties": int(sum(
+            ((a_res.masks[i] != dense_masks[i]) & off_ties[i]).sum() for i in range(q_n))),
+        "mixed_vs_dense_off_near_ties": int(sum(
+            ((mixed.masks[i] != dense_masks[i]) & off_ties[i]).sum() for i in range(q_n))),
+    }
+    _log("planner_auto", query_batch={"t_filter_s": a_res.t_filter_s, "t_verify_s": a_res.t_verify_s,
+                                      "plan": _plan_line(a_plan)},
+         query={"backend": a_one.backend, "t_filter_s": a_one.t_filter_s,
+                "t_verify_s": a_one.t_verify_s, "plan": _plan_line(eng.explain()[n_plans + 1])},
+         stream={"batches": len(stream_batches), "wall_s": stream_s,
+                 "plans": [_plan_line(p) for p in eng.explain()[n_plans + 2: n_plans + 4]]},
+         query_mono={"backend": a_mono.backend, "points": len(mono_want),
+                     "plan": _plan_line(mono_eng.explain()[-1])},
+         mixed={"t_filter_s": mixed.t_filter_s, "t_verify_s": mixed.t_verify_s,
+                "plan": _plan_line(mixed_plan)},
+         recal={"nudges": recal_eng.stats.planner_recal_nudges,
+                "decisions": recal_eng.stats.planner_decisions,
+                "pred_s": recal_eng.stats.planner_pred_s, "obs_s": recal_eng.stats.planner_obs_s,
+                "const_drift": {b: [float(fresh.models[b].verify.coef[0]),
+                                    float(recal_profile.models[b].verify.coef[0])]
+                                for b in recal_eng.stats.planner_decisions}},
+         stats={"planner_decisions": eng.stats.planner_decisions,
+                "planner_pred_s": eng.stats.planner_pred_s,
+                "planner_obs_s": eng.stats.planner_obs_s},
+         dispatched=dispatched, mismatches=checks, launches=counted, plain_calls=plain_calls)
+    if any(checks.values()):
+        raise AssertionError(f"auto masks differ from the rank oracle or from dense: {checks}")
+    if served_twins or plain_calls:
+        raise AssertionError(f"auto served a plain version: {served_twins}, plain calls {plain_calls}")
+    if not (set(MIXED_ROTATION) <= set(mixed_plan["groups"]) and mixed_plan["split"]):
+        raise AssertionError(f"the mixed batch was not split four ways: {mixed_plan['groups']}")
+    missing = [b for b in dispatched if b in kernel_of and counted[kernel_of[b]] < 1]
+    if missing:
+        raise AssertionError(f"auto dispatched {missing} but their kernels did not launch: {counted}")
+    if recal_eng.stats.planner_recal_nudges < RECAL_BATCHES:
+        raise AssertionError(f"online recalibration nudged {recal_eng.stats.planner_recal_nudges} times")
 
 
 def main(argv=None) -> int:

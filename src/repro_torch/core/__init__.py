@@ -6,7 +6,11 @@ Public surface:
     query/batch/mono/stream), on ``device`` (default ``"cuda"``)
   * :mod:`repro_torch.core.backends` — verification backend registry
     (``dense``, ``dense-ref``, ``grid``, ``grid-pallas``,
-    ``grid-pallas-ref``, ``bvh``, ``brute``)
+    ``grid-pallas-ref``, ``bvh``, ``brute``, and ``auto``, the query
+    planner of :mod:`repro_torch.planner`)
+  * :func:`repro_torch.core.hybrid.choose_engine`,
+    :func:`repro_torch.core.hybrid.hybrid_rknn_query` — the RT-vs-SLICE
+    dispatcher, priced from the active planner profile
   * :func:`repro_torch.core.rknn.rt_rknn_query` — one-shot bichromatic shim
   * :func:`repro_torch.core.rknn.rt_rknn_query_batch` — one-shot batched shim
   * :func:`repro_torch.core.rknn.rknn_mono_query` — monochromatic variant
@@ -22,12 +26,15 @@ Public surface:
 from repro_torch.core.backends import (
     Backend,
     available_backends,
+    concrete_backends,
     get_backend,
     register_backend,
+    timeable_backends,
 )
 from repro_torch.core.engine import EngineStats, RkNNConfig, RkNNEngine
 from repro_torch.core.geometry import Rect
 from repro_torch.core.grid import grid_from_arrays
+from repro_torch.core.hybrid import SceneCache, choose_engine, hybrid_rknn_query
 from repro_torch.core.rknn import (
     BACKENDS,
     RkNNBatchResult,
@@ -51,6 +58,11 @@ __all__ = [
     "register_backend",
     "get_backend",
     "available_backends",
+    "concrete_backends",
+    "timeable_backends",
+    "SceneCache",
+    "choose_engine",
+    "hybrid_rknn_query",
     "rt_rknn_query",
     "rt_rknn_query_batch",
     "rknn_mono_query",

@@ -33,9 +33,12 @@ Built-in backends (all produce identical verdict sets):
                     (``repro_torch/csrc/bvh_traverse.cu``).
 * ``"brute"``     — exact distance-rank counting (no geometry; baseline):
                     the rank-count kernel's query axis for a batch.
-
-The ``auto`` planner backend of the JAX package is not part of this
-package yet.
+* ``"auto"``      — the query planner (:mod:`repro_torch.planner.backend`):
+                    a *meta* backend (``is_meta = True``) that cost-dispatches
+                    every request to the predicted-cheapest concrete backend
+                    under the active calibration profile; on a CUDA device it
+                    never routes to a plain twin (``plain_twin_of`` set:
+                    ``dense-ref``, ``grid-pallas-ref``).
 """
 
 from __future__ import annotations
@@ -78,6 +81,8 @@ __all__ = [
     "register_backend",
     "get_backend",
     "available_backends",
+    "concrete_backends",
+    "timeable_backends",
     "stack_cell_planes",
     "CellBuckets",
     "DenseBackend",
@@ -88,6 +93,7 @@ __all__ = [
     "BvhBatch",
     "BvhBackend",
     "BruteBackend",
+    "PlannerBackend",
 ]
 
 
@@ -96,8 +102,9 @@ class QueryRequest:
     """Everything a backend may need for one single-query count.
 
     Geometric backends read ``xs/ys`` + ``scene`` (+ ``index``); the
-    geometry-free brute backend reads ``users/facilities/q_pt/exclude``
-    and puts them on ``device``.  The grid-pallas backends bucket the host
+    geometry-free brute backend reads ``facilities/q_pt/exclude`` and the
+    device users ``xs/ys`` (or, without them, ``users``, put on
+    ``device``).  The grid-pallas backends bucket the host
     copy of the users (``users``), never the device tensors.
     """
 
@@ -153,6 +160,17 @@ class Backend:
     #: False for geometry-free backends (no scene construction at all);
     #: the engine skips the whole filter phase for them.
     uses_scene: ClassVar[bool] = True
+    #: True for planning backends that only *route* to concrete backends
+    #: (the engine resolves them before filtering; they are excluded from
+    #: the concrete-backend lists like ``repro_torch.core.rknn.BACKENDS``).
+    is_meta: ClassVar[bool] = False
+    #: On the plain PyTorch twin of a kernel backend (``dense-ref``,
+    #: ``grid-pallas-ref``), the kernel backend's name: the twin is the
+    #: correctness tool for that kernel.  On a CUDA device it is neither
+    #: timed by calibration nor routed to by ``auto``; on the CPU the kernel
+    #: backend runs this same plain version, so there the twin is the one
+    #: timed (see :func:`timeable_backends`).
+    plain_twin_of: ClassVar[str | None] = None
 
     # ---- filter phase (host) --------------------------------------------
     def build_index(self, scene: Scene, *, grid_g: int = 64, memo: dict | None = None):
@@ -225,6 +243,31 @@ def get_backend(name: str) -> Backend:
 
 def available_backends() -> tuple[str, ...]:
     return tuple(_REGISTRY)
+
+
+def concrete_backends() -> tuple[str, ...]:
+    """Registered names that do the counting themselves — meta backends
+    (the ``auto`` planner) route to these and are excluded.  Single source
+    of truth for every "all real backends" list."""
+    return tuple(n for n, b in _REGISTRY.items() if not b.is_meta)
+
+
+def timeable_backends(device: str | torch.device | None = None) -> tuple[str, ...]:
+    """Concrete backends whose wall time on ``device`` (``None``: CUDA, as
+    every entry point) means something.
+
+    Replaces the JAX package's ``interpret_mode_on_cpu`` rule.  On a CUDA
+    device the plain twins (``plain_twin_of``) are left out: they are the
+    correctness tool, and ``auto`` never serves through them there.  On
+    the CPU the kernel backends that have a plain twin are left out
+    instead: their CPU path *is* the twin, so timing both measures one
+    thing twice (the CPU set equals the JAX package's
+    ``timeable_backends()`` on a host without a TPU)."""
+    names = concrete_backends()
+    if torch.device("cuda" if device is None else device).type == "cuda":
+        return tuple(n for n in names if _REGISTRY[n].plain_twin_of is None)
+    twinned = {_REGISTRY[n].plain_twin_of for n in names}
+    return tuple(n for n in names if n not in twinned)
 
 
 def _per_user_set(req, key, build):
@@ -310,6 +353,7 @@ class DenseRefBackend(DenseBackend):
 
     name = "dense-ref"
     kernel_backend = "ref"
+    plain_twin_of = "dense"
 
 
 # --------------------------------------------------------------------------
@@ -610,6 +654,7 @@ class GridPallasRefBackend(GridPallasBackend):
 
     name = "grid-pallas-ref"
     kernel_backend = "ref"
+    plain_twin_of = "grid-pallas"
 
 
 # --------------------------------------------------------------------------
@@ -682,15 +727,27 @@ class BvhBackend(Backend):
 class BruteBackend(Backend):
     name = "brute"
     uses_scene = False
-    kernel_backend = "cuda"  # the batch's; ``count`` runs the plain version, as in JAX
+    kernel_backend = "cuda"
 
     def count(self, req: QueryRequest) -> np.ndarray:
+        """Row 5's kernel at ``Q = 1`` on the card (the JAX package runs its
+        plain version here; on a CUDA engine the ``auto`` planner may route
+        single queries to this backend, and no plain version may serve
+        there).  Engine requests carry the snapshot's device users and memo,
+        so the users' order is the one the batch path keeps; raw protocol
+        use uploads the host users."""
+        if req.xs is None:
+            users, order = _on(req.users, req.device), None
+        else:
+            users = torch.stack((req.xs, req.ys), dim=1)
+            order = _user_order_for(req, self.kernel_backend)
         return _ops.rank_count(
-            _on(req.users, req.device),
+            users,
             _on(req.facilities, req.device),
             _on(req.q_pt, req.device),
             exclude=req.exclude,
-            backend="ref",
+            backend=self.kernel_backend,
+            order=order,
         ).cpu().numpy()
 
     def count_batch(self, req: BatchRequest, prepared) -> np.ndarray:
@@ -712,3 +769,15 @@ def _on(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array as float32 on ``device`` (cast on the host, so the
     rounding is numpy's round-to-nearest on every device)."""
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+
+
+# --------------------------------------------------------------------------
+# Auto (the query planner — registered last so concrete backends come first)
+# --------------------------------------------------------------------------
+
+from repro_torch.planner.backend import PlannerBackend  # noqa: E402 — deliberate
+                                                        # tail import; the planner
+                                                        # module has no core imports
+                                                        # at module level (acyclic)
+
+register_backend(PlannerBackend)

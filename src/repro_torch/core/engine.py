@@ -16,17 +16,21 @@ object state hangs off:
 
 Verification backends are pluggable via :mod:`repro_torch.core.backends`
 (every backend, the ``bvh`` one included, goes through the same generic
-paths);
-the free functions (``rt_rknn_query`` etc.) are one-shot shims over a
-throwaway engine.  The JAX engine's device mesh, query planner,
-persistence, flight recorder and health endpoints are not part of this
-package yet.
+paths); the ``auto`` backend is the query planner
+(:mod:`repro_torch.planner`), which prices the concrete backends and
+routes each request, or each group of a batch, to the cheapest, with
+:meth:`RkNNEngine.explain` and the ``planner_*`` stats showing its plans.
+The free functions (``rt_rknn_query`` etc.) are one-shot shims over a
+throwaway engine.  The JAX engine's device mesh, persistence, flight
+recorder and health endpoints are not part of this package yet.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
+import math
 import queue
 import threading
 from typing import Any
@@ -42,12 +46,13 @@ from repro_torch.core.scene import Scene, build_scene
 from repro_torch.core.snapshot import EngineSnapshot
 from repro_torch.device import resolve_device
 from repro_torch.obs import Histogram, MetricsRegistry, span
+from repro_torch.planner.models import WorkloadShape
 
 __all__ = ["RkNNConfig", "EngineStats", "RkNNEngine"]
 
 #: Config fields of the JAX engine whose subsystems this package does not
 #: have yet; setting one raises instead of being ignored.
-_NOT_IMPLEMENTED = ("online_recalibration", "flight_recorder", "warm_store")
+_NOT_IMPLEMENTED = ("flight_recorder", "warm_store")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +68,13 @@ class RkNNConfig:
     ``backend`` defaults to ``"dense"``, the CUDA kernel.  The JAX engine
     defaults to ``"dense-ref"`` only because off a TPU its Pallas kernel
     runs in interpret mode; here the kernel is the fast path on the card.
-    ``online_recalibration``, ``flight_recorder`` and ``warm_store`` exist
+    ``"auto"`` routes through the query planner.
+
+    ``online_recalibration`` feeds the planner's observed-vs-predicted
+    residuals back into the active profile's coefficients (damped;
+    ``auto`` backend only).  ``flight_recorder`` and ``warm_store`` exist
     for parity with the JAX config; their subsystems are not ported yet,
-    and setting any of them raises ``NotImplementedError``.
+    and setting either raises ``NotImplementedError``.
     """
 
     backend: str = "dense"
@@ -93,7 +102,12 @@ class EngineStats:
     """Cumulative engine statistics as live **views** over the engine's
     :class:`~repro_torch.obs.MetricsRegistry` (``engine.metrics
     .snapshot()`` carries the full per-``(phase, backend)``
-    distributions)."""
+    distributions).
+
+    The ``planner_*`` fields only move when queries route through the
+    ``auto`` backend: per-backend dispatch counts and the running
+    predicted-vs-observed cost totals (the planner's calibration error is
+    ``planner_obs_s / planner_pred_s`` drifting from 1)."""
 
     def __init__(self, metrics: MetricsRegistry):
         self.metrics = metrics
@@ -129,9 +143,37 @@ class EngineStats:
     def batch_cache_hits(self) -> int:
         return self.metrics.counter("batch_cache.hits").value
 
+    @property
+    def planner_decisions(self) -> dict:
+        return {
+            labels["backend"]: c.value
+            for labels, c in self.metrics.find("planner.decisions")
+        }
+
+    @property
+    def planner_pred_s(self) -> float:
+        return sum(
+            h.sum
+            for labels, h in self.metrics.find("planner.plan_s")
+            if labels.get("kind") == "pred"
+        )
+
+    @property
+    def planner_obs_s(self) -> float:
+        return sum(
+            h.sum
+            for labels, h in self.metrics.find("planner.plan_s")
+            if labels.get("kind") == "obs"
+        )
+
+    @property
+    def planner_recal_nudges(self) -> int:
+        return self.metrics.counter("planner.recal_nudges").value
+
     def __repr__(self) -> str:
         fields = ("n_queries", "n_batches", "t_filter_s", "t_verify_s", "m_max",
-                  "batch_cache_hits")
+                  "batch_cache_hits", "planner_decisions", "planner_pred_s",
+                  "planner_obs_s", "planner_recal_nudges")
         inner = ", ".join(f"{f}={getattr(self, f)!r}" for f in fields)
         return f"EngineStats({inner})"
 
@@ -199,6 +241,7 @@ class RkNNEngine:
             rect=rect,
         )
         self._pad_bucket = max(int(config.pad_scene_to), 1)
+        self._plan_log: "collections.deque[dict]" = collections.deque(maxlen=128)
 
     def _make_snapshot(
         self, facilities: np.ndarray, users: np.ndarray, *, rect: Rect | None
@@ -232,6 +275,9 @@ class RkNNEngine:
         self._m_batches = m.counter("batches")
         self._m_cache_hits = m.counter("batch_cache.hits")
         self._m_mmax = m.gauge("m_max")
+        self._m_pred = m.histogram("planner.plan_s", kind="pred")
+        self._m_obs = m.histogram("planner.plan_s", kind="obs")
+        self._m_nudges = m.counter("planner.recal_nudges")
         self._metric_cache: dict = {}
         m.derived("scene_cache.hit_ratio", self._scene_cache_hit_ratio)
         m.derived("batch_cache.hit_ratio", self._batch_cache_hit_ratio)
@@ -253,6 +299,24 @@ class RkNNEngine:
         if h is None:
             h = self._metric_cache[key] = self.metrics.histogram(
                 "phase_s", phase=phase, backend=backend
+            )
+        return h
+
+    def _decision_counter(self, backend: str):
+        key = ("dec", backend)
+        c = self._metric_cache.get(key)
+        if c is None:
+            c = self._metric_cache[key] = self.metrics.counter(
+                "planner.decisions", backend=backend
+            )
+        return c
+
+    def _residual_hist(self, backend: str) -> Histogram:
+        key = ("res", backend)
+        h = self._metric_cache.get(key)
+        if h is None:
+            h = self._metric_cache[key] = self.metrics.histogram(
+                "planner.residual", signed=True, backend=backend
             )
         return h
 
@@ -337,6 +401,25 @@ class RkNNEngine:
             )
         return store[key]
 
+    def _workload_shards(self) -> int:
+        """Shard count the planner prices workloads at (the ``log_s``
+        feature): 1 on this single-device engine."""
+        return 1
+
+    def _batch_cache_get(self, snap: EngineSnapshot, key):
+        """Prepared-batch lookup (None key → miss); counts a hit in the
+        stats.  Lock-free — see :class:`~repro_torch.core.snapshot.LruCache`."""
+        if key is None:
+            return None
+        hit = snap.batch_cache.get(key)
+        if hit is not None:
+            self._m_cache_hits.inc()
+        return hit
+
+    def _batch_cache_put(self, snap: EngineSnapshot, key, value) -> None:
+        if key is not None:
+            snap.batch_cache.put(key, value)
+
     def _build_scenes(
         self, snap: EngineSnapshot, queries: list, k: int, rect: Rect, workers: int
     ):
@@ -377,9 +460,8 @@ class RkNNEngine:
         cache_key = None
         if self.config.batch_cache > 0:
             cache_key = (backend.name, k, tuple(_q_key(q) for q in queries), rect)
-            hit = snap.batch_cache.get(cache_key)
+            hit = self._batch_cache_get(snap, cache_key)
             if hit is not None:
-                self._m_cache_hits.inc()
                 return hit
 
         scenes = self._build_scenes(snap, queries, k, rect, scene_workers)
@@ -400,8 +482,7 @@ class RkNNEngine:
             memo=snap.kernel_memo,
         )
         prepared = backend.prepare_batch(req)
-        if cache_key is not None:
-            snap.batch_cache.put(cache_key, (req, prepared, scenes))
+        self._batch_cache_put(snap, cache_key, (req, prepared, scenes))
         return req, prepared, scenes
 
     def _brute_batch(self, snap: EngineSnapshot, k: int, q_pts, excludes) -> BatchRequest:
@@ -421,10 +502,87 @@ class RkNNEngine:
         )
 
     # ------------------------------------------------------------------
+    # planner (the "auto" meta-backend)
+    # ------------------------------------------------------------------
+    def _scene_cached(self, snap: EngineSnapshot, q, k: int, rect: Rect) -> bool:
+        if snap.scene_cache is None:
+            return False
+        return snap.scene_cache.contains(
+            snap.facilities, q, k, rect, fp=snap.fingerprint()
+        )
+
+    def _record_plan(self, planner, plan: dict, observed_s: float) -> None:
+        """Close out one plan: observed cost, engine log, metrics, planner.
+
+        ``observed_s`` comes from the query path's spans (filter + verify
+        elapsed), so the planner's recalibration signal and the exported
+        trace are the same measurement.  Per-dispatched-backend log-
+        residuals ``log(obs/pred)`` land in signed histograms."""
+        plan["observed_s"] = observed_s
+        self._plan_log.append(plan)
+        for name, n in plan.get("decisions", {}).items():
+            self._decision_counter(name).inc(n)
+        self._m_pred.observe(plan.get("predicted_s", 0.0))
+        self._m_obs.observe(observed_s)
+        planner.record(plan)
+        for name, pred, obs, _verify_only in planner._pred_obs_pairs(plan):
+            if pred > 0.0 and obs > 0.0:
+                self._residual_hist(name).observe(math.log(obs / pred))
+        if self.config.online_recalibration:
+            self._m_nudges.inc(planner.observe(plan))
+
+    def explain(self) -> list[dict]:
+        """Recent ``auto`` plans, oldest first: each entry carries the
+        chosen backend(s), predicted cost, candidate costs, and — once the
+        dispatch ran — observed cost."""
+        return list(self._plan_log)
+
+    def _plan_amortized(self, snap: EngineSnapshot) -> bool:
+        """Whether the planner prices geometric backends at steady-state
+        (verify-only) cost.  True on engines with a scene cache: they are
+        long-lived serving objects, so a scene build is an *investment*
+        the cache repays on every repeat.  One-shot shims disable the cache
+        and get the strict per-call comparison."""
+        return snap.scene_cache is not None
+
+    def _plan_single(
+        self, snap: EngineSnapshot, planner, q_build, k: int, q_pt: np.ndarray
+    ):
+        """Pre-scene routing of one query.  Returns (backend, plan)."""
+        rect = self._rect_for(snap, q_pt[None])
+        amortized = self._plan_amortized(snap)
+        shape = WorkloadShape(
+            len(snap.facilities),
+            len(snap.users),
+            k,
+            1,
+            cache_hit=amortized or self._scene_cached(snap, q_build, k, rect),
+            pad_waste=snap.pad_waste(rect, self.config.grid_g),
+            shards=self._workload_shards(),
+        )
+        choice, pred, costs = planner.select(shape, planner.candidates(device=snap.device))
+        plan = {
+            "mode": "single",
+            "backend": choice,
+            "predicted_s": pred,
+            "candidates": costs,
+            "cache_hit": shape.cache_hit,
+            "amortized": amortized,
+            "decisions": {choice: 1},
+        }
+        return get_backend(choice), plan
+
+    # ------------------------------------------------------------------
     # public query surface
     # ------------------------------------------------------------------
     def query(self, q, k: int, *, backend: str | None = None) -> RkNNResult:
-        """Bichromatic RkNN of one query (facility index or ``[2]`` point)."""
+        """Bichromatic RkNN of one query (facility index or ``[2]`` point).
+
+        With the ``auto`` backend the planner picks the concrete backend
+        *before* any scene is built (a brute decision skips the filter
+        phase entirely); the result's ``backend`` field reports the
+        concrete choice and :meth:`explain` the full plan.
+        """
         return self._query(self._snap, q, k, backend=backend)
 
     def _query(
@@ -439,25 +597,34 @@ class RkNNEngine:
             q_pt = np.asarray(q, np.float64).reshape(2)
             q_build, exclude = q_pt, None
 
+        plan = planner = None
+        if b.is_meta:
+            planner = b
+            b, plan = self._plan_single(snap, planner, q_build, k, q_pt)
+
         if not b.uses_scene:
-            # geometry-free: never materialize the device user arrays
+            # geometry-free: no scene; the device users (uploaded once per
+            # snapshot) and the memo, where the rank kernel's order is kept
             with span("query", backend=b.name, version=snap.version):
                 with span("verify", backend=b.name) as sv:
                     counts = b.count(
                         QueryRequest(
-                            xs=None,
-                            ys=None,
+                            xs=snap.xs,
+                            ys=snap.ys,
                             k=k,
                             device=snap.device,
                             users=snap.users,
                             facilities=snap.facilities,
                             q_pt=q_pt,
                             exclude=exclude,
+                            memo=snap.kernel_memo,
                         )
                     )
             t_verify = sv.elapsed_s
             self._m_queries.inc()
             self._phase_hist("verify", b.name).observe(t_verify)
+            if plan is not None:
+                self._record_plan(planner, plan, t_verify)
             return RkNNResult(
                 counts < k, counts, None, 0.0, t_verify, b.name, snap.version
             )
@@ -489,6 +656,8 @@ class RkNNEngine:
         self._phase_hist("filter", b.name).observe(t_filter)
         self._phase_hist("verify", b.name).observe(t_verify)
         self._m_mmax.set_max(scene.n_tris)
+        if plan is not None:
+            self._record_plan(planner, plan, t_filter + t_verify)
         return RkNNResult(
             counts < k, counts, scene, t_filter, t_verify, b.name, snap.version
         )
@@ -505,7 +674,9 @@ class RkNNEngine:
 
         One host filter phase (scene builds — cache-aware — plus backend
         stacking) and ONE batched device dispatch.  Masks are bit-identical
-        to looping :meth:`query` per query.
+        to looping :meth:`query` per query.  With the ``auto`` backend the
+        planner may split the batch into per-backend groups, one dispatch
+        each (:meth:`_query_batch_planner`).
         """
         snap = self._snap
         b = get_backend(backend or self.config.backend)
@@ -525,6 +696,8 @@ class RkNNEngine:
                 k=k,
                 version=snap.version,
             )
+        if b.is_meta:
+            return self._query_batch_planner(snap, b, qs, k, workers)
         queries, q_pts, excludes = _normalize_queries(snap.facilities, qs)
 
         if not b.uses_scene:
@@ -558,6 +731,214 @@ class RkNNEngine:
         return RkNNBatchResult(
             counts < k, counts, scenes, t_filter, t_verify, b.name, k, snap.version
         )
+
+    def _dispatch_group(
+        self,
+        snap: EngineSnapshot,
+        b: Backend,
+        idxs: list[int],
+        scenes: list[Scene] | None,
+        q_pts: np.ndarray,
+        excludes: list,
+        k: int,
+        rect: Rect | None,
+    ) -> tuple[np.ndarray, float, float]:
+        """Prepare + count one planner group.  Returns ``(counts [|idxs|, N],
+        t_prepare_s, t_count_s)`` — prepare is host (filter), count device
+        (verify).  Prepared geometric groups are LRU-cached alongside the
+        fixed-backend batches, so a repeated ``auto`` workload skips the
+        re-stacking just like a repeated fixed-backend one.
+        """
+        g_pts, g_excl = q_pts[idxs], [excludes[i] for i in idxs]
+        with span("filter", backend=b.name, group=1) as sf:
+            prepared = None
+            if not b.uses_scene:
+                req = self._brute_batch(snap, k, g_pts, g_excl)
+            else:
+                cache_key = None
+                if self.config.batch_cache > 0:
+                    # excludes participate in the key: a facility-index query
+                    # (exclude=i) and a point query at that facility's exact
+                    # coordinates (exclude=None) build different scenes
+                    cache_key = (
+                        "auto",
+                        b.name,
+                        k,
+                        tuple((_q_key(q_pts[i]), excludes[i]) for i in idxs),
+                        rect,
+                    )
+                hit = self._batch_cache_get(snap, cache_key)
+                if hit is not None:
+                    req, prepared, _sub = hit
+                else:
+                    sub = [scenes[i] for i in idxs]
+                    req = BatchRequest(
+                        xs=snap.xs,
+                        ys=snap.ys,
+                        k=k,
+                        device=snap.device,
+                        rect=rect,
+                        grid_g=self.config.grid_g,
+                        scenes=sub,
+                        indexes=[self._index_for(snap, b, s) for s in sub],
+                        users=snap.users,
+                        facilities=snap.facilities,
+                        q_pts=g_pts,
+                        excludes=g_excl,
+                        mp=self._mp_bucket(sub),
+                        memo=snap.kernel_memo,
+                    )
+                    prepared = b.prepare_batch(req)
+                    self._batch_cache_put(snap, cache_key, (req, prepared, sub))
+        with span("verify", backend=b.name, group=1) as sv:
+            counts = b.count_batch(req, prepared)
+        return counts, sf.elapsed_s, sv.elapsed_s
+
+    def _query_batch_planner(
+        self, snap: EngineSnapshot, planner, qs: list, k: int, workers: int
+    ) -> RkNNBatchResult:
+        """The ``auto`` batched path: price, (maybe) filter, split, recombine.
+
+        Two-stage decision:
+
+        1. *Pre-scene*: the whole batch is priced with the estimated scene
+           size.  If brute wins outright, no scene is ever built.
+        2. *Post-scene*: scenes are built (cache-aware), each query is
+           re-priced with its **actual** triangle count (filter cost now
+           sunk → ``cache_hit=True``), and the batch is partitioned into
+           per-backend groups dispatched independently; counts recombine
+           in query order.  Count *semantics* may differ per row (bvh
+           saturates at ``k``, brute counts distance ranks) — masks are
+           the invariant, as everywhere else.
+
+        The whole decision (assignments + scenes) is memoized in the batch
+        LRU, keyed on the profile epoch: a repeated workload goes straight
+        to its group dispatches (which hit their own prepared-group LRU)
+        without re-planning, until a new profile is activated.
+        """
+        queries, q_pts, excludes = _normalize_queries(snap.facilities, qs)
+        n_f, n_u, q_n = len(snap.facilities), len(snap.users), len(qs)
+        with span("batch", backend="auto", q=q_n, version=snap.version) as sb:
+            counts, plan, scenes, t_count_total = self._plan_and_dispatch(
+                snap, planner, queries, q_pts, excludes, k, workers,
+                n_f=n_f, n_u=n_u, q_n=q_n,
+            )
+        # filter = everything in the batch wall that was not a group's
+        # device count dispatch (planning, scene builds, group stacking)
+        t_filter = sb.elapsed_s - t_count_total
+
+        self._m_queries.inc(q_n)
+        self._m_batches.inc()
+        self._phase_hist("filter", "auto").observe(t_filter)
+        if scenes:
+            self._m_mmax.set_max(max(s.n_tris for s in scenes))
+        self._record_plan(planner, plan, sb.elapsed_s)
+        return RkNNBatchResult(
+            counts < k, counts, scenes, t_filter, t_count_total, "auto", k,
+            snap.version,
+        )
+
+    def _plan_and_dispatch(
+        self, snap, planner, queries, q_pts, excludes, k, workers, *, n_f, n_u, q_n
+    ):
+        """Body of the ``auto`` batch (inside its ``batch`` span): plan
+        (or reuse a memoized decision), build scenes, dispatch groups."""
+        rect = self._rect_for(snap, q_pts)
+        pad_w = snap.pad_waste(rect, self.config.grid_g)
+        cands = planner.candidates(device=snap.device)  # on a card: no plain twin
+
+        plan_key = cached_decision = None
+        if self.config.batch_cache > 0:
+            from repro_torch.planner.profiles import profile_epoch
+
+            # the epoch invalidates memoized decisions when the operator
+            # activates a new (re)calibrated profile
+            plan_key = (
+                "auto-plan",
+                profile_epoch(),
+                k,
+                tuple(_q_key(q) for q in queries),
+                rect,
+            )
+            cached_decision = self._batch_cache_get(snap, plan_key)
+
+        if cached_decision is not None:
+            per_q, groups, scenes = cached_decision
+            plan: dict = {
+                "mode": "batch",
+                "predicted_s": sum(cost for _, cost in per_q),
+                "plan_cache_hit": True,
+                "k": k,
+                "q": q_n,
+            }
+        else:
+            # price geometric backends at verify-only cost when the filter
+            # phase is already amortized (scenes cached) — or *will* be (see
+            # _plan_amortized)
+            amortized = self._plan_amortized(snap) or all(
+                self._scene_cached(snap, q, k, rect) for q in queries
+            )
+            batch_shape = WorkloadShape(
+                n_f, n_u, k, q_n, cache_hit=amortized, pad_waste=pad_w,
+                shards=self._workload_shards(),
+            )
+            ranked = planner.rank(batch_shape, cands)
+            plan = {
+                "mode": "batch",
+                "predicted_s": ranked[0][1],
+                "candidates": dict(ranked),
+                "amortized": amortized,
+                "k": k,
+                "q": q_n,
+            }
+            if not get_backend(ranked[0][0]).uses_scene:
+                # brute wins on the estimate: never build a scene
+                name = ranked[0][0]
+                per_q = [(name, ranked[0][1] / max(q_n, 1))] * q_n
+                groups = {name: list(range(q_n))}
+                scenes = None
+            else:
+                scenes = self._build_scenes(snap, queries, k, rect, workers)
+                # re-price per query with the actual scene size; the filter
+                # cost is sunk now
+                per_q = planner.assign_batch(
+                    [
+                        WorkloadShape(
+                            n_f, n_u, k, 1, m_tris=s.n_tris, cache_hit=True,
+                            pad_waste=pad_w, shards=self._workload_shards(),
+                        )
+                        for s in scenes
+                    ],
+                    cands,
+                )
+                groups = {}
+                for i, (name, _cost) in enumerate(per_q):
+                    groups.setdefault(name, []).append(i)
+            self._batch_cache_put(snap, plan_key, (per_q, groups, scenes))
+
+        counts = np.zeros((q_n, n_u), np.int32)
+        t_count_total = 0.0
+        observed_group: dict[str, float] = {}
+        for name, idxs in groups.items():
+            gcounts, t_prep, t_count = self._dispatch_group(
+                snap, get_backend(name), idxs, scenes, q_pts, excludes, k, rect
+            )
+            counts[idxs] = gcounts
+            t_count_total += t_count
+            # the group's device count time lands under ITS backend; the
+            # host-side remainder lands under "auto" in the caller
+            self._phase_hist("verify", name).observe(t_count)
+            observed_group[name] = t_prep + t_count
+
+        plan.update(
+            assignments=[name for name, _ in per_q],
+            predicted_per_query=[cost for _, cost in per_q],
+            split=len(groups) > 1,
+            groups={name: len(idxs) for name, idxs in groups.items()},
+            observed_group_s=observed_group,
+            decisions={name: len(idxs) for name, idxs in groups.items()},
+        )
+        return counts, plan, scenes, t_count_total
 
     def query_mono(self, q_idx: int, k: int, *, backend: str | None = None) -> RkNNResult:
         """Monochromatic RkNN over the facility set (paper §2.1 / §4.5).
@@ -619,6 +1000,10 @@ class RkNNEngine:
 
         Producer exceptions are re-raised in the consumer — the generator
         never hangs on a failed build.
+
+        With the ``auto`` backend the planner re-routes each batch as a
+        whole (pre-scene, estimated cost — no per-query splitting on the
+        streaming path, which would defeat the double buffering).
         """
         b = get_backend(backend or self.config.backend)
         buf: "queue.Queue" = queue.Queue(maxsize=2)
@@ -633,17 +1018,40 @@ class RkNNEngine:
                         queries, q_pts, excludes = _normalize_queries(
                             snap.facilities, qs
                         )
-                        if b.uses_scene:
+                        b_eff, plan = b, None
+                        if b.is_meta:
+                            shape = WorkloadShape(
+                                len(snap.facilities),
+                                len(snap.users),
+                                k,
+                                len(qs),
+                                cache_hit=self._plan_amortized(snap),
+                                pad_waste=snap.pad_waste(snap.rect, self.config.grid_g),
+                                shards=self._workload_shards(),
+                            )
+                            choice, pred, costs = b.select(
+                                shape, b.candidates(device=snap.device)
+                            )
+                            plan = {
+                                "mode": "stream-batch",
+                                "backend": choice,
+                                "predicted_s": pred,
+                                "candidates": costs,
+                                "cache_hit": shape.cache_hit,
+                                "decisions": {choice: len(qs)},
+                            }
+                            b_eff = get_backend(choice)
+                        if b_eff.uses_scene:
                             rect = self._rect_for(snap, q_pts)
                             built = self._filter_batch(
-                                snap, b, queries, q_pts, excludes, k, rect,
+                                snap, b_eff, queries, q_pts, excludes, k, rect,
                                 self.config.scene_workers,
                             )
                         else:
                             built = (self._brute_batch(snap, k, q_pts, excludes),
                                      None, None)
                     self._phase_hist("filter", b.name).observe(sf.elapsed_s)
-                    buf.put((batch, len(qs), built))
+                    buf.put((batch, len(qs), b_eff, plan, sf.elapsed_s, built))
                 buf.put(None)
             except BaseException as e:  # surface in the consumer, no deadlock
                 buf.put(e)
@@ -656,12 +1064,17 @@ class RkNNEngine:
                 return
             if isinstance(item, BaseException):
                 raise item
-            batch, q_n, (req, prepared, scenes) = item
-            with span("verify", backend=b.name, stream=1) as sv:
-                counts = b.count_batch(req, prepared)
-            self._phase_hist("verify", b.name).observe(sv.elapsed_s)
+            batch, q_n, b_eff, plan, t_filter, (req, prepared, scenes) = item
+            with span("verify", backend=b_eff.name, stream=1) as sv:
+                counts = b_eff.count_batch(req, prepared)
+            self._phase_hist("verify", b_eff.name).observe(sv.elapsed_s)
             self._m_queries.inc(q_n)
             self._m_batches.inc()
             if scenes:
                 self._m_mmax.set_max(max(s.n_tris for s in scenes))
+            if plan is not None:
+                # observed = this batch's own filter + verify work — NOT the
+                # wall-clock since the producer started, which would include
+                # time spent waiting in the double buffer
+                self._record_plan(b, plan, t_filter + sv.elapsed_s)
             yield batch, counts < k

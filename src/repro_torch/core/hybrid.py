@@ -1,23 +1,33 @@
-"""Scene cache (paper Conclusions §5, direction 2), from ``repro.core.hybrid``.
+"""Paper future-work items (Conclusions §5, directions 2–3), from
+``repro.core.hybrid``.
 
-Per-(facility-set, q, k, rect) LRU of built scenes: a repeated query
-skips InfZone pruning and occluder construction entirely.  The long-lived
-owner of a cache is :class:`repro_torch.core.engine.RkNNEngine`, which
-wires it into the single, batched and streaming paths.  The hybrid
-RT-versus-SLICE dispatcher of the JAX module needs the query planner and
-is not part of this package yet.
+* **Scene cache** (direction 2): per-(facility-set, q, k, rect) LRU of
+  built scenes: a repeated query skips InfZone pruning and occluder
+  construction entirely.  The long-lived owner of a cache is
+  :class:`repro_torch.core.engine.RkNNEngine`, which wires it into the
+  single, batched and streaming paths.
+
+* **Hybrid dispatcher** (direction 3): :func:`choose_engine` prices the
+  RT-vs-SLICE frontier from the active planner profile
+  (:mod:`repro_torch.planner`); with none installed it falls back, warning
+  once, to the JAX package's constants, which were fitted on a CPU.
+  :func:`hybrid_rknn_query` runs the choice.  The RT side is ``dense``,
+  the CUDA kernel, where the JAX module runs ``dense-ref`` (there the
+  Pallas ``dense`` is interpret mode off a TPU).
 """
 
 from __future__ import annotations
 
 import collections
 import threading
+import time
 
 import numpy as np
 
+from repro_torch.core.results import RkNNResult
 from repro_torch.core.scene import Scene, build_scene
 
-__all__ = ["SceneCache"]
+__all__ = ["SceneCache", "choose_engine", "hybrid_rknn_query"]
 
 
 def _q_key(q):
@@ -37,7 +47,7 @@ class SceneCache:
     a precomputed ``fp`` so the facility array is fingerprinted once, not
     per query.
 
-    The *read* path (a ``get_or_build`` hit) is lock-free:
+    The *read* path (``contains`` / a ``get_or_build`` hit) is lock-free:
     a plain GIL-atomic dict read, no recency update — so concurrent
     readers of one engine snapshot never block each other.  Insertions
     take the internal lock for eviction safety, which makes eviction
@@ -60,6 +70,13 @@ class SceneCache:
         f = np.ascontiguousarray(facilities, dtype=np.float64)
         return hash((f.shape, f.tobytes()[:4096], float(f.sum())))
 
+    def contains(self, facilities, q, k, rect=None, *, fp: int | None = None) -> bool:
+        """Peek (no stats) — the planner prices a cache hit as "filter
+        phase free" before deciding where to dispatch.  Lock-free."""
+        if fp is None:
+            fp = self.fingerprint(facilities)
+        return (fp, _q_key(q), k, rect) in self._store
+
     def get_or_build(
         self, facilities, q, k, rect=None, *, fp: int | None = None, **kw
     ) -> tuple[Scene, bool]:
@@ -77,3 +94,139 @@ class SceneCache:
                 self._store.popitem(last=False)
             self.misses += 1
         return scene, False
+
+
+_warned_no_profile = False
+
+
+def choose_engine(n_facilities: int, n_users: int, k: int) -> str:
+    """'rt' or 'slice' from the RT-vs-filter–refine cost frontier.
+
+    With an *active* planner profile (:func:`repro_torch.planner.profiles.
+    set_active_profile`, typically installed after running
+    :mod:`repro_torch.planner.calibrate` on the card), the frontier is a
+    live lookup: the RT path's backend vs. the profile's ``"slice"``
+    pseudo-backend model.  The RT path is what :func:`hybrid_rknn_query`
+    runs, ``dense``; a profile calibrated on the CPU times ``dense-ref``
+    in its place (the CPU path of ``dense`` is that plain twin), so it
+    stands in for ``dense`` there; else the cheapest scene-using backend
+    that is no plain twin.
+
+    With no profile, falls back — warning once — to the JAX package's
+    constants, fitted offline to a CPU benchmark (CPU crossovers, neither
+    the paper's GPU ones nor this card's):
+
+        rt_ms    ≈ 30 + 1.5·k + 0.35·|U|/1e3            (scene + cast)
+        slice_ms ≈ 0.002·|F| + 0.4·k^1.5·(|U|/|F|)/1e3  (filter + verify)
+    """
+    if n_facilities <= 0:
+        return "rt"
+
+    from repro_torch.planner.profiles import get_active_profile
+
+    prof = get_active_profile()
+    reason = None
+    if prof is None:
+        reason = "no active planner profile"
+    elif "slice" not in prof.models:
+        reason = (
+            "the active profile has no 'slice' model (calibrated with "
+            "--no-slice?)"
+        )
+    else:
+        from repro_torch.planner.models import WorkloadShape
+
+        shape = WorkloadShape(n_facilities, n_users, k, 1)
+        # price the 'rt' side with what the rt branch actually executes:
+        # dense (or, in a CPU-calibrated profile, its plain twin); brute
+        # (no ray casting) is not the rt path and must not stand in
+        if "dense" in prof.models:
+            rt_candidates: tuple[str, ...] = ("dense",)
+        elif "dense-ref" in prof.models:
+            rt_candidates = ("dense-ref",)
+        else:
+            from repro_torch.core.backends import concrete_backends, get_backend
+
+            rt_candidates = tuple(
+                n
+                for n in prof.models
+                if n in concrete_backends()
+                and get_backend(n).uses_scene
+                and get_backend(n).plain_twin_of is None
+            )
+        if rt_candidates:
+            _, rt_s = prof.best_backend(shape, rt_candidates)
+            slice_s = prof.predict_s("slice", shape)
+            return "rt" if rt_s < slice_s else "slice"
+        reason = "the active profile has no usable RT-path backend model"
+
+    global _warned_no_profile
+    if not _warned_no_profile:
+        _warned_no_profile = True
+        import warnings
+
+        warnings.warn(
+            f"choose_engine: {reason} — falling back to hard-coded cost "
+            "constants fitted offline (likely stale for this hardware). "
+            "Run repro_torch.planner.calibrate and set_active_profile() to use "
+            "measured costs.",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+    rt_ms = 30.0 + 1.5 * k + 0.35 * n_users / 1e3
+    slice_ms = 0.002 * n_facilities + 0.4 * (k**1.5) * (n_users / max(n_facilities, 1)) / 1e3
+    return "rt" if rt_ms < slice_ms else "slice"
+
+
+def hybrid_rknn_query(
+    facilities: np.ndarray,
+    users: np.ndarray,
+    q: int,
+    k: int,
+    *,
+    cache: SceneCache | None = None,
+    force: str | None = None,
+    device=None,
+) -> RkNNResult:
+    """Dispatch to the predicted-faster engine (paper future-work 3),
+    optionally amortizing scene construction through ``cache`` (future-
+    work 2).  Returns an :class:`RkNNResult` either way.  The RT side runs
+    the ``dense`` backend on ``device`` (``None``: CUDA)."""
+    engine = force or choose_engine(len(facilities), len(users), k)
+    if engine == "slice":
+        from repro_torch.core.baselines.slice import slice_rknn
+
+        mask, info = slice_rknn(facilities, users, q, k)
+        return RkNNResult(
+            mask=mask,
+            counts=np.where(mask, 0, k).astype(np.int32),  # verdicts only
+            scene=None,
+            t_filter_s=info["t_filter_s"],
+            t_verify_s=info["t_verify_s"],
+            backend="slice",
+        )
+    if cache is not None:
+        import torch
+
+        from repro_torch.core.backends import QueryRequest, get_backend
+        from repro_torch.device import resolve_device
+
+        dev = resolve_device(device)
+        t0 = time.perf_counter()
+        scene, hit = cache.get_or_build(facilities, q, k, users_hint=users)
+        t1 = time.perf_counter()
+        users = np.asarray(users, np.float64)
+        counts = get_backend("dense").count(
+            QueryRequest(
+                xs=torch.from_numpy(np.ascontiguousarray(users[:, 0], np.float32)).to(dev),
+                ys=torch.from_numpy(np.ascontiguousarray(users[:, 1], np.float32)).to(dev),
+                k=k,
+                device=dev,
+                scene=scene,
+            )
+        )
+        t2 = time.perf_counter()
+        return RkNNResult(counts < k, counts, scene, t1 - t0, t2 - t1, "dense")
+    from repro_torch.core.rknn import rt_rknn_query
+
+    return rt_rknn_query(facilities, users, q, k, backend="dense", device=device)

@@ -10,7 +10,8 @@ bit-for-bit: same masks, same counts, same two-stage timing convention.
 
 Backend names resolve through the registry in
 :mod:`repro_torch.core.backends` (``dense``, ``dense-ref``, ``grid``,
-``grid-pallas``, ``grid-pallas-ref``, ``bvh`` and ``brute`` built in).
+``grid-pallas``, ``grid-pallas-ref``, ``bvh`` and ``brute`` built in, and
+the ``auto`` planner, which routes to them).
 Every shim takes ``device=None``, which means ``"cuda"`` and raises
 without a card; ``device="cpu"`` runs the plain PyTorch versions.
 
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.backends import available_backends
+from repro_torch.core.backends import concrete_backends
 from repro_torch.core.engine import RkNNConfig, RkNNEngine
 from repro_torch.core.geometry import Rect
 from repro_torch.core.results import RkNNBatchResult, RkNNResult
@@ -38,9 +39,11 @@ __all__ = [
     "BACKENDS",
 ]
 
-#: Registered backend names, in registration order (the registry is the
-#: source of truth and late registrations won't be reflected here).
-BACKENDS = available_backends()
+#: Registered *concrete* backend names, in registration order (the registry
+#: is the source of truth and late registrations won't be reflected here).
+#: The ``auto`` planner is a meta backend and is excluded — it routes to
+#: these.
+BACKENDS = concrete_backends()
 
 
 def _one_shot_engine(

@@ -5,8 +5,8 @@ piece of derived state the query paths amortize against them: the domain
 rect and hull, the facility fingerprint, the user coordinates as float32
 tensors on the engine's device (uploaded once), the
 :class:`~repro_torch.core.hybrid.SceneCache`, the per-scene index memo,
-the kernel memo (the grid backends' user-to-cell bucketing) and the
-prepared-batch LRU.
+the kernel memo (the grid backends' user-to-cell bucketing), the
+prepared-batch LRU and the planner's pad-waste memo.
 
 The read path takes no lock: the caches expose GIL-atomic lock-free
 ``get`` and lock only on insertion (eviction safety).  Lazy fields are
@@ -122,6 +122,7 @@ class EngineSnapshot:
         "_ys",
         "_mono",
         "_is_mono",
+        "_pad_waste",
     )
 
     def __init__(
@@ -154,6 +155,7 @@ class EngineSnapshot:
         self._xs = self._ys = None
         self._mono = None
         self._is_mono: bool | None = None
+        self._pad_waste: dict = {}
 
     @property
     def rect(self) -> Rect:
@@ -191,6 +193,23 @@ class EngineSnapshot:
     def ys(self) -> torch.Tensor:
         self.xs  # noqa: B018 — materializes both
         return self._ys
+
+    def pad_waste(self, rect: Rect, grid_g: int) -> float:
+        """Measured cell-bucketing pad-waste ratio of this user set
+        (``padded rows / n_users``, ≥ 1) at the engine's grid resolution —
+        the planner's occupancy feature for the grid-pallas family
+        (memoized per (rect, G); see
+        :func:`repro_torch.kernels.grid_raycast.measured_pad_waste`)."""
+        key = (rect, int(grid_g))
+        hit = self._pad_waste.get(key)
+        if hit is None:
+            from repro_torch.kernels.grid_raycast import measured_pad_waste
+
+            hit = measured_pad_waste(
+                self.users[:, 0], self.users[:, 1], rect, int(grid_g)
+            )
+            self._pad_waste[key] = hit
+        return hit
 
 
 def _device_f32(col: np.ndarray, device: torch.device) -> torch.Tensor:

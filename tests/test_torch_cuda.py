@@ -509,3 +509,101 @@ def test_bvh_warp_walk_on_deep_chains(cuda_device, depth, leaf_side):
     deeper = chain_tree(bvh.MAX_STACK + 1, leaf_side=leaf_side)
     with pytest.raises(ValueError, match="stack"):
         bvh.bvh_batch(*(_t(a)[None] for a in (*deeper, cf)), cuda_device)
+
+
+# ---------------------------------------------------------------- planner
+@pytest.fixture
+def planner_state():
+    """Restore the port's active profile (the planner's process-wide state)."""
+    from repro_torch.planner import profiles
+
+    prev = profiles.get_active_profile()
+    yield profiles
+    profiles.set_active_profile(prev)
+
+
+@pytest.mark.parametrize("profile", ["committed", "builtin"])
+def test_auto_on_card_matches_cpu_masks_without_plain_calls(cuda_device, planner_state,
+                                                            monkeypatch, profile):
+    """``auto`` on the card, under the committed profile of this runner class
+    (loaded strictly) or the built-in prior: the same masks as on the CPU
+    and as the brute oracle, through ``query_batch``, ``query``, ``stream``,
+    ``query_mono`` and a single ``brute`` query (row 5's kernel), with no
+    plain twin dispatched.  The only plain PyTorch that ``auto`` may run on
+    the card is the ``grid`` backend's count, which has no kernel in either
+    package; a batch forced over the four kernel backends runs none."""
+    from repro_torch.core import RkNNConfig, get_backend
+    from repro_torch.core.brute import rknn_brute_np, rknn_mono_brute_np
+    from repro_torch.planner.backend import PlannerBackend
+
+    if profile == "committed":
+        prof = planner_state.load_runner_profile(planner_state.PROFILE_STORE)
+        assert prof is not None, "no committed profile for this card"
+        planner_state.set_active_profile(prof)
+    else:
+        planner_state.set_active_profile(None)
+    rng = np.random.default_rng(19)
+    F, U = rng.random((80, 2)), rng.random((3_000, 2))
+    qs = [int(q) for q in rng.integers(0, len(F), 6)] + [np.array([0.4, 0.6])]
+    k = 4
+    card = RkNNEngine(F, U, RkNNConfig(backend="auto"), device=cuda_device)
+    # the CPU's masks first: the CPU runs the plain versions, counted in ref.calls
+    host = RkNNEngine(F, U, RkNNConfig(backend="auto"), device=CPU).query_batch(qs, k)
+    ref.calls = 0
+    rank_count.launches = rank_count.batch_launches = 0
+    got = card.query_batch(qs, k)
+    np.testing.assert_array_equal(got.masks, host.masks)
+    for i, q in enumerate(qs):
+        np.testing.assert_array_equal(got.masks[i], rknn_brute_np(U, F, q, k))
+    one = card.query(qs[0], k)
+    np.testing.assert_array_equal(one.mask, got.masks[0])
+    streamed = [m for _, m in card.stream([qs[:3], qs[3:]], k)]
+    np.testing.assert_array_equal(np.concatenate(streamed), got.masks)
+    mono = card.query_mono(5, k)
+    np.testing.assert_array_equal(mono.mask, rknn_mono_brute_np(F, 5, k))
+    brute_one = card.query(qs[1], k, backend="brute")
+    np.testing.assert_array_equal(brute_one.mask, got.masks[1])
+    assert rank_count.launches + rank_count.batch_launches >= 1
+    torch.cuda.synchronize(cuda_device)
+    plans = card.explain() + card._snap._mono.explain()
+    dispatched = {b for p in plans for b in p.get("decisions", {})}
+    assert not [b for b in dispatched if get_backend(b).plain_twin_of]
+    if "grid" not in dispatched:
+        assert ref.calls == 0
+    assert "dense-ref" not in get_backend("auto").candidates(device=cuda_device)
+
+    rotation = ("dense", "grid-pallas", "bvh", "brute")
+    planner_state.set_active_profile(None)  # a new epoch: no memoized plan
+    monkeypatch.setattr(PlannerBackend, "rank",
+                        lambda self, shape, candidates=None: [("dense", 1.0)])
+    monkeypatch.setattr(PlannerBackend, "assign_batch",
+                        lambda self, shapes, candidates=None: [
+                            (rotation[i % 4], 1.0) for i in range(len(shapes))])
+    ref.calls = 0
+    mixed = card.query_batch(qs, k)
+    np.testing.assert_array_equal(mixed.masks, got.masks)
+    assert set(card.explain()[-1]["groups"]) == set(rotation)
+    torch.cuda.synchronize(cuda_device)
+    assert ref.calls == 0
+
+
+def test_calibrate_on_card_names_the_card_and_skips_plain_twins(cuda_device, planner_state):
+    from repro_torch.core.backends import timeable_backends
+    from repro_torch.planner.calibrate import calibrate
+    from repro_torch.planner.models import WorkloadShape
+    from repro_torch.workloads import Scenario
+
+    tiny = [
+        Scenario("cal_a", 25, 300, 3, 2, seed=1),
+        Scenario("cal_b", 60, 600, 6, 4, distribution="uniform", seed=2),
+        Scenario("cal_c", 120, 400, 4, 1, distribution="clustered", seed=3),
+    ]
+    prof = calibrate(scenarios=tiny, repeats=1, device=cuda_device)
+    assert set(prof.models) == set(timeable_backends(cuda_device)) | {"slice"}
+    assert not {"dense-ref", "grid-pallas-ref"} & set(prof.models)
+    assert prof.hardware["platform"] == "gpu"
+    assert prof.hardware["device_kind"] == torch.cuda.get_device_name(0)
+    s = WorkloadShape(1000, 1_889_815, 10, 64, cache_hit=True)
+    for name in prof.models:
+        t = prof.predict_s(name, s)
+        assert np.isfinite(t) and t > 0
