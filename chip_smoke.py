@@ -38,7 +38,14 @@ read just after:
   ``query_batch``, ``query``, ``stream`` and ``query_mono`` through
   ``auto``, a batch dealt over the four kernel backends and an
   online-recalibrating engine (``planner_auto``): masks against the rank
-  oracle, every dispatched backend's kernel launched, no plain call.
+  oracle, every dispatched backend's kernel launched, no plain call;
+* ``dynamic`` — the dynamic-data subsystem (``repro_torch.dynamic``): one
+  ``DynamicEngine`` on the CAL users and the facilities plus four corners
+  takes the bench's four update streams, 2 steps each; every version's
+  batch through its backends' kernels, bit-identical to a cold engine and
+  held against the rank kernel; the user scatter on the card; two
+  continuous queries against the rank kernel and a cold recount (see
+  :func:`_dynamic`).
 
 Wherever the grid and dense paths both count, their counts must be equal
 on every user: the port evaluates every edge with one rounding order.
@@ -84,6 +91,7 @@ one outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -269,7 +277,7 @@ def _rank_tiles(order, fac, q_pts, excl, q_chunk: int = 4) -> dict:
     }
 
 
-def _rank64(users, facilities, q_row: int, chunk: int = 16_384):
+def _rank64(users, facilities, q_row: int, chunk: int = 1 << 17):
     """Per user, in float64 on the users' device: the competitors (every
     facility row but ``q_row``) strictly closer than the query, an exact
     rank that shares no code with the rank kernel, and whether one of them
@@ -291,7 +299,7 @@ def _rank64(users, facilities, q_row: int, chunk: int = 16_384):
     return torch.cat(ranks), torch.cat(ties)
 
 
-def _tie_mask(users, facilities, q_row: int, chunk: int = 16_384):
+def _tie_mask(users, facilities, q_row: int, chunk: int = 1 << 17):
     """The near-tie users of :func:`_rank64`."""
     return _rank64(users, facilities, q_row, chunk)[1]
 
@@ -1172,6 +1180,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     _scenarios(dev)
     _planner(dev, eng, mono_eng, qs, stream_qs, oracle, (users_dev, fac_dev, u64, f64, rank_order),
              (mono_want, mono_ties), {"dense": res, "grid-pallas": g_res, "bvh": b_res})
+    _dynamic(dev, F, U, qs)
     _log("kernels", bit_identical_raycast=True, bit_identical_grid=True, bit_identical_bvh=True,
          rank_checked_queries=len(rank_out), d2h_counts_ms=d2h_ms,
          d2h_counts_pinned_ms=d2h_pinned_ms, counts_mb=got.numel() * 4 / 1e6,
@@ -1434,6 +1443,289 @@ def _planner(dev, eng, mono_eng, qs, stream_qs, oracle, users, mono_oracle, obse
         raise AssertionError(f"auto dispatched {missing} but their kernels did not launch: {counted}")
     if recal_eng.stats.planner_recal_nudges < RECAL_BATCHES:
         raise AssertionError(f"online recalibration nudged {recal_eng.stats.planner_recal_nudges} times")
+
+
+#: The dynamic phase: the bench's four update streams
+#: (``benchmarks/bench_rknn.py`` ``update_throughput``), 2 steps each where
+#: the bench runs 4, taken in turn by one engine, and the backends each
+#: stream's versions are served through.
+DYN_STEPS = 2
+DYN_STREAMS = {
+    "drift_lo": ("dense", "grid-pallas", "bvh"),
+    "fjitter": ("dense", "grid-pallas", "bvh"),
+    "drift_hi": ("dense",),
+    "fchurn": ("dense",),
+}
+#: backend -> (kernel module name, launch counter) read in its counted window
+DYN_KERNEL = {
+    "dense": ("raycast", "batch_launches"),
+    "grid-pallas": ("grid_raycast", "batch_launches"),
+    "bvh": ("bvh", "batch_launches"),
+    "brute": ("rank_count", "batch_launches"),
+}
+
+
+def _rank_counts_host(users, facilities, q_pt, exclude, workers: int = 8):
+    """``rank_counts_np`` over the users in ``workers`` threads (numpy frees
+    the interpreter lock in its loops and its matrix products).  Each
+    thread takes whole chunks of ``rank_counts_np``'s own cut of the users,
+    so every user's count comes from the very arithmetic of one call."""
+    from repro_torch.core.brute import rank_counts_np
+
+    chunk = max(1, int(2**24 // max(len(facilities), 1)))
+    per = -(-len(users) // (chunk * workers)) * chunk
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        parts = pool.map(lambda s: rank_counts_np(users[s : s + per], facilities, q_pt, exclude),
+                         range(0, len(users), per))
+        return np.concatenate(list(parts))
+
+
+def _dynamic(dev, F, U, qs) -> None:
+    """The dynamic-data subsystem on the card at CAL size
+    (``repro_torch.dynamic.DynamicEngine``).
+
+    |F| = 1000 plus four corner facilities that pin the domain rect, as the
+    bench pins them, so that interior churn keeps it; the main path's 64
+    queries, shifted past the corners; k = 10.  One engine takes the four
+    streams of :data:`DYN_STREAMS` in turn (each stream's deltas hold
+    against the snapshot the one before left: the user streams move users
+    in place, the facility streams keep |F| and protect the corners and the
+    queries).  Each step: ``apply_updates``, then ``query_batch`` of the 64
+    queries through each of the stream's backends, every one a counted
+    window in which its kernel must launch and no plain version run, and
+    its masks and counts bit-identical to a cold ``RkNNEngine`` on the same
+    snapshot (for ``grid-pallas``, whose cold grid builds take seconds, on
+    the stream's last step only).  On each stream's last step ``brute``
+    (the rank kernel's query axis) is served too, and every backend's masks
+    are held against the rank kernel off near ties.  The first ``drift_lo``
+    step checks the user scatter: new tensors on the card, equal to a fresh
+    upload bit for bit, the old version's untouched.  Two continuous
+    queries (a facility and a point) ride ``drift_lo`` and ``fjitter``:
+    then their masks are held against the rank kernel and their counts
+    against a cold ``rank_counts_np``, and they are closed.  After the last
+    ``fjitter`` step one facility query goes through ``dense`` and
+    ``grid-pallas`` (``query``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import RkNNConfig, RkNNEngine
+    from repro_torch.core.backends import QueryRequest, get_backend
+    from repro_torch.dynamic import DynamicEngine
+    from repro_torch.kernels import bvh, grid_raycast, ops, rank_count, raycast, ref
+    from repro_torch.kernels.user_order import build_user_order
+    from repro_torch.obs import Tracer, set_tracer
+    from repro_torch.workloads import drifting_users, facility_churn, facility_jitter
+
+    kernels = {"raycast": raycast, "grid_raycast": grid_raycast, "bvh": bvh,
+               "rank_count": rank_count}
+    t_phase = time.perf_counter()
+    pts = np.concatenate([F, U])
+    lo, hi = pts.min(0), pts.max(0)
+    Fd = np.concatenate([[[lo[0], lo[1]], [lo[0], hi[1]], [hi[0], lo[1]], [hi[0], hi[1]]], F])
+    qd = [q + 4 for q in qs]
+    protect = np.concatenate([np.arange(4), qd])
+    t0 = time.perf_counter()
+    streams = {
+        "drift_lo": drifting_users(U, steps=DYN_STEPS, frac=0.01, seed=0),
+        "fjitter": facility_jitter(Fd, steps=DYN_STEPS, frac=0.02, seed=2, protect=protect),
+        "drift_hi": drifting_users(U, steps=DYN_STEPS, frac=0.25, seed=1),
+        "fchurn": facility_churn(Fd, steps=DYN_STEPS, rate=0.02, seed=3, protect=protect),
+    }
+    t_gen = time.perf_counter() - t0
+
+    dyn = DynamicEngine(Fd, U, RkNNConfig(backend="dense"), device=dev)
+    warm = {}
+    for b in DYN_STREAMS["drift_lo"]:
+        r = dyn.query_batch(qd, K, backend=b)
+        warm[b] = {"t_filter_s": r.t_filter_s, "t_verify_s": r.t_verify_s}
+    q_point = 0.5 * (Fd[qd[1]] + Fd[qd[2]])
+
+    def register(q):
+        t0 = time.perf_counter()
+        return dyn.register_continuous(q, K), time.perf_counter() - t0
+
+    # the two registrations are host numpy that frees the interpreter
+    # lock, so they run side by side (each its own recount of all users)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        registered = list(pool.map(register, (qd[0], q_point)))
+    handles = [h for h, _ in registered]
+    _log("dynamic_setup", facilities=len(Fd), users=len(U), k=K, q=len(qd), steps=DYN_STEPS,
+         streams={n: [len(b.user_move[0]) + len(b.facility_move[0]) + len(b.facility_delete)
+                      for b in streams[n]] for n in streams},
+         generate_s=t_gen, warm=warm, continuous_register_s=[t for _, t in registered],
+         continuous_register_wall_s=time.perf_counter() - t0)
+
+    def off_tie_mismatches(masks, ranks, u64, fac64, rows) -> tuple[int, int]:
+        """Users whose mask differs from the rank kernel's ``rank < k``, and
+        of those the ones at a float64 near tie (:func:`_rank64`, whose
+        competitors are every row of ``fac64`` but ``rows[i]``); the rule
+        of :func:`_oracle_mismatches`, with the near ties computed only
+        where a verdict differs."""
+        wrong = tied = 0
+        for i, row in enumerate(rows):
+            diff = torch.from_numpy(masks[i]).to(dev) != (ranks[i] < K)
+            if bool(diff.any()):
+                ties = _rank64(u64[diff], fac64, row)[1]
+                tied += int(ties.sum())
+                wrong += int((~ties).sum())
+        return wrong, tied
+
+    for name, backends in DYN_STREAMS.items():
+        for step, batch in enumerate(streams[name]):
+            last = step == DYN_STEPS - 1
+            old = dyn._snap
+            old_xs = old.xs.clone() if name == "drift_lo" else None
+            # the writer's spans, summed by name: where t_update_s goes
+            tracer = Tracer(capacity=1 << 14)
+            prev = set_tracer(tracer)
+            tracer.enable()
+            try:
+                rep = dyn.apply_updates(batch)
+            finally:
+                set_tracer(prev)
+            spans = {}
+            for r in tracer.records():
+                spans[r["name"]] = spans.get(r["name"], 0.0) + r["t1"] - r["t0"]
+            new = dyn._snap
+            pol = dyn.refit_policy
+            line = {"stream": name, "step": step, "t_update_s": rep.t_update_s,
+                    "report": dataclasses.asdict(rep), "update_spans_s": spans,
+                    "refit_policy": {"ema_refit_s": pol.ema_refit_s,
+                                     "ema_rebuild_s": pol.ema_rebuild_s,
+                                     "n_refit": pol.n_refit, "n_rebuild": pol.n_rebuild}}
+            if old_xs is not None and step == 0:
+                fresh = (torch.from_numpy(new.users[:, 0].astype(np.float32)).to(dev),
+                         torch.from_numpy(new.users[:, 1].astype(np.float32)).to(dev))
+                scatter = {"scattered": rep.users_scattered, "device": str(new.xs.device),
+                           "new_tensor": new.xs is not old.xs and new.ys is not old.ys,
+                           "equal_fresh_upload": bool(torch.equal(new.xs, fresh[0])
+                                                      and torch.equal(new.ys, fresh[1])),
+                           "old_unchanged": bool(torch.equal(old.xs, old_xs))}
+                line["scatter"] = scatter
+                if not (all(v for k_, v in scatter.items() if k_ != "device")
+                        and new.xs.device == old_xs.device):
+                    raise AssertionError(f"the user scatter: {scatter}")
+            if batch.touches_users:
+                # what the first query on the new user set rebuilds: the
+                # users' order (dense, bvh, brute) and the cell buckets
+                line["order_rebuild_ms"] = _once_ms(
+                    lambda: build_user_order(new.xs, new.ys), dev)[0]
+                if "grid-pallas" in backends:
+                    req = QueryRequest(xs=new.xs, ys=new.ys, k=K, device=dev, users=new.users)
+                    t0 = time.perf_counter()
+                    get_backend("grid-pallas")._bucket(req, new.rect, GRID_G)
+                    torch.cuda.synchronize(dev)
+                    line["bucket_rebuild_s"] = time.perf_counter() - t0
+            served = backends + (("brute",) if last else ())
+            got, launches = {}, {}
+            for b in served:
+                mod, counter = DYN_KERNEL[b]
+                setattr(kernels[mod], counter, 0)
+                ref.calls = 0
+                got[b] = dyn.query_batch(qd, K, backend=b)
+                torch.cuda.synchronize(dev)
+                launches[b] = getattr(kernels[mod], counter)
+                if launches[b] < 1 or ref.calls:
+                    raise AssertionError(f"dynamic {name} step {step}: {b} launched "
+                                         f"{launches[b]} kernels, {ref.calls} plain calls")
+                if got[b].version != rep.version:
+                    raise AssertionError(f"{b} served version {got[b].version}, not {rep.version}")
+            cold = RkNNEngine(new.facilities, new.users, RkNNConfig(backend="dense"), device=dev)
+            cold_times, diffs = {}, {}
+            for b in served:
+                if b == "grid-pallas" and not last:
+                    continue
+                c = cold.query_batch(qd, K, backend=b)
+                cold_times[b] = {"t_filter_s": c.t_filter_s, "t_verify_s": c.t_verify_s}
+                diffs[b] = int((got[b].masks != c.masks).sum()) + int((got[b].counts != c.counts).sum())
+                del c
+            line.update(launches=launches, plain_calls=0, cold_diffs=diffs,
+                        dynamic={b: {"t_filter_s": r.t_filter_s, "t_verify_s": r.t_verify_s}
+                                 for b, r in got.items()},
+                        cold=cold_times)
+            if any(diffs.values()):
+                raise AssertionError(f"dynamic {name} step {step} differs from a cold engine: {diffs}")
+            del cold
+            if last:
+                # the rank kernel over the 64 queries (its query axis)
+                t0 = time.perf_counter()
+                users_dev = torch.stack((new.xs, new.ys), dim=1)
+                fac_dev = torch.from_numpy(new.facilities.astype(np.float32)).to(dev)
+                u64 = torch.from_numpy(new.users).to(dev)
+                f64 = torch.from_numpy(new.facilities).to(dev)
+                order = build_user_order(new.xs, new.ys)
+                ranks = ops.rank_count_batch(users_dev, fac_dev, fac_dev[qd], exclude=qd,
+                                             order=order)
+                checked = {b: off_tie_mismatches(r.masks, ranks, u64, f64, qd)
+                           for b, r in got.items()}
+                line["oracle_mismatches"] = {b: w for b, (w, _t) in checked.items()}
+                line["differing_at_near_ties"] = {b: t for b, (_w, t) in checked.items()}
+                line["oracle_s"] = time.perf_counter() - t0
+                if any(line["oracle_mismatches"].values()):
+                    raise AssertionError(f"dynamic {name}: {line['oracle_mismatches']}")
+            if name == "fjitter" and last:
+                # the continuous handles against the rank kernel and a cold
+                # rank_counts_np, then closed
+                # the point handle's query is a last row of the facilities
+                # that the rank kernel and _rank64 leave out of the competitors
+                f_pt = torch.cat([f64, torch.from_numpy(q_point).to(dev)[None]])
+                f_pt32 = torch.cat([fac_dev, torch.from_numpy(q_point.astype(np.float32))
+                                    .to(dev)[None]])
+                n_f = len(new.facilities)
+
+                def recount(h):
+                    t0 = time.perf_counter()
+                    q_pt = new.facilities[h.q_idx] if h.q_idx is not None else q_point
+                    return (_rank_counts_host(new.users, new.facilities, q_pt, h.q_idx, workers=4),
+                            time.perf_counter() - t0)
+
+                with concurrent.futures.ThreadPoolExecutor(2) as pool:
+                    cold = list(pool.map(recount, handles))
+                cont = []
+                for h, (cold_counts, recount_s) in zip(handles, cold):
+                    row, fac32, fac64 = ((h.q_idx, fac_dev, f64) if h.q_idx is not None
+                                         else (n_f, f_pt32, f_pt))
+                    rk = ops.rank_count(users_dev, fac32, fac32[row], exclude=row, order=order)
+                    wrong, tied = off_tie_mismatches(h.mask[None], rk[None], u64, fac64, [row])
+                    cont.append({"q": "facility" if h.q_idx is not None else "point",
+                                 "oracle_mismatches": wrong, "differing_at_near_ties": tied,
+                                 "count_diffs": int((h.counts != cold_counts).sum()),
+                                 "recount_s": recount_s,
+                                 "patched": h.n_patched, "skipped": h.n_skipped,
+                                 "full": h.n_full, "events": h.n_events,
+                                 "version": h.version})
+                    h.close()
+                line["continuous"] = cont
+                if any(c["oracle_mismatches"] or c["count_diffs"] or c["version"] != rep.version
+                       for c in cont):
+                    raise AssertionError(f"continuous queries: {cont}")
+                # one facility query through rows 2 and 4's paths
+                raycast.single_launches = grid_raycast.batch_launches = 0
+                ref.calls = 0
+                one = {b: dyn.query(qd[0], K, backend=b) for b in ("dense", "grid-pallas")}
+                torch.cuda.synchronize(dev)
+                one_launches = {"raycast_count": raycast.single_launches,
+                                "grid_raycast_cells (batch wrapper at Q = 1)":
+                                    grid_raycast.batch_launches}
+                line["query"] = {"launches": one_launches, "plain_calls": ref.calls,
+                                 **{b: {"t_filter_s": r.t_filter_s, "t_verify_s": r.t_verify_s}
+                                    for b, r in one.items()}}
+                for b, r in one.items():
+                    if not (np.array_equal(r.mask, got[b].masks[0])
+                            and np.array_equal(r.counts, got[b].counts[0])):
+                        raise AssertionError(f"dynamic query() through {b} differs from row 0")
+                if min(one_launches.values()) < 1 or ref.calls:
+                    raise AssertionError(f"dynamic query(): {one_launches}, plain {ref.calls}")
+            _log("dynamic", **line)
+            del got
+    st = dyn.update_stats
+    _log("dynamic_summary", seconds=time.perf_counter() - t_phase, version=dyn.version,
+         update_stats=dataclasses.asdict(st), continuous_pruned=dyn.stats.continuous_pruned,
+         writer_throttle_duty=dyn.metrics.snapshot().get("mvcc.writer_throttle_duty"))
+    if dyn.stats.continuous_pruned != len(handles):
+        raise AssertionError(f"closed handles pruned: {dyn.stats.continuous_pruned}")
 
 
 def main(argv=None) -> int:

@@ -171,6 +171,14 @@ class Backend:
     #: backend runs this same plain version, so there the twin is the one
     #: timed (see :func:`timeable_backends`).
     plain_twin_of: ClassVar[str | None] = None
+    #: True when :meth:`prepare_batch`'s returned object holds user
+    #: *coordinates* (not just scene geometry).  The dynamic engine's
+    #: copy-on-write batch-cache carry consults this: for a user-only
+    #: delta, prepared state of backends where this is False stays valid
+    #: (the users enter only at :meth:`count_batch`, through the request's
+    #: ``xs``/``ys`` and the snapshot memo keyed on them) and is carried
+    #: into the next snapshot; True drops it.
+    prepared_carries_users: ClassVar[bool] = False
 
     # ---- filter phase (host) --------------------------------------------
     def build_index(self, scene: Scene, *, grid_g: int = 64, memo: dict | None = None):
@@ -515,6 +523,9 @@ class GridPallasBackend(GridBackend):
 
     name = "grid-pallas"
     kernel_backend = "cuda"
+    #: the prepared tuple holds the :class:`CellBuckets` (the users sorted
+    #: by cell, on the device), so a user delta must rebuild it
+    prepared_carries_users = True
 
     # ---- packed per-cell planes (memoized on the grid index) ------------
     @staticmethod

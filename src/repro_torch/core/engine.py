@@ -21,8 +21,11 @@ paths); the ``auto`` backend is the query planner
 routes each request, or each group of a batch, to the cheapest, with
 :meth:`RkNNEngine.explain` and the ``planner_*`` stats showing its plans.
 The free functions (``rt_rknn_query`` etc.) are one-shot shims over a
-throwaway engine.  The JAX engine's device mesh, persistence, flight
-recorder and health endpoints are not part of this package yet.
+throwaway engine.  Versioned updates are served by the subclass
+:class:`repro_torch.dynamic.DynamicEngine`: every query path resolves the
+engine's snapshot once at entry and serves that version to the end.  The
+JAX engine's device mesh, persistence, flight recorder and health
+endpoints are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -107,7 +110,12 @@ class EngineStats:
     The ``planner_*`` fields only move when queries route through the
     ``auto`` backend: per-backend dispatch counts and the running
     predicted-vs-observed cost totals (the planner's calibration error is
-    ``planner_obs_s / planner_pred_s`` drifting from 1)."""
+    ``planner_obs_s / planner_pred_s`` drifting from 1).
+
+    ``events_dropped`` / ``continuous_pruned`` surface the dynamic
+    engine's standing-query bookkeeping: events lost to saturated
+    :class:`~repro_torch.dynamic.continuous.ContinuousQuery` buffers and
+    dead handles pruned on the update path."""
 
     def __init__(self, metrics: MetricsRegistry):
         self.metrics = metrics
@@ -170,10 +178,19 @@ class EngineStats:
     def planner_recal_nudges(self) -> int:
         return self.metrics.counter("planner.recal_nudges").value
 
+    @property
+    def events_dropped(self) -> int:
+        return self.metrics.counter("continuous.events_dropped").value
+
+    @property
+    def continuous_pruned(self) -> int:
+        return self.metrics.counter("continuous.pruned").value
+
     def __repr__(self) -> str:
         fields = ("n_queries", "n_batches", "t_filter_s", "t_verify_s", "m_max",
                   "batch_cache_hits", "planner_decisions", "planner_pred_s",
-                  "planner_obs_s", "planner_recal_nudges")
+                  "planner_obs_s", "planner_recal_nudges", "events_dropped",
+                  "continuous_pruned")
         inner = ", ".join(f"{f}={getattr(self, f)!r}" for f in fields)
         return f"EngineStats({inner})"
 
@@ -236,29 +253,51 @@ class RkNNEngine:
         self.stats = EngineStats(self.metrics)
         self._init_metrics()
         self._snap = self._make_snapshot(
+            0,
             np.asarray(facilities, dtype=np.float64),
             np.asarray(users, dtype=np.float64),
             rect=rect,
+            explicit_rect=rect is not None,
         )
         self._pad_bucket = max(int(config.pad_scene_to), 1)
+        #: Lock-free read-activity clock: query entry points bump it, the
+        #: dynamic writer samples it to decide whether its scene work should
+        #: run deprioritized.  Races just lose a tick — it is a heuristic, so
+        #: no lock touches the read path.
+        self._read_clock = 0
         self._plan_log: "collections.deque[dict]" = collections.deque(maxlen=128)
+        #: The flight recorder's slot: the recorder is not ported yet
+        #: (``RkNNConfig.flight_recorder`` raises), so it stays ``None`` and
+        #: :meth:`_flight_exception` does nothing.
+        self.flight = None
 
     def _make_snapshot(
-        self, facilities: np.ndarray, users: np.ndarray, *, rect: Rect | None
+        self,
+        version: int,
+        facilities: np.ndarray,
+        users: np.ndarray,
+        *,
+        rect: Rect | None = None,
+        explicit_rect: bool = False,
+        scene_cache: SceneCache | None | str = "new",
     ) -> EngineSnapshot:
-        """A fresh :class:`EngineSnapshot` sized from the engine config."""
-        scene_cache = (
-            SceneCache(capacity=self.config.scene_cache)
-            if self.config.scene_cache > 0
-            else None
-        )
+        """A fresh :class:`EngineSnapshot` sized from the engine config.
+        ``scene_cache="new"`` allocates one (respecting the capacity
+        knob); the copy-on-write update path passes its migrated cache
+        instead."""
+        if scene_cache == "new":
+            scene_cache = (
+                SceneCache(capacity=self.config.scene_cache)
+                if self.config.scene_cache > 0
+                else None
+            )
         return EngineSnapshot(
-            0,
+            version,
             facilities,
             users,
             self.device,
             rect=rect,
-            explicit_rect=rect is not None,
+            explicit_rect=explicit_rect,
             scene_cache=scene_cache,
             batch_capacity=self.config.batch_cache,
         )
@@ -275,12 +314,14 @@ class RkNNEngine:
         self._m_batches = m.counter("batches")
         self._m_cache_hits = m.counter("batch_cache.hits")
         self._m_mmax = m.gauge("m_max")
+        self._m_lag = m.gauge("mvcc.version_lag")
         self._m_pred = m.histogram("planner.plan_s", kind="pred")
         self._m_obs = m.histogram("planner.plan_s", kind="obs")
         self._m_nudges = m.counter("planner.recal_nudges")
         self._metric_cache: dict = {}
         m.derived("scene_cache.hit_ratio", self._scene_cache_hit_ratio)
         m.derived("batch_cache.hit_ratio", self._batch_cache_hit_ratio)
+        m.derived("mvcc.version", lambda: float(self._snap.version))
 
     def _scene_cache_hit_ratio(self) -> float | None:
         sc = self._snap.scene_cache
@@ -292,6 +333,19 @@ class RkNNEngine:
     def _batch_cache_hit_ratio(self) -> float | None:
         n = self._m_batches.value
         return self._m_cache_hits.value / n if n else None
+
+    def _note_lag(self, snap: EngineSnapshot) -> None:
+        """``mvcc.version_lag``: versions published while a query served
+        ``snap`` (0 unless a writer raced it)."""
+        self._m_lag.set(float(self._snap.version - snap.version))
+
+    def _flight_exception(self, where: str, exc: BaseException) -> None:
+        """Hand a failed entry point's exception to the flight recorder
+        when one is armed; with none (always, until the recorder is
+        ported) it does nothing and never raises."""
+        fr = self.flight
+        if fr is not None:
+            fr.record_exception(where, exc)
 
     def _phase_hist(self, phase: str, backend: str) -> Histogram:
         key = (phase, backend)
@@ -583,7 +637,12 @@ class RkNNEngine:
         phase entirely); the result's ``backend`` field reports the
         concrete choice and :meth:`explain` the full plan.
         """
-        return self._query(self._snap, q, k, backend=backend)
+        self._read_clock += 1
+        try:
+            return self._query(self._snap, q, k, backend=backend)
+        except Exception as e:
+            self._flight_exception("query", e)
+            raise
 
     def _query(
         self, snap: EngineSnapshot, q, k: int, *, backend: str | None = None
@@ -623,6 +682,7 @@ class RkNNEngine:
             t_verify = sv.elapsed_s
             self._m_queries.inc()
             self._phase_hist("verify", b.name).observe(t_verify)
+            self._note_lag(snap)
             if plan is not None:
                 self._record_plan(planner, plan, t_verify)
             return RkNNResult(
@@ -656,6 +716,7 @@ class RkNNEngine:
         self._phase_hist("filter", b.name).observe(t_filter)
         self._phase_hist("verify", b.name).observe(t_verify)
         self._m_mmax.set_max(scene.n_tris)
+        self._note_lag(snap)
         if plan is not None:
             self._record_plan(planner, plan, t_filter + t_verify)
         return RkNNResult(
@@ -678,7 +739,24 @@ class RkNNEngine:
         planner may split the batch into per-backend groups, one dispatch
         each (:meth:`_query_batch_planner`).
         """
-        snap = self._snap
+        self._read_clock += 1
+        try:
+            return self._query_batch(
+                self._snap, qs, k, backend=backend, scene_workers=scene_workers
+            )
+        except Exception as e:
+            self._flight_exception("query_batch", e)
+            raise
+
+    def _query_batch(
+        self,
+        snap: EngineSnapshot,
+        qs,
+        k: int,
+        *,
+        backend: str | None = None,
+        scene_workers: int | None = None,
+    ) -> RkNNBatchResult:
         b = get_backend(backend or self.config.backend)
         workers = (
             self.config.scene_workers if scene_workers is None else scene_workers
@@ -710,6 +788,7 @@ class RkNNEngine:
             self._m_queries.inc(len(qs))
             self._m_batches.inc()
             self._phase_hist("verify", b.name).observe(t_verify)
+            self._note_lag(snap)
             return RkNNBatchResult(
                 counts < k, counts, None, 0.0, t_verify, b.name, k, snap.version
             )
@@ -728,6 +807,7 @@ class RkNNEngine:
         self._phase_hist("filter", b.name).observe(t_filter)
         self._phase_hist("verify", b.name).observe(t_verify)
         self._m_mmax.set_max(max(s.n_tris for s in scenes))
+        self._note_lag(snap)
         return RkNNBatchResult(
             counts < k, counts, scenes, t_filter, t_verify, b.name, k, snap.version
         )
@@ -830,6 +910,7 @@ class RkNNEngine:
         self._m_queries.inc(q_n)
         self._m_batches.inc()
         self._phase_hist("filter", "auto").observe(t_filter)
+        self._note_lag(snap)
         if scenes:
             self._m_mmax.set_max(max(s.n_tris for s in scenes))
         self._record_plan(planner, plan, sb.elapsed_s)
@@ -949,7 +1030,14 @@ class RkNNEngine:
         rknn_mono_query` for the derivation).  The ``bvh`` backend's counts
         saturate at ``k + 1`` before the correction, so at ``k`` after it.
         """
-        q_idx = int(q_idx)
+        self._read_clock += 1
+        try:
+            return self._query_mono(int(q_idx), k, backend=backend)
+        except Exception as e:
+            self._flight_exception("query_mono", e)
+            raise
+
+    def _query_mono(self, q_idx: int, k: int, *, backend: str | None) -> RkNNResult:
         snap = self._snap
         if snap._is_mono is None:
             snap._is_mono = snap.users is snap.facilities or (
@@ -1011,6 +1099,10 @@ class RkNNEngine:
         def producer():
             try:
                 for batch in batches:
+                    # one snapshot per batch: each yielded mask set is a
+                    # consistent view of exactly one version, and a stream
+                    # picks up concurrent updates batch to batch
+                    self._read_clock += 1
                     snap = self._snap
                     qs = list(batch)
                     with span("filter", backend=b.name, stream=1,
@@ -1063,6 +1155,8 @@ class RkNNEngine:
             if item is None:
                 return
             if isinstance(item, BaseException):
+                if isinstance(item, Exception):
+                    self._flight_exception("stream", item)
                 raise item
             batch, q_n, b_eff, plan, t_filter, (req, prepared, scenes) = item
             with span("verify", backend=b_eff.name, stream=1) as sv:

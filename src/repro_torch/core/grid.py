@@ -332,10 +332,11 @@ def shape_bucket(x: int, floor: int = 8) -> int:
     """Round ``x`` up to a quarter-octave shape bucket (>= ``floor``).
 
     Padded axes quantized through this stay stable under the small size
-    drift dynamic updates produce, so the jitted batch dispatches reuse
-    their compiled executables instead of recompiling every time a scene
-    gains or loses a few triangles.  Overshoot is bounded by ~25% and the
-    padding is semantically free (padded slots contribute nothing).
+    drift dynamic updates produce, so the stacked grid tables of
+    successive versions keep one shape (and one size of device
+    allocation) instead of changing every time a scene gains or loses a
+    few triangles.  Overshoot is bounded by ~25% and the padding is
+    semantically free (padded slots contribute nothing).
     """
     x = max(int(x), 1)
     if x <= floor:
@@ -352,8 +353,8 @@ def stack_grids(grids: list[OccluderGrid]) -> tuple[np.ndarray, np.ndarray, np.n
     many query scenes).  Candidate lists are right-padded with ``-1`` to the
     max list length; triangle coefficient tables are padded with degenerate
     never-inside rows so gathers on padded ids contribute nothing.  Both
-    padded axes are :func:`shape_bucket`-quantized for executable reuse
-    across update-churned batches.  Returns
+    padded axes are :func:`shape_bucket`-quantized, so update-churned
+    batches keep one stacked shape.  Returns
     ``(base [Q, G*G] i32, lists [Q, G*G, L] i32, coeffs [Q, Mt, 3, 3] f32)``.
     """
     if not grids:

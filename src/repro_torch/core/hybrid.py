@@ -61,6 +61,8 @@ class SceneCache:
         self._lock = threading.Lock()  # engine may build scenes from a pool
         self.hits = 0
         self.misses = 0
+        self.delta_kept = 0
+        self.delta_dropped = 0
 
     def __len__(self) -> int:
         return len(self._store)
@@ -94,6 +96,41 @@ class SceneCache:
                 self._store.popitem(last=False)
             self.misses += 1
         return scene, False
+
+    def cow_migrate(self, select, migrate) -> tuple["SceneCache", int, int]:
+        """Copy-on-write delta migration: build the **next version's**
+        cache without touching this one (readers of the current engine
+        snapshot keep serving it unchanged).
+
+        For every entry whose key satisfies ``select(key)``, ``migrate(key,
+        scene)`` is called; a ``(new_key, new_scene)`` return carries the
+        entry into the new cache under its post-update key, ``None`` drops
+        it; non-selected entries are carried as-is.  This is how the
+        dynamic subsystem keeps scenes that provably survive an update
+        across the facility-fingerprint change that would otherwise strand
+        them.  The cumulative hit/miss/delta counters carry into the new
+        cache (they are engine-lifetime statistics, not per-version).
+        Returns ``(new_cache, n_migrated, n_dropped)``.
+        """
+        kept = dropped = 0
+        with self._lock:
+            items = list(self._store.items())
+        new = SceneCache(capacity=self.capacity)
+        for key, scene in items:
+            if not select(key):
+                new._store[key] = scene
+                continue
+            res = migrate(key, scene)
+            if res is None:
+                dropped += 1
+                continue
+            new_key, new_scene = res
+            new._store[new_key] = new_scene
+            kept += 1
+        new.hits, new.misses = self.hits, self.misses
+        new.delta_kept = self.delta_kept + kept
+        new.delta_dropped = self.delta_dropped + dropped
+        return new, kept, dropped
 
 
 _warned_no_profile = False

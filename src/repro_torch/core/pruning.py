@@ -68,7 +68,7 @@ class PruneStats:
     """Bookkeeping for benchmarks (paper Table 3 / Fig 16).
 
     ``safe_radius`` is the *update-stability certificate* consumed by the
-    dynamic subsystem (:mod:`repro.dynamic`): any facility change (insert,
+    dynamic subsystem (:mod:`repro_torch.dynamic`): any facility change (insert,
     delete, or either endpoint of a move) strictly farther than this from
     the query point provably leaves a cold re-prune — and therefore the
     whole scene — bit-identical.  It is ``max(2·radius_final, d_max)``

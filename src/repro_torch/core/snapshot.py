@@ -12,8 +12,12 @@ The read path takes no lock: the caches expose GIL-atomic lock-free
 ``get`` and lock only on insertion (eviction safety).  Lazy fields are
 computed idempotently from immutable inputs; a racing first touch may
 compute a value twice, both results are equal, and the last assignment
-wins.  Versioned updates (the JAX package's MVCC writer) are not part of
-this package yet, so every snapshot here is version 0.
+wins.  A plain :class:`~repro_torch.core.engine.RkNNEngine` serves
+version 0 for its whole life; :class:`~repro_torch.dynamic.DynamicEngine`
+builds version N+1 copy-on-write beside version N (sharing what the
+update left valid: the device user tensors, the scene cache, the
+per-scene indexes, prepared batches) and publishes it with one reference
+swap, so a reader holding version N keeps serving it unchanged.
 """
 
 from __future__ import annotations
@@ -62,6 +66,10 @@ class LruCache:
             while len(self._store) > self.capacity:
                 self._store.popitem(last=False)
 
+    def items(self) -> list:
+        with self._lock:
+            return list(self._store.items())
+
 
 class IndexMemo:
     """Per-scene index store: ``id(scene) -> (scene, {key: index})``.
@@ -70,7 +78,7 @@ class IndexMemo:
     ``id()`` key valid for the entry's lifetime and bounds memory via the
     capacity (scenes evicted here simply rebuild their index on next
     use).  Reads of an existing per-scene store are lock-free; creating
-    an entry locks for eviction safety.
+    or adopting an entry locks for eviction safety.
     """
 
     __slots__ = ("capacity", "_store", "_lock")
@@ -79,6 +87,13 @@ class IndexMemo:
         self.capacity = max(int(capacity), 1)
         self._store: "collections.OrderedDict[int, tuple]" = collections.OrderedDict()
         self._lock = threading.Lock()
+
+    def peek(self, scene) -> dict | None:
+        """The scene's index store, or ``None`` — never creates."""
+        hit = self._store.get(id(scene))
+        if hit is not None and hit[0] is scene:
+            return hit[1]
+        return None
 
     def store_for(self, scene) -> dict:
         """The scene's index store, created (and capacity-evicted) if new."""
@@ -96,13 +111,39 @@ class IndexMemo:
                 self._store.popitem(last=False)
             return store
 
+    def adopt(self, scene, store: dict | None) -> None:
+        """Install ``store`` as the scene's index store (the copy-on-write
+        carry: the update path moves a surviving scene's indexes into the
+        next snapshot's memo without touching the old snapshot's)."""
+        if store is None:
+            return
+        with self._lock:
+            self._store[id(scene)] = (scene, store)
+            while len(self._store) > self.capacity:
+                self._store.popitem(last=False)
+
+    def scenes(self) -> list:
+        with self._lock:
+            return [scene for scene, _store in self._store.values()]
+
+    def clone(self) -> "IndexMemo":
+        """Shallow copy: each per-scene store is copied (``dict(store)``), so
+        the two versions stop sharing mutable dicts, while the indexes
+        themselves are shared by reference (structural sharing)."""
+        new = IndexMemo(self.capacity)
+        with self._lock:
+            for key, (scene, store) in self._store.items():
+                new._store[key] = (scene, dict(store))
+        return new
+
 
 class EngineSnapshot:
-    """One version of the engine's dataset + derived state.
+    """One immutable version of the engine's dataset + derived state.
 
-    Treated as frozen except for the *lazy* fields (idempotent
-    computations from immutable inputs — see module docstring) and the
-    caches, which are append-only memos its readers share.
+    Treated as frozen after publication except for the *lazy* fields
+    (idempotent computations from immutable inputs — see module
+    docstring) and the caches, which are append-only memos its readers
+    share.
     """
 
     __slots__ = (

@@ -1,9 +1,8 @@
-"""Scenario workload generators for calibration and regime benchmarks.
+"""Scenario workload generators for calibration and regime benchmarks,
+and the update streams the dynamic subsystem serves.
 
-The port of ``repro.workloads``.  Its update-stream generators
-(``drifting_users``, ``facility_churn``, ``facility_jitter`` of
-``repro/workloads/updates.py``) build the dynamic subsystem's
-``UpdateBatch`` and come with that subsystem; they are not here yet.
+The port of ``repro.workloads``: every generator is host numpy and equals
+the JAX package's bit for bit at the same seeds.
 """
 
 from repro_torch.workloads.scenarios import (
@@ -16,6 +15,11 @@ from repro_torch.workloads.scenarios import (
     scenario_names,
     sharding_scenarios,
 )
+from repro_torch.workloads.updates import (
+    drifting_users,
+    facility_churn,
+    facility_jitter,
+)
 
 __all__ = [
     "Scenario",
@@ -26,4 +30,7 @@ __all__ = [
     "calibration_grid",
     "sharding_scenarios",
     "SHARDING_REGIMES",
+    "drifting_users",
+    "facility_churn",
+    "facility_jitter",
 ]

@@ -607,3 +607,62 @@ def test_calibrate_on_card_names_the_card_and_skips_plain_twins(cuda_device, pla
     for name in prof.models:
         t = prof.predict_s(name, s)
         assert np.isfinite(t) and t > 0
+
+
+# ---------------------------------------------------------------- dynamic
+#: The kernel each dynamic backend must launch for a batch, as
+#: ``(module, counter)``.
+_DYN_KERNEL = {
+    "dense": (raycast, "batch_launches"),
+    "grid-pallas": (grid_raycast, "batch_launches"),
+    "bvh": (bvh, "batch_launches"),
+}
+
+
+@pytest.mark.parametrize("backend", ["dense", "grid-pallas", "bvh"])
+def test_dynamic_engine_on_card_equals_cold_engine(cuda_device, backend):
+    """A user move, a facility jitter and a churn step through the dynamic
+    engine on the card: every version's batch is bit-identical to a cold
+    engine's on the same snapshot, each through its backend's kernel with
+    no plain call; the user scatter stays on the card, out of place."""
+    from repro_torch.core import RkNNConfig
+    from repro_torch.dynamic import DynamicEngine, UpdateBatch
+    from repro_torch.workloads import facility_churn, facility_jitter
+
+    rng = np.random.default_rng(23)
+    F, U = rng.random((80, 2)), rng.random((20_000, 2))
+    F[:4] = [[0.0, 0.0], [0.0, 1.0], [1.0, 0.0], [1.0, 1.0]]  # pin the hull
+    qs, k = [5, 9, 13, 17], 6
+    protect = np.concatenate([np.arange(4), qs])
+    dyn = DynamicEngine(F, U, RkNNConfig(backend=backend), device=cuda_device)
+    dyn.query_batch(qs, k)
+    ids = rng.choice(len(U), 2_000, replace=False)
+    steps = [
+        UpdateBatch(user_move=(ids, np.clip(U[ids] + rng.normal(0, 0.01, (2_000, 2)), 0, 1))),
+        facility_jitter(F, steps=1, frac=0.1, sigma=1e-4, seed=2, protect=protect)[0],
+    ]
+    module, counter = _DYN_KERNEL[backend]
+    for i in range(3):
+        if i == 2:  # churn ids refer to the snapshot the generator sees
+            steps.append(facility_churn(dyn.facilities, steps=1, rate=0.05, seed=3,
+                                        protect=protect)[0])
+        old = dyn._snap
+        old_xs = old.xs.clone()
+        rep = dyn.apply_updates(steps[i])
+        if i == 0:
+            new = dyn._snap
+            assert rep.users_scattered
+            assert new.xs.device == cuda_device and new.xs is not old.xs
+            assert torch.equal(old.xs, old_xs)  # version 0 untouched
+            fresh = RkNNEngine(dyn.facilities, dyn.users, device=cuda_device)
+            assert torch.equal(new.xs, fresh.xs) and torch.equal(new.ys, fresh.ys)
+        setattr(module, counter, 0)
+        ref.calls = 0
+        got = dyn.query_batch(qs, k)
+        torch.cuda.synchronize(cuda_device)
+        assert getattr(module, counter) >= 1 and ref.calls == 0
+        want = RkNNEngine(dyn.facilities, dyn.users, RkNNConfig(backend=backend),
+                          device=cuda_device).query_batch(qs, k)
+        np.testing.assert_array_equal(got.counts, want.counts)
+        np.testing.assert_array_equal(got.masks, want.masks)
+        assert got.version == i + 1

@@ -30,7 +30,22 @@ def test_registry_and_regimes_match():
             jw.get_scenario(name))
     with pytest.raises(ValueError, match="scenario must be one of"):
         tw.get_scenario("nope")
-    assert not hasattr(tw, "drifting_users")  # waits for the dynamic subsystem
+    # the update streams the dynamic subsystem serves, at two seeds
+    F, U = np.random.default_rng(4).random((2, 80, 2))
+    protect = np.array([0, 3, 11])
+    for seed in (0, 9):
+        for gen, pts, kw in (("drifting_users", U, {}),
+                             ("facility_churn", F, dict(protect=protect)),
+                             ("facility_jitter", F, dict(protect=protect))):
+            a = getattr(tw, gen)(pts, steps=3, seed=seed, **kw)
+            b = getattr(jw, gen)(pts, steps=3, seed=seed, **kw)
+            assert len(a) == len(b) == 3
+            for x, y in zip(a, b):
+                for field in dataclasses.fields(y):
+                    xv, yv = getattr(x, field.name), getattr(y, field.name)
+                    for u, v in (zip(xv, yv) if isinstance(yv, tuple) else [(xv, yv)]):
+                        assert u.dtype == v.dtype
+                        np.testing.assert_array_equal(u, v)
 
 
 @pytest.mark.parametrize("scale", [0.01, 0.08])
