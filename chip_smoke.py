@@ -45,7 +45,14 @@ read just after:
   batch through its backends' kernels, bit-identical to a cold engine and
   held against the rank kernel; the user scatter on the card; two
   continuous queries against the rank kernel and a cold recount (see
-  :func:`_dynamic`).
+  :func:`_dynamic`);
+* ``shard`` — sharded serving (``repro_torch.shard``): a ``ShardedEngine``
+  at 2 and 4 shards on the one card takes the main path's batch through
+  ``dense``, ``grid-pallas``, ``bvh`` and ``brute`` (not sharded), each
+  kernel launched once per shard, masks and counts bit-identical to the
+  meshless engine, then a user-move and a facility-jitter step against a
+  cold engine; the engine's own ``mesh=`` path and the ``RkNNServer``
+  alias (see :func:`_shard`).
 
 Wherever the grid and dense paths both count, their counts must be equal
 on every user: the port evaluates every edge with one rounding order.
@@ -1181,6 +1188,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     _planner(dev, eng, mono_eng, qs, stream_qs, oracle, (users_dev, fac_dev, u64, f64, rank_order),
              (mono_want, mono_ties), {"dense": res, "grid-pallas": g_res, "bvh": b_res})
     _dynamic(dev, F, U, qs)
+    _shard(dev, F, U, qs, eng, {"dense": res, "grid-pallas": g_res, "bvh": b_res})
     _log("kernels", bit_identical_raycast=True, bit_identical_grid=True, bit_identical_bvh=True,
          rank_checked_queries=len(rank_out), d2h_counts_ms=d2h_ms,
          d2h_counts_pinned_ms=d2h_pinned_ms, counts_mb=got.numel() * 4 / 1e6,
@@ -1347,6 +1355,18 @@ def _planner(dev, eng, mono_eng, qs, stream_qs, oracle, users, mono_oracle, obse
         stream_oracle.append([(rc[i] < K, _tie_mask(u64, f64, qi)) for i, qi in enumerate(batch)])
 
     # ---- serve through auto, counted --------------------------------------
+    # ``grid`` has no kernel: its count is plain PyTorch on the card (the JAX
+    # package's jnp), ``ref.grid_raycast_ref``, which ``auto`` may route to
+    # (the card tests' rule too); its calls are counted apart, so that
+    # ``plain_calls`` counts the plain versions of the kernels alone
+    grid_calls = [0]
+    grid_ref_fn = ref.grid_raycast_ref
+
+    def grid_counted(*args, **kwargs):
+        grid_calls[0] += 1
+        return grid_ref_fn(*args, **kwargs)
+
+    ref.grid_raycast_ref = grid_counted
     raycast.batch_launches = raycast.single_launches = 0
     grid_raycast.batch_launches = grid_raycast.single_launches = 0
     bvh.batch_launches = bvh.launches = 0
@@ -1388,7 +1408,8 @@ def _planner(dev, eng, mono_eng, qs, stream_qs, oracle, users, mono_oracle, obse
                "grid_raycast": grid_raycast.batch_launches + grid_raycast.single_launches,
                "bvh": bvh.batch_launches + bvh.launches,
                "rank_count": rank_count.launches + rank_count.batch_launches}
-    plain_calls = ref.calls
+    ref.grid_raycast_ref = grid_ref_fn
+    plain_calls = ref.calls - grid_calls[0]
     set_active_profile(prev_profile)
 
     # ---- checks -------------------------------------------------------------
@@ -1431,10 +1452,11 @@ def _planner(dev, eng, mono_eng, qs, stream_qs, oracle, users, mono_oracle, obse
          stats={"planner_decisions": eng.stats.planner_decisions,
                 "planner_pred_s": eng.stats.planner_pred_s,
                 "planner_obs_s": eng.stats.planner_obs_s},
-         dispatched=dispatched, mismatches=checks, launches=counted, plain_calls=plain_calls)
+         dispatched=dispatched, mismatches=checks, launches=counted, plain_calls=plain_calls,
+         grid_backend_calls=grid_calls[0])
     if any(checks.values()):
         raise AssertionError(f"auto masks differ from the rank oracle or from dense: {checks}")
-    if served_twins or plain_calls:
+    if served_twins or plain_calls or (grid_calls[0] and "grid" not in dispatched):
         raise AssertionError(f"auto served a plain version: {served_twins}, plain calls {plain_calls}")
     if not (set(MIXED_ROTATION) <= set(mixed_plan["groups"]) and mixed_plan["split"]):
         raise AssertionError(f"the mixed batch was not split four ways: {mixed_plan['groups']}")
@@ -1726,6 +1748,169 @@ def _dynamic(dev, F, U, qs) -> None:
          writer_throttle_duty=dyn.metrics.snapshot().get("mvcc.writer_throttle_duty"))
     if dyn.stats.continuous_pruned != len(handles):
         raise AssertionError(f"closed handles pruned: {dyn.stats.continuous_pruned}")
+
+
+#: The shard counts of the ``shard`` phase (one card serves every count)
+#: and its backends: ``brute`` is not sharded (one rank launch).
+SHARD_COUNTS = (2, 4)
+SHARD_BACKENDS = ("dense", "grid-pallas", "bvh", "brute")
+
+
+def _shard(dev, F, U, qs, eng, meshless) -> None:
+    """Sharded serving on the card at CAL size (``repro_torch.shard``).
+
+    A ``ShardedEngine`` at each of :data:`SHARD_COUNTS` shards on ``dev``
+    (one engine per count, its scenes and grids built once) takes the main
+    path's Q = 64 batch through :data:`SHARD_BACKENDS`, each a counted
+    window: the backend's kernel launches once per shard (once for
+    ``brute``) and no plain version runs; masks and counts are
+    bit-identical to the main path's meshless engine (``meshless``, its
+    results; ``brute`` served by ``eng`` here); the psum-reduced result
+    sizes equal the masks' row sums; every view carries the snapshot's
+    version; the counts are copied back once.  One line per (backend,
+    shards) with the filter and verify seconds, the per-shard users and
+    verify seconds, ``shard.imbalance``, the reassembly and copy-back
+    milliseconds (the ``shard-reassemble`` and ``shard-copy`` spans) and
+    the meshless ``t_verify_s``.  Then the 4-shard engine takes one
+    ``drift_lo`` step (1 % of the users move) and one ``fjitter`` step
+    (2 % of the facilities jitter), every backend bit-identical to a cold
+    meshless engine after each: moved views get new tensors, the others
+    (all of them on the facility step) are carried by reference.  Last
+    the engine's own ``mesh=`` path at ``user_mesh(1)`` through ``bvh``
+    and ``grid``, and ``RkNNServer(F, U).query_batch``, against the
+    meshless engine."""
+    import warnings
+
+    import torch
+
+    from repro_torch.core import RkNNConfig, RkNNEngine
+    from repro_torch.kernels import bvh, grid_raycast, rank_count, raycast, ref
+    from repro_torch.launch.serve import RkNNServer
+    from repro_torch.obs import Tracer, set_tracer
+    from repro_torch.shard import ShardedEngine, user_mesh
+    from repro_torch.workloads import drifting_users, facility_jitter
+
+    kernels = {"dense": raycast, "grid-pallas": grid_raycast, "bvh": bvh, "brute": rank_count}
+    t_phase = time.perf_counter()
+    meshless = dict(meshless, brute=eng.query_batch(qs, K, backend="brute"))
+
+    def served(sh, b, want, shards) -> dict:
+        """One counted, traced batch of ``sh`` through ``b``, checked
+        against ``want`` (a meshless result); returns its line."""
+        kernels[b].batch_launches = 0
+        ref.calls = 0
+        tracer = Tracer(capacity=1 << 12)
+        prev = set_tracer(tracer)
+        tracer.enable()
+        try:
+            r = sh.query_batch(qs, K, backend=b)
+            torch.cuda.synchronize(dev)
+        finally:
+            set_tracer(prev)
+        launches = kernels[b].batch_launches
+        spans: dict = {}
+        for rec in tracer.records():
+            spans.setdefault(rec["name"], []).append(rec["t1"] - rec["t0"])
+        diffs = (int((r.masks != want.masks).sum()), int((r.counts != want.counts).sum()))
+        snap = sh._snap
+        line = {"backend": b, "shards": shards, "version": r.version,
+                "t_filter_s": r.t_filter_s, "t_verify_s": r.t_verify_s,
+                "meshless_t_verify_s": want.t_verify_s, "launches": launches,
+                "plain_calls": ref.calls, "mask_diffs": diffs[0], "count_diffs": diffs[1]}
+        bad = diffs[0] or diffs[1] or ref.calls or launches != (1 if b == "brute" else shards)
+        if b != "brute":
+            st = snap.shard_state
+            rec = [e for e in sh.explain() if e.get("mode") == "shard-batch"][-1]
+            copies = len(spans.get("shard-copy", ()))
+            line.update(
+                per_shard_users=rec["per_shard_users"],
+                per_shard_verify_s=rec["per_shard_verify_s"],
+                imbalance=sh.stats.shard_imbalance,
+                reassembly_ms=1e3 * sum(spans.get("shard-reassemble", ())),
+                copy_back_ms=1e3 * sum(spans.get("shard-copy", ())),
+                copies_back=copies,
+                result_sizes_equal=rec["result_sizes"] == [int(m.sum()) for m in r.masks],
+                views_in_lockstep=st.version == snap.version
+                and all(v.version == snap.version for v in st.views),
+                view_devices=sorted({str(v.xs.device) for v in st.views}),
+            )
+            bad = (bad or copies != 1 or not line["result_sizes_equal"]
+                   or not line["views_in_lockstep"] or rec["version"] != snap.version)
+        _log("shard", **line)
+        if bad:
+            raise AssertionError(f"shard {b} at {shards} shards: {line}")
+        return r
+
+    engines = {}
+    for shards in SHARD_COUNTS:
+        t0 = time.perf_counter()
+        sh = ShardedEngine(F, U, RkNNConfig(backend="dense"), shards=shards, device=dev)
+        for b in SHARD_BACKENDS:
+            served(sh, b, meshless[b], shards)
+        engines[shards] = sh
+        _log("shard_engine", shards=shards, seconds=time.perf_counter() - t0,
+             partition=sh._snap.shard_state.summary()["shards"])
+    for shards in SHARD_COUNTS[:-1]:
+        del engines[shards]
+
+    # updates on the last engine, each held against a cold meshless engine
+    shards = SHARD_COUNTS[-1]
+    sh = engines.pop(shards)
+    steps = (("drift_lo", drifting_users(U, steps=1, frac=0.01, seed=0)[0]),
+             ("fjitter", facility_jitter(F, steps=1, frac=0.02, seed=2,
+                                         protect=np.asarray(qs))[0]))
+    for name, batch in steps:
+        old = sh._snap.shard_state
+        rep = sh.apply_updates(batch)
+        new = sh._snap.shard_state
+        moved_shards = set()
+        if batch.touches_users:
+            pos = old.pos[np.asarray(batch.user_move[0], np.int64)]
+            moved_shards = set(int(s) for s in np.searchsorted(old.bounds, pos, "right") - 1)
+        views = [{"shard": a.index, "moved": a.index in moved_shards,
+                  "new_tensors": b.xs is not a.xs and b.ys is not a.ys,
+                  "carried": b.xs is a.xs and b.ys is a.ys and b.memo is a.memo}
+                 for a, b in zip(old.views, new.views)]
+        cold = RkNNEngine(sh.facilities, sh.users, RkNNConfig(backend="dense"), device=dev)
+        _log("shard_update", stream=name, t_update_s=rep.t_update_s,
+             users_moved=len(batch.user_move[0]), facilities_moved=len(batch.facility_move[0]),
+             rect_changed=rep.rect_changed, views=views)
+        if new is None or any(v["new_tensors"] != v["moved"] or v["carried"] == v["moved"]
+                              for v in views):
+            raise AssertionError(f"shard views after {name}: {views}")
+        for b in SHARD_BACKENDS:
+            served(sh, b, cold.query_batch(qs, K, backend=b), shards)
+        del cold
+    del sh
+
+    # the engine's own mesh= path (one slab on the card) and the alias
+    mesh_eng = RkNNEngine(F, U, RkNNConfig(backend="dense"), mesh=user_mesh(1, devices=[dev]),
+                          device=dev)
+    mesh_line = {}
+    for b in ("bvh", "grid"):
+        got = mesh_eng.query_batch(qs, K, backend=b)
+        want = meshless["bvh"] if b == "bvh" else eng.query_batch(qs, K, backend="grid")
+        req = mesh_eng._snap.batch_cache.items()[-1][1][0]
+        mesh_line[b] = {"t_filter_s": got.t_filter_s, "t_verify_s": got.t_verify_s,
+                        "meshless_t_verify_s": want.t_verify_s,
+                        "dispatch": req.dispatch is not None,
+                        "mask_diffs": int((got.masks != want.masks).sum()),
+                        "count_diffs": int((got.counts != want.counts).sum())}
+        del got, want
+    del mesh_eng
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        server = RkNNServer(F, U, device=dev)
+    t0 = time.perf_counter()
+    alias_masks = server.query_batch(qs, K)
+    alias = {"seconds": time.perf_counter() - t0, "backend": server.engine.config.backend,
+             "mask_diffs": int((alias_masks != meshless["dense"].masks).sum())}
+    del server, alias_masks
+    _log("shard_mesh", mesh={"devices": 1, **mesh_line}, alias=alias,
+         seconds=time.perf_counter() - t_phase)
+    if (any(v["mask_diffs"] or v["count_diffs"] or not v["dispatch"] for v in mesh_line.values())
+            or alias["mask_diffs"]):
+        raise AssertionError(f"mesh path {mesh_line}, alias {alias}")
 
 
 def main(argv=None) -> int:

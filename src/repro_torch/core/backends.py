@@ -44,7 +44,7 @@ Built-in backends (all produce identical verdict sets):
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, ClassVar, NamedTuple
+from typing import Any, Callable, ClassVar, NamedTuple
 
 import numpy as np
 import torch
@@ -83,6 +83,7 @@ __all__ = [
     "available_backends",
     "concrete_backends",
     "timeable_backends",
+    "on_device",
     "stack_cell_planes",
     "CellBuckets",
     "DenseBackend",
@@ -133,7 +134,11 @@ class BatchRequest:
 
     ``mp`` is the static triangle pad target for stacked dense scenes
     (power-of-two bucketed by the engine so repeat workloads reuse one
-    stacked shape).
+    stacked shape).  ``dispatch`` optionally overrides the device step: a
+    callable taking the prepared batch state and returning ``[Q, N]``
+    int32 counts on the host.  The engine injects its sharded dispatch
+    here (the ``mesh=`` path, or :class:`repro_torch.shard.ShardDispatch`),
+    and then leaves ``xs``/``ys`` ``None``: the dispatch owns the users.
     """
 
     xs: torch.Tensor | None  # [N] f32
@@ -149,6 +154,7 @@ class BatchRequest:
     q_pts: np.ndarray | None = None  # [Q, 2]
     excludes: list[int | None] | None = None
     mp: int | None = None
+    dispatch: Callable | None = None
     #: Per-snapshot kernel memo — see :attr:`QueryRequest.memo`.
     memo: Any = None
 
@@ -223,7 +229,17 @@ class Backend:
         raise NotImplementedError
 
     def count_batch(self, req: BatchRequest, prepared) -> np.ndarray:
-        """``[Q, N]`` int32 hit counts in one batched device dispatch."""
+        """``[Q, N]`` int32 hit counts in one batched device dispatch, on
+        the host: ``req.dispatch``'s where the request has one, else
+        :meth:`count_batch_device`'s, copied back."""
+        if req.dispatch is not None:
+            return req.dispatch(prepared)
+        return self.count_batch_device(req, prepared).cpu().numpy()
+
+    def count_batch_device(self, req: BatchRequest, prepared) -> torch.Tensor:
+        """``[Q, N]`` int32 hit counts of the request's users ``xs, ys``,
+        in their order, left on their device (the sharded dispatches
+        reassemble slabs of these before the one copy back)."""
         raise NotImplementedError
 
 
@@ -348,11 +364,11 @@ class DenseBackend(Backend):
         # keeps the stack resident on the device
         return torch.from_numpy(stacked).to(req.device)
 
-    def count_batch(self, req: BatchRequest, prepared) -> np.ndarray:
+    def count_batch_device(self, req: BatchRequest, prepared) -> torch.Tensor:
         order = _user_order_for(req, self.kernel_backend)
         return _ops.raycast_count_batch(
             req.xs, req.ys, prepared, backend=self.kernel_backend, order=order
-        ).cpu().numpy()
+        )
 
 
 @register_backend
@@ -435,11 +451,11 @@ class GridBackend(Backend):
         # the upload belongs to the filter phase, as the dense stack's does
         return tuple(torch.from_numpy(a).to(req.device) for a in stack_grids(indexes))
 
-    def count_batch(self, req: BatchRequest, prepared) -> np.ndarray:
+    def count_batch_device(self, req: BatchRequest, prepared) -> torch.Tensor:
         base, lists, coeffs = prepared
         return grid_hit_counts_batch_torch(
             req.xs, req.ys, base, lists, coeffs, req.rect, req.grid_g
-        ).cpu().numpy()
+        )
 
 
 # --------------------------------------------------------------------------
@@ -649,13 +665,18 @@ class GridPallasBackend(GridBackend):
         )
         return unsort_cell_counts(counts, b.unsort).cpu().numpy()
 
-    def count_batch(self, req: BatchRequest, prepared) -> np.ndarray:
+    def count_sorted(self, prepared) -> torch.Tensor:
+        """The kernel's ``[Q, n_sorted]`` counts in the bucketing's sorted
+        order, padding rows included (the sharded dispatch scatters them
+        straight into place; :meth:`count_batch_device` unsorts them)."""
         b, base_q, planes_q, lens_q = prepared
-        counts = _ops.grid_count_cells_batch(
+        return _ops.grid_count_cells_batch(
             b.xs_s, b.ys_s, b.ranks, base_q, planes_q,
             block=b.block, backend=self.kernel_backend, lens=lens_q, boxes=b.boxes,
         )
-        return unsort_cell_counts(counts, b.unsort).cpu().numpy()
+
+    def count_batch_device(self, req: BatchRequest, prepared) -> torch.Tensor:
+        return unsort_cell_counts(self.count_sorted(prepared), prepared[0].unsort)
 
 
 @register_backend
@@ -722,11 +743,11 @@ class BvhBackend(Backend):
             *stack_bvhs(indexes, [s.coeffs[: s.n_tris] for s in req.scenes]), req.device
         )
 
-    def count_batch(self, req: BatchRequest, prepared: BvhBatch) -> np.ndarray:
+    def count_batch_device(self, req: BatchRequest, prepared: BvhBatch) -> torch.Tensor:
         return _ops.bvh_count_stacked(
             req.xs, req.ys, prepared, k=req.k, backend=self.kernel_backend,
             order=_user_order_for(req, self.kernel_backend),
-        ).cpu().numpy()
+        )
 
 
 # --------------------------------------------------------------------------
@@ -764,7 +785,8 @@ class BruteBackend(Backend):
     def count_batch(self, req: BatchRequest, prepared) -> np.ndarray:
         """The rank-count kernel's query axis over the engine's device users
         (``req.xs, req.ys``, the same f32 cast as ``_on(req.users)``), in
-        the user order the dense backend keeps in the snapshot memo."""
+        the user order the dense backend keeps in the snapshot memo.  No
+        sharded dispatch serves this backend (as in the JAX package)."""
         return _ops.rank_count_batch_xy(
             req.xs,
             req.ys,
@@ -774,6 +796,24 @@ class BruteBackend(Backend):
             backend=self.kernel_backend,
             order=_user_order_for(req, self.kernel_backend),
         ).cpu().numpy()
+
+
+def on_device(prepared, device: torch.device):
+    """Prepared batch state for a dispatch on ``device``: a tensor on
+    another card is copied there; host tensors (the BVH node arrays, a CPU
+    engine's state) and everything else stay as they are.  Tuples and
+    NamedTuples are rebuilt around the moved tensors."""
+    if isinstance(prepared, torch.Tensor):
+        if prepared.device.type == "cuda" and prepared.device != device:
+            return prepared.to(device)
+        return prepared
+    if isinstance(prepared, tuple):
+        items = [on_device(v, device) for v in prepared]
+        if all(a is b for a, b in zip(items, prepared)):
+            return prepared
+        make = getattr(type(prepared), "_make", None)
+        return make(items) if make is not None else tuple(items)
+    return prepared
 
 
 def _on(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -23,9 +23,13 @@ routes each request, or each group of a batch, to the cheapest, with
 The free functions (``rt_rknn_query`` etc.) are one-shot shims over a
 throwaway engine.  Versioned updates are served by the subclass
 :class:`repro_torch.dynamic.DynamicEngine`: every query path resolves the
-engine's snapshot once at entry and serves that version to the end.  The
-JAX engine's device mesh, persistence, flight recorder and health
-endpoints are not part of this package yet.
+engine's snapshot once at entry and serves that version to the end.
+Batches can be served sharded: the engine's own ``mesh=`` path (a
+:class:`~repro_torch.shard.mesh.UserMesh`; users cut in row order into one
+slab per mesh device) and :class:`repro_torch.shard.ShardedEngine` (a
+spatial partition with per-shard state) both inject their dispatch as
+``BatchRequest.dispatch``.  The JAX engine's persistence, flight recorder
+and health endpoints are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -36,18 +40,26 @@ import dataclasses
 import math
 import queue
 import threading
+import time
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.core.backends import Backend, BatchRequest, QueryRequest, get_backend
+from repro_torch.core.backends import (
+    Backend,
+    BatchRequest,
+    QueryRequest,
+    get_backend,
+    on_device,
+)
 from repro_torch.core.geometry import Rect
 from repro_torch.core.hybrid import SceneCache, _q_key
 from repro_torch.core.results import RkNNBatchResult, RkNNResult
 from repro_torch.core.scene import Scene, build_scene
-from repro_torch.core.snapshot import EngineSnapshot
+from repro_torch.core.snapshot import EngineSnapshot, LruCache
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import user_shard_bounds
 from repro_torch.obs import Histogram, MetricsRegistry, span
 from repro_torch.planner.models import WorkloadShape
 
@@ -56,6 +68,10 @@ __all__ = ["RkNNConfig", "EngineStats", "RkNNEngine"]
 #: Config fields of the JAX engine whose subsystems this package does not
 #: have yet; setting one raises instead of being ignored.
 _NOT_IMPLEMENTED = ("flight_recorder", "warm_store")
+
+#: Backends the engine's ``mesh=`` path serves: the JAX engine's
+#: (``dense-ref``, ``grid``, ``bvh``) and ``dense``, the port's default.
+_MESH_BACKENDS = frozenset({"dense", "dense-ref", "grid", "bvh"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +143,16 @@ class EngineStats:
             if labels.get("phase") == phase
         )
 
+    def _shard_list(self, phase: str) -> list[float]:
+        per = {
+            int(labels["shard"]): h.sum
+            for labels, h in self.metrics.find("shard.phase_s")
+            if labels.get("phase") == phase
+        }
+        if not per:
+            return []
+        return [per.get(i, 0.0) for i in range(max(per) + 1)]
+
     @property
     def n_queries(self) -> int:
         return self.metrics.counter("queries").value
@@ -179,6 +205,19 @@ class EngineStats:
         return self.metrics.counter("planner.recal_nudges").value
 
     @property
+    def shard_filter_s(self) -> list[float]:
+        return self._shard_list("filter")
+
+    @property
+    def shard_verify_s(self) -> list[float]:
+        return self._shard_list("verify")
+
+    @property
+    def shard_imbalance(self) -> float:
+        found = self.metrics.find("shard.imbalance")
+        return found[0][1].value if found else 1.0
+
+    @property
     def events_dropped(self) -> int:
         return self.metrics.counter("continuous.events_dropped").value
 
@@ -189,7 +228,8 @@ class EngineStats:
     def __repr__(self) -> str:
         fields = ("n_queries", "n_batches", "t_filter_s", "t_verify_s", "m_max",
                   "batch_cache_hits", "planner_decisions", "planner_pred_s",
-                  "planner_obs_s", "planner_recal_nudges", "events_dropped",
+                  "planner_obs_s", "planner_recal_nudges", "shard_filter_s",
+                  "shard_verify_s", "shard_imbalance", "events_dropped",
                   "continuous_pruned")
         inner = ", ".join(f"{f}={getattr(self, f)!r}" for f in fields)
         return f"EngineStats({inner})"
@@ -231,6 +271,10 @@ class RkNNEngine:
 
     ``device=None`` means ``"cuda"`` and raises when no card is visible;
     pass ``device="cpu"`` to run the plain PyTorch versions on the host.
+    ``mesh`` (a :class:`~repro_torch.shard.mesh.UserMesh`) serves the
+    ``dense``, ``dense-ref``, ``grid`` and ``bvh`` batches sharded: users
+    cut in row order into one slab per mesh device, queries whole, the
+    slabs' counts written into one ``[Q, N]`` tensor and copied back once.
     """
 
     def __init__(
@@ -239,6 +283,7 @@ class RkNNEngine:
         users: np.ndarray,
         config: RkNNConfig | None = None,
         *,
+        mesh=None,
         rect: Rect | None = None,
         device: str | torch.device | None = None,
         **overrides,
@@ -249,6 +294,8 @@ class RkNNEngine:
         get_backend(config.backend)  # validate eagerly
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._devbytes_cache: tuple | None = None
         self.metrics = MetricsRegistry()
         self.stats = EngineStats(self.metrics)
         self._init_metrics()
@@ -270,6 +317,8 @@ class RkNNEngine:
         #: (``RkNNConfig.flight_recorder`` raises), so it stays ``None`` and
         #: :meth:`_flight_exception` does nothing.
         self.flight = None
+        if mesh is not None:
+            self._init_mesh(self._snap, mesh)
 
     def _make_snapshot(
         self,
@@ -322,6 +371,19 @@ class RkNNEngine:
         m.derived("scene_cache.hit_ratio", self._scene_cache_hit_ratio)
         m.derived("batch_cache.hit_ratio", self._batch_cache_hit_ratio)
         m.derived("mvcc.version", lambda: float(self._snap.version))
+        m.derived("pad_waste", self._pad_waste_ratio)
+        # Memory of the *served* snapshot version, by category (evaluated
+        # only at snapshot time; one memoized walk serves all categories —
+        # see _device_bytes_cached).
+        for cat in ("users", "shards", "indexes", "kernel", "batches",
+                    "scenes", "total"):
+            m.derived(
+                "mem.bytes",
+                (lambda cat=cat: float(
+                    self._device_bytes_cached(self._snap).get(cat, 0)
+                )),
+                category=cat,
+            )
 
     def _scene_cache_hit_ratio(self) -> float | None:
         sc = self._snap.scene_cache
@@ -333,6 +395,24 @@ class RkNNEngine:
     def _batch_cache_hit_ratio(self) -> float | None:
         n = self._m_batches.value
         return self._m_cache_hits.value / n if n else None
+
+    def _pad_waste_ratio(self) -> float:
+        """The served snapshot's measured cell-bucketing pad waste (the
+        planner's occupancy feature); a failure omits the row, as every
+        derived gauge's does (``MetricsRegistry.snapshot``)."""
+        return float(self._snap.pad_waste(self._snap.rect, self.config.grid_g))
+
+    def _device_bytes_cached(self, snap: EngineSnapshot) -> dict[str, int]:
+        """Memoized :meth:`EngineSnapshot.device_bytes` — one walk per
+        snapshot version per ~250 ms, so a scrape reading all seven
+        ``mem.bytes`` gauges pays once."""
+        now = time.monotonic()
+        hit = self._devbytes_cache
+        if hit is not None and hit[0] is snap and now - hit[1] < 0.25:
+            return hit[2]
+        out = snap.device_bytes()
+        self._devbytes_cache = (snap, now, out)
+        return out
 
     def _note_lag(self, snap: EngineSnapshot) -> None:
         """``mvcc.version_lag``: versions published while a query served
@@ -457,8 +537,75 @@ class RkNNEngine:
 
     def _workload_shards(self) -> int:
         """Shard count the planner prices workloads at (the ``log_s``
-        feature): 1 on this single-device engine."""
+        feature).  1 here; ``ShardedEngine`` overrides with its shard
+        count."""
         return 1
+
+    # ------------------------------------------------------------------
+    # the mesh path: users cut in row order over the mesh's devices
+    # ------------------------------------------------------------------
+    def _init_mesh(self, snap: EngineSnapshot, mesh) -> None:
+        """Upload the snapshot's users as one contiguous row slab per mesh
+        device (float32, cast on the host as the snapshot's upload), with
+        one kernel memo per slab."""
+        devs = mesh.devices
+        bounds = user_shard_bounds(len(snap.users), len(devs))
+        xs = snap.users[:, 0].astype(np.float32)
+        ys = snap.users[:, 1].astype(np.float32)
+        cut = list(zip(bounds[:-1], bounds[1:], devs))
+        snap.mesh_ys = tuple(torch.from_numpy(ys[lo:hi]).to(d) for lo, hi, d in cut)
+        snap.mesh_xs = tuple(torch.from_numpy(xs[lo:hi]).to(d) for lo, hi, d in cut)
+        snap.mesh_memos = tuple(LruCache(4) for _ in devs)
+        snap.mesh_n = len(snap.users)
+
+    def _mesh_dispatch_for(
+        self, snap: EngineSnapshot, backend: Backend, *, rect: Rect, k: int
+    ):
+        """Engine-held device-dispatch override for ``count_batch``, or
+        ``None`` (no mesh, no users, or a backend the mesh path does not
+        serve: ``brute``, the ``grid-pallas`` family and ``auto``'s groups
+        of those stay single-device, as in the JAX package).
+
+        The dispatch counts every slab through the backend's
+        :meth:`~repro_torch.core.backends.Backend.count_batch_device`
+        (the slab's own user order in its own memo), writes it into its
+        columns of one ``[Q, N]`` int32 tensor on the first slab's device
+        and copies that back once.  It captures this snapshot's slabs, so
+        a carried batch is re-pointed at a new version by asking again.
+        """
+        if (self.mesh is None or snap.mesh_xs is None or snap.mesh_n == 0
+                or backend.name not in _MESH_BACKENDS):
+            return None
+        slabs = tuple(zip(snap.mesh_xs, snap.mesh_ys, snap.mesh_memos))
+        n, grid_g = snap.mesh_n, self.config.grid_g
+
+        def dispatch(prepared) -> np.ndarray:
+            out, lo = None, 0
+            for xs, ys, memo in slabs:
+                if xs.shape[0] == 0:
+                    continue  # fewer users than devices
+                req = BatchRequest(xs=xs, ys=ys, k=k, device=xs.device, rect=rect,
+                                   grid_g=grid_g, memo=memo)
+                counts = backend.count_batch_device(req, on_device(prepared, xs.device))
+                if out is None:
+                    out = torch.empty((counts.shape[0], n), dtype=torch.int32,
+                                      device=counts.device)
+                out[:, lo : lo + xs.shape[0]] = counts
+                lo += xs.shape[0]
+            return out.cpu().numpy()
+
+        return dispatch
+
+    def _prepare_batch(self, backend: Backend, req: BatchRequest):
+        """Backend stacking for one batch, honoring a dispatch that owns
+        its own prepare step (``req.dispatch.prepare``): the sharded
+        dispatch builds *per-shard* prepared state (cell buckets, planes
+        compacted to the shard's cells) that the plain
+        ``Backend.prepare_batch`` — which sees no partition — cannot."""
+        prep = getattr(req.dispatch, "prepare", None)
+        if prep is not None:
+            return prep(backend, req)
+        return backend.prepare_batch(req)
 
     def _batch_cache_get(self, snap: EngineSnapshot, key):
         """Prepared-batch lookup (None key → miss); counts a hit in the
@@ -519,9 +666,12 @@ class RkNNEngine:
                 return hit
 
         scenes = self._build_scenes(snap, queries, k, rect, scene_workers)
+        dispatch = self._mesh_dispatch_for(snap, backend, rect=rect, k=k)
+        # a sharded dispatch owns its own copies of the users: don't upload
+        # a second, whole copy it would never read
         req = BatchRequest(
-            xs=snap.xs,
-            ys=snap.ys,
+            xs=None if dispatch is not None else snap.xs,
+            ys=None if dispatch is not None else snap.ys,
             k=k,
             device=snap.device,
             rect=rect,
@@ -533,9 +683,10 @@ class RkNNEngine:
             q_pts=q_pts,
             excludes=excludes,
             mp=self._mp_bucket(scenes),
+            dispatch=dispatch,
             memo=snap.kernel_memo,
         )
-        prepared = backend.prepare_batch(req)
+        prepared = self._prepare_batch(backend, req)
         self._batch_cache_put(snap, cache_key, (req, prepared, scenes))
         return req, prepared, scenes
 
@@ -852,9 +1003,10 @@ class RkNNEngine:
                     req, prepared, _sub = hit
                 else:
                     sub = [scenes[i] for i in idxs]
+                    dispatch = self._mesh_dispatch_for(snap, b, rect=rect, k=k)
                     req = BatchRequest(
-                        xs=snap.xs,
-                        ys=snap.ys,
+                        xs=None if dispatch is not None else snap.xs,
+                        ys=None if dispatch is not None else snap.ys,
                         k=k,
                         device=snap.device,
                         rect=rect,
@@ -866,9 +1018,10 @@ class RkNNEngine:
                         q_pts=g_pts,
                         excludes=g_excl,
                         mp=self._mp_bucket(sub),
+                        dispatch=dispatch,
                         memo=snap.kernel_memo,
                     )
-                    prepared = b.prepare_batch(req)
+                    prepared = self._prepare_batch(b, req)
                     self._batch_cache_put(snap, cache_key, (req, prepared, sub))
         with span("verify", backend=b.name, group=1) as sv:
             counts = b.count_batch(req, prepared)

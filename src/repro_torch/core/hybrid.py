@@ -67,6 +67,12 @@ class SceneCache:
     def __len__(self) -> int:
         return len(self._store)
 
+    def scenes(self) -> list[Scene]:
+        """Snapshot of the cached scenes (the memory walk of
+        ``EngineSnapshot.device_bytes`` iterates this)."""
+        with self._lock:
+            return list(self._store.values())
+
     @staticmethod
     def fingerprint(facilities: np.ndarray) -> int:
         f = np.ascontiguousarray(facilities, dtype=np.float64)

@@ -23,6 +23,7 @@ swap, so a reader holding version N keeps serving it unchanged.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import threading
 from typing import Any
 
@@ -156,6 +157,11 @@ class EngineSnapshot:
         "index_memo",
         "kernel_memo",
         "batch_cache",
+        "mesh_xs",
+        "mesh_ys",
+        "mesh_n",
+        "mesh_memos",
+        "shard_state",
         "_rect",
         "_hull",
         "_fp",
@@ -190,6 +196,16 @@ class EngineSnapshot:
         #: on the device), owned by this snapshot and not by the backend.
         self.kernel_memo = LruCache(4)
         self.batch_cache = LruCache(batch_capacity)
+        #: The engine's ``mesh=`` path: this version's users cut in row
+        #: order into one contiguous slab per mesh device (tuples of
+        #: float32 tensors), ``mesh_n`` users in all, and one kernel memo
+        #: per slab (the users' order of each slab).
+        self.mesh_xs = self.mesh_ys = self.mesh_memos = None
+        self.mesh_n = 0
+        #: Per-shard replica views of this version's users (built lazily by
+        #: ShardedEngine, swapped in as ONE object so a reader never sees a
+        #: mixed-version shard set — the version-lockstep rule).
+        self.shard_state = None
         self._rect = rect
         self._hull: tuple[np.ndarray, np.ndarray] | None = None
         self._fp: int | None = None
@@ -251,6 +267,74 @@ class EngineSnapshot:
             )
             self._pad_waste[key] = hit
         return hit
+
+    def device_bytes(self) -> dict[str, int]:
+        """Live array bytes owned by this snapshot version, by category.
+
+        Walks the snapshot's caches and memos and sums ``nbytes`` of every
+        reachable ``torch.Tensor`` and ``np.ndarray`` exactly once (an
+        id-based seen set is shared across categories, so structurally
+        shared tensors — carries across versions, replicated planes — are
+        charged to the first category that reaches them and the total
+        never double counts).  Read-only over lock-free accessors; an
+        update publishing mid-walk at worst skews one scrape, never tears
+        it.  The categories and their order are the JAX package's.
+        """
+        seen: set[int] = set()
+        # order matters for attribution (not for the total): scenes walk
+        # before the index memo so packed occluder geometry lands under
+        # "scenes" and the memo contributes only the index-side arrays.
+        out = {
+            "users": _nbytes_walk(
+                (self.users, self.facilities, self._xs, self._ys,
+                 self.mesh_xs, self.mesh_ys),
+                seen,
+            ),
+            "shards": _nbytes_walk(self.shard_state, seen),
+            "scenes": _nbytes_walk(
+                self.scene_cache.scenes() if self.scene_cache is not None else None,
+                seen,
+            ),
+            "indexes": _nbytes_walk(list(self.index_memo._store.values()), seen),
+            "kernel": _nbytes_walk(
+                (self.kernel_memo.items(),
+                 [m.items() for m in self.mesh_memos or ()]),
+                seen,
+            ),
+            "batches": _nbytes_walk(self.batch_cache.items(), seen),
+        }
+        out["total"] = sum(out.values())
+        return out
+
+
+_ATOMS = (str, bytes, int, float, bool, type(None))
+
+
+def _nbytes_walk(obj, seen: set[int]) -> int:
+    """Sum of ``nbytes`` over every tensor and array reachable from ``obj``
+    through dicts, sequences (NamedTuples included), dataclasses and
+    ``__slots__`` objects, deduplicated by identity."""
+    if isinstance(obj, _ATOMS):
+        return 0
+    oid = id(obj)
+    if oid in seen:
+        return 0
+    seen.add(oid)
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        return int(obj.nbytes)
+    if isinstance(obj, dict):
+        return sum(_nbytes_walk(v, seen) for v in obj.values())
+    if isinstance(obj, (list, tuple, set, frozenset)):
+        return sum(_nbytes_walk(v, seen) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return sum(
+            _nbytes_walk(getattr(obj, f.name, None), seen)
+            for f in dataclasses.fields(obj)
+        )
+    slots = getattr(type(obj), "__slots__", None)
+    if slots:
+        return sum(_nbytes_walk(getattr(obj, s, None), seen) for s in slots)
+    return 0
 
 
 def _device_f32(col: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -44,9 +44,13 @@ acceleration state instead of rebuilding it, copy-on-write:
     the rest take a remap-and-skip fast path.  Their counts are host numpy
     (float64 distance ranks), as in the JAX package.
 
-The JAX engine's device-mesh branches (sharded user copies scattered
-beside ``xs``/``ys``, mesh dispatches re-pointed in carried batches) are
-not here: this package has no sharded serving yet.
+Sharded serving rides the same copy-on-write rules: with the engine's
+``mesh=`` path, a pure move scatters into the owning row slabs of
+``mesh_xs``/``mesh_ys`` (the other slabs and their memos are carried by
+reference) and any other user delta re-uploads the slabs; carried batches
+get a sharded dispatch re-pointed at the new snapshot.
+:class:`repro_torch.shard.ShardedEngine` extends this with its per-shard
+views.
 
 Equivalence contract (property-tested): after any sequence of
 ``apply_updates``, every query path on this engine returns bit-identical
@@ -71,7 +75,7 @@ from repro_torch.core.grid import (
     build_yield_ratio,
 )
 from repro_torch.core.pruning import adaptive_grid
-from repro_torch.core.snapshot import EngineSnapshot
+from repro_torch.core.snapshot import EngineSnapshot, LruCache
 from repro_torch.dynamic.continuous import ContinuousQuery, influence_dirty_mask
 from repro_torch.dynamic.policy import RefitPolicy
 from repro_torch.dynamic.refit import refit_scene, remap_scene, scene_update_safe
@@ -286,6 +290,8 @@ class DynamicEngine(RkNNEngine):
             # untouched users: carry device tensors by reference
             new._ys = old._ys
             new._xs = old._xs
+            new.mesh_xs, new.mesh_ys = old.mesh_xs, old.mesh_ys
+            new.mesh_n, new.mesh_memos = old.mesh_n, old.mesh_memos
             # the order and bucketing memo is keyed on the identity of the
             # carried xs tensor — safe to share across versions
             new.kernel_memo = old.kernel_memo
@@ -414,20 +420,34 @@ class DynamicEngine(RkNNEngine):
         )
         if moves_only:
             if old._xs is not None:
-                dev = old._xs.device
-                idx = torch.from_numpy(np.ascontiguousarray(mv_ids)).to(dev)
-                pts = np.asarray(mv_pts, np.float32)
+                xs, ys = scatter_rows(old._xs, old._ys, mv_ids, mv_pts)
                 # ys before xs: a racing reader keyed on _xs sees both
-                new._ys = old._ys.index_copy(
-                    0, idx, torch.from_numpy(np.ascontiguousarray(pts[:, 1])).to(dev)
-                )
-                new._xs = old._xs.index_copy(
-                    0, idx, torch.from_numpy(np.ascontiguousarray(pts[:, 0])).to(dev)
-                )
+                new._ys = ys
+                new._xs = xs
                 report.users_scattered = True
                 self.update_stats.user_scatters += 1
         else:
             self.update_stats.user_reuploads += 1  # lazy re-upload on next use
+        if self.mesh is not None:
+            if moves_only and old.mesh_xs is not None:
+                self._scatter_mesh(old, new, mv_ids, mv_pts)
+            else:
+                self._init_mesh(new, self.mesh)
+
+    def _scatter_mesh(self, old: EngineSnapshot, new: EngineSnapshot, mv_ids, mv_pts) -> None:
+        """Pure moves into the mesh path's row slabs, out of place on each
+        slab's device: a slab with a moved user gets new tensors and a
+        fresh memo, the others are carried by reference with theirs."""
+        ids = np.asarray(mv_ids, np.int64)
+        bounds = np.cumsum([0] + [x.shape[0] for x in old.mesh_xs])
+        slab_of = np.searchsorted(bounds, ids, side="right") - 1
+        xs, ys, memos = list(old.mesh_xs), list(old.mesh_ys), list(old.mesh_memos)
+        for s in np.unique(slab_of):
+            sel = slab_of == s
+            xs[s], ys[s] = scatter_rows(xs[s], ys[s], ids[sel] - bounds[s], mv_pts[sel])
+            memos[s] = LruCache(4)
+        new.mesh_ys, new.mesh_xs = tuple(ys), tuple(xs)
+        new.mesh_memos, new.mesh_n = tuple(memos), old.mesh_n
 
     # ------------------------------------------------------------------
     def _cow_batch_cache(
@@ -475,13 +495,23 @@ class DynamicEngine(RkNNEngine):
             if b.prepared_carries_users:
                 continue
             req, prepared, scenes = value
-            req = dataclasses.replace(
-                req,
-                xs=new.xs,
-                ys=new.ys,
-                users=new.users,
-                memo=new.kernel_memo,
-            )
+            if req.dispatch is not None:
+                # a sharded dispatch captures its snapshot's users: ask for
+                # the new snapshot's
+                dispatch = self._mesh_dispatch_for(new, b, rect=req.rect, k=req.k)
+                if dispatch is None:
+                    continue
+                req = dataclasses.replace(
+                    req, dispatch=dispatch, users=new.users, memo=new.kernel_memo
+                )
+            else:
+                req = dataclasses.replace(
+                    req,
+                    xs=new.xs,
+                    ys=new.ys,
+                    users=new.users,
+                    memo=new.kernel_memo,
+                )
             new.batch_cache.put(key, (req, prepared, scenes))
             report.batches_carried += 1
 
@@ -696,6 +726,22 @@ class DynamicEngine(RkNNEngine):
                 # coarse backstop for the build work outside the yielding
                 # hot loops (COW copies, occluder geometry, list packing)
                 build_sleep(0.5 * sp.elapsed_s)
+
+
+def scatter_rows(xs: torch.Tensor, ys: torch.Tensor, rows, pts) -> tuple:
+    """``(xs, ys)`` with ``rows`` set to the points ``pts`` ``[n, 2]``, as
+    new tensors on the device of ``xs`` (``Tensor.index_copy``: the given
+    tensors stay untouched).  The points are cast to float32 on the host,
+    as every upload of the users casts them, so the result equals a fresh
+    upload bit for bit."""
+    dev = xs.device
+    idx = torch.from_numpy(np.ascontiguousarray(rows, np.int64)).to(dev)
+    pts = np.asarray(pts, np.float32)
+
+    def col(i):
+        return torch.from_numpy(np.ascontiguousarray(pts[:, i])).to(dev)
+
+    return xs.index_copy(0, idx, col(0)), ys.index_copy(0, idx, col(1))
 
 
 @dataclasses.dataclass

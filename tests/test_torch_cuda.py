@@ -666,3 +666,70 @@ def test_dynamic_engine_on_card_equals_cold_engine(cuda_device, backend):
         np.testing.assert_array_equal(got.counts, want.counts)
         np.testing.assert_array_equal(got.masks, want.masks)
         assert got.version == i + 1
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("backend", ["dense", "grid-pallas", "bvh", "brute"])
+def test_sharded_engine_on_card_launches_per_shard_and_equals_meshless(cuda_device, backend,
+                                                                       shards):
+    """``ShardedEngine`` on one card: each shard launches its backend's
+    kernel once per batch (``brute`` is not sharded: one launch), no plain
+    call; masks and counts bit-identical to the meshless engine on the
+    card; the reassembly on the card equal to ``assemble_counts`` of the
+    per-shard slabs, and the views' tensors on the card."""
+    from repro_torch.core import RkNNConfig
+    from repro_torch.shard import ShardedEngine, assemble_counts
+
+    rng = np.random.default_rng(29)
+    F, U = rng.random((80, 2)), rng.random((20_000, 2))
+    qs, k = [5, 9, 13, 17, 21], 6
+    eng = ShardedEngine(F, U, RkNNConfig(backend=backend), shards=shards, device=cuda_device)
+    module, counter = _DYN_KERNEL.get(backend, (rank_count, "batch_launches"))
+    setattr(module, counter, 0)
+    ref.calls = 0
+    got = eng.query_batch(qs, k)
+    torch.cuda.synchronize(cuda_device)
+    assert getattr(module, counter) == (1 if backend == "brute" else shards)
+    assert ref.calls == 0
+    want = RkNNEngine(F, U, RkNNConfig(backend=backend), device=cuda_device).query_batch(qs, k)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    np.testing.assert_array_equal(got.masks, want.masks)
+    if backend == "brute":
+        return
+    st = eng._snap.shard_state
+    assert all(v.xs.device == cuda_device and v.rows.device == cuda_device for v in st.views)
+    req, (kind, payload), _ = eng._snap.batch_cache.items()[-1][1]
+    b = eng.config.backend
+    from repro_torch.core.backends import get_backend
+
+    slabs = [
+        (get_backend(b).count_batch_device(None, payload[i][0]) if kind == "shard"
+         else get_backend(b).count_batch_device(req.dispatch._request(v), payload)).cpu().numpy()
+        for i, v in enumerate(st.views)
+    ]
+    np.testing.assert_array_equal(got.counts, assemble_counts(slabs, st.perm, st.bounds, len(U)))
+
+
+@pytest.mark.parametrize("backend", ["dense", "grid", "bvh"])
+def test_engine_mesh_path_on_card_equals_meshless(cuda_device, backend):
+    """The engine's ``mesh=`` path on one card (one slab), and the
+    dynamic engine's scatter into it, bit-identical to the meshless
+    engine."""
+    from repro_torch.core import RkNNConfig
+    from repro_torch.dynamic import DynamicEngine, UpdateBatch
+    from repro_torch.shard import user_mesh
+
+    rng = np.random.default_rng(31)
+    F, U = rng.random((80, 2)), rng.random((20_000, 2))
+    qs, k = [5, 9, 13], 6
+    dyn = DynamicEngine(F, U, RkNNConfig(backend=backend), mesh=user_mesh(1),
+                        device=cuda_device)
+    got = dyn.query_batch(qs, k)
+    want = RkNNEngine(F, U, RkNNConfig(backend=backend), device=cuda_device).query_batch(qs, k)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    ids = rng.choice(len(U), 500, replace=False)
+    dyn.apply_updates(UpdateBatch(user_move=(ids, rng.random((500, 2)))))
+    assert dyn._snap.mesh_xs[0].device == cuda_device
+    want = RkNNEngine(dyn.facilities, dyn.users, RkNNConfig(backend=backend),
+                      device=cuda_device).query_batch(qs, k)
+    np.testing.assert_array_equal(dyn.query_batch(qs, k).counts, want.counts)

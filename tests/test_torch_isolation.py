@@ -41,5 +41,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
             "repro_torch.kernels.grid_raycast", "repro_torch.kernels.build",
             "repro_torch.core.bvh", "repro_torch.kernels.bvh",
             "repro_torch.workloads.scenarios",
-            "repro_torch.core.baselines.tpl"} <= set(report["modules"])
+            "repro_torch.core.baselines.tpl", "repro_torch.shard", "repro_torch.shard.engine",
+            "repro_torch.shard.mesh", "repro_torch.shard.reduce",
+            "repro_torch.distributed.sharding", "repro_torch.launch.serve"} <= set(report["modules"])
     assert report["leaked"] == []
