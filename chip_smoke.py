@@ -52,7 +52,18 @@ read just after:
   kernel launched once per shard, masks and counts bit-identical to the
   meshless engine, then a user-move and a facility-jitter step against a
   cold engine; the engine's own ``mesh=`` path and the ``RkNNServer``
-  alias (see :func:`_shard`).
+  alias (see :func:`_shard`);
+* ``persist`` — persistence (``repro_torch.persist``): the main path's
+  engine saved (``rknn-store/1``) and warm-constructed, every stored
+  category restored, the batch through ``dense``, ``grid-pallas``,
+  ``bvh`` and ``brute`` on the warm engine bit-identical with no scene
+  rebuilt, ``python -m repro_torch.persist --verify`` in a fresh
+  interpreter, a hot adopt under a reader (version N+1), and the 4-shard
+  engine saved and warm-constructed (see :func:`_persist`);
+* ``ops`` — the ops layer (``repro_torch.obs``): every live endpoint
+  scraped while a stream runs, and a flight bundle written for a failing
+  query and digested by ``python -m repro_torch.obs --postmortem`` (see
+  :func:`_ops`).
 
 Wherever the grid and dense paths both count, their counts must be equal
 on every user: the port evaluates every edge with one rounding order.
@@ -641,6 +652,9 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     stream_qs = [
         [int(i) for i in order[q_n * (b + 1) : q_n * (b + 2)]] for b in range(STREAM_BATCHES)
     ]
+    # the ops phase's stream: as many new batches, after the main path's
+    ops_qs = [[int(i) for i in order[q_n * (b + 1 + STREAM_BATCHES) : q_n * (b + 2 + STREAM_BATCHES)]]
+              for b in range(STREAM_BATCHES)]
     P = road_network_points(mono_points, seed + 2)
     _log("data", facilities=len(F), users=len(U), k=K, q=q_n, mono_points=len(P),
          seconds=time.perf_counter() - t0)
@@ -1188,7 +1202,10 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     _planner(dev, eng, mono_eng, qs, stream_qs, oracle, (users_dev, fac_dev, u64, f64, rank_order),
              (mono_want, mono_ties), {"dense": res, "grid-pallas": g_res, "bvh": b_res})
     _dynamic(dev, F, U, qs)
-    _shard(dev, F, U, qs, eng, {"dense": res, "grid-pallas": g_res, "bvh": b_res})
+    sharded = _shard(dev, F, U, qs, eng, {"dense": res, "grid-pallas": g_res, "bvh": b_res})
+    _persist(dev, qs, eng, sharded, {"dense": res, "grid-pallas": g_res, "bvh": b_res})
+    del sharded
+    _ops(dev, eng, ops_qs, stream_s)
     _log("kernels", bit_identical_raycast=True, bit_identical_grid=True, bit_identical_bvh=True,
          rank_checked_queries=len(rank_out), d2h_counts_ms=d2h_ms,
          d2h_counts_pinned_ms=d2h_pinned_ms, counts_mb=got.numel() * 4 / 1e6,
@@ -1756,7 +1773,7 @@ SHARD_COUNTS = (2, 4)
 SHARD_BACKENDS = ("dense", "grid-pallas", "bvh", "brute")
 
 
-def _shard(dev, F, U, qs, eng, meshless) -> None:
+def _shard(dev, F, U, qs, eng, meshless):
     """Sharded serving on the card at CAL size (``repro_torch.shard``).
 
     A ``ShardedEngine`` at each of :data:`SHARD_COUNTS` shards on ``dev``
@@ -1778,7 +1795,8 @@ def _shard(dev, F, U, qs, eng, meshless) -> None:
     (all of them on the facility step) are carried by reference.  Last
     the engine's own ``mesh=`` path at ``user_mesh(1)`` through ``bvh``
     and ``grid``, and ``RkNNServer(F, U).query_batch``, against the
-    meshless engine."""
+    meshless engine.  Returns the 4-shard engine after its updates (the
+    ``persist`` phase saves it)."""
     import warnings
 
     import torch
@@ -1881,7 +1899,6 @@ def _shard(dev, F, U, qs, eng, meshless) -> None:
         for b in SHARD_BACKENDS:
             served(sh, b, cold.query_batch(qs, K, backend=b), shards)
         del cold
-    del sh
 
     # the engine's own mesh= path (one slab on the card) and the alias
     mesh_eng = RkNNEngine(F, U, RkNNConfig(backend="dense"), mesh=user_mesh(1, devices=[dev]),
@@ -1911,6 +1928,328 @@ def _shard(dev, F, U, qs, eng, meshless) -> None:
     if (any(v["mask_diffs"] or v["count_diffs"] or not v["dispatch"] for v in mesh_line.values())
             or alias["mask_diffs"]):
         raise AssertionError(f"mesh path {mesh_line}, alias {alias}")
+    return sh
+
+
+PERSIST_BACKENDS = ("dense", "grid-pallas", "bvh", "brute")
+
+
+def _store_bytes(info: dict) -> dict:
+    """Bytes per category of a persist report."""
+    return {name: st.get("bytes") for name, st in info["categories"].items()}
+
+
+def _persist(dev, qs, eng, sharded, cold) -> None:
+    """Persistence on the card at CAL size (``repro_torch.persist``).
+
+    The main path's engine ``eng`` (by now it has served ``dense``,
+    ``grid-pallas``, ``bvh`` and ``brute``), with the committed profile of
+    this runner class active, is saved under a temporary directory
+    (``keep=1``); a new ``RkNNEngine`` is warm-constructed from it
+    (``warm_store=``; config backend ``grid-pallas``) with no profile
+    active (so before each adoption below), so every stored category must
+    read ``restored``.  The warm
+    engine serves the main path's Q = 64 batch through
+    :data:`PERSIST_BACKENDS`, each a counted window: one launch of the
+    backend's kernel, no plain call, no scene miss, masks and counts
+    bit-identical to the saved engine's; its ``t_filter_s`` and
+    ``t_verify_s`` sit beside the cold ones of the earlier phases
+    (``cold``: the main, grid and BVH paths' results).  The warm engine is
+    then saved over the store (step 1; ``keep=1`` drops step 0) and
+    ``python -m repro_torch.persist --verify`` replays the store's queries
+    cold against warm in a fresh interpreter on the card (through
+    ``grid-pallas``, the stored config's backend).  Next the store is
+    hot-adopted into ``eng`` by ``restore`` while a reader thread serves
+    the batch: the version advances by exactly one and every reader batch
+    is bit-identical.  Last the 4-shard engine of the ``shard`` phase
+    (``sharded``) is saved and warm-constructed: its ``shards`` category
+    restored, each batch 4 launches (1 for ``brute``) and bit-identical.
+    The stores are deleted at the end."""
+    import os
+    import tempfile
+    import threading
+
+    import torch
+
+    from repro_torch.core import RkNNConfig, RkNNEngine
+    from repro_torch.kernels import bvh, grid_raycast, rank_count, raycast, ref
+    from repro_torch.planner.profiles import (
+        PROFILE_STORE, get_active_profile, load_runner_profile, set_active_profile,
+    )
+    from repro_torch.shard import ShardedEngine
+
+    kernels = {"dense": raycast, "grid-pallas": grid_raycast, "bvh": bvh, "brute": rank_count}
+    t_phase = time.perf_counter()
+    prev_profile = get_active_profile()
+    profile = load_runner_profile(str(PROFILE_STORE))
+    if profile is None:
+        raise AssertionError(f"no committed planner profile of this runner class in {PROFILE_STORE}")
+
+    def restored(info: dict, what: str) -> dict:
+        """Each category's status and restore seconds; every category in
+        the store must read ``restored``."""
+        cats = info.get("categories", {})
+        bad = {n: st for n, st in cats.items() if st["status"] not in ("restored", "absent")}
+        if "error" in info or bad or cats.get("dataset", {}).get("status") != "restored":
+            raise AssertionError(f"{what}: categories not restored: {info}")
+        return {n: {"status": st["status"], "seconds": st.get("seconds"), "items": st.get("items")}
+                for n, st in cats.items()}
+
+    def serve(engine, b, want, launches) -> dict:
+        """One counted batch of ``engine`` through ``b``, held bit for bit
+        against ``want``; returns its numbers."""
+        kernels[b].batch_launches = 0
+        ref.calls = 0
+        misses = engine._snap.scene_cache.misses
+        r = engine.query_batch(qs, K, backend=b)
+        torch.cuda.synchronize(dev)
+        line = {"t_filter_s": r.t_filter_s, "t_verify_s": r.t_verify_s,
+                "launches": kernels[b].batch_launches, "plain_calls": ref.calls,
+                "scene_misses": engine._snap.scene_cache.misses - misses,
+                "mask_diffs": int((r.masks != want.masks).sum()),
+                "count_diffs": int((r.counts != want.counts).sum())}
+        if (line["launches"] != launches or line["plain_calls"] or line["scene_misses"]
+                or line["mask_diffs"] or line["count_diffs"]):
+            raise AssertionError(f"warm {b}: {line}")
+        return line
+
+    with tempfile.TemporaryDirectory(prefix="rknn-store-") as tmp:
+        store = os.path.join(tmp, "main")
+        saved = {b: eng.query_batch(qs, K, backend=b) for b in PERSIST_BACKENDS}
+        set_active_profile(profile)
+        t0 = time.perf_counter()
+        eng.save_state(store, keep=1)
+        save_s = time.perf_counter() - t0
+        save_info = eng.persist_info
+        set_active_profile(None)
+        t0 = time.perf_counter()
+        warm = RkNNEngine(eng.facilities, eng.users,
+                          RkNNConfig(backend="grid-pallas", warm_store=store), device=dev)
+        construct_s = time.perf_counter() - t0
+        warm_cats = restored(warm.persist_info, "warm construct")
+        active = get_active_profile()
+        if "planner" in warm_cats and (active is None or active.to_json() != profile.to_json()):
+            raise AssertionError("the restored planner profile differs from the saved one")
+        backends = {}
+        for b in PERSIST_BACKENDS:
+            backends[b] = serve(warm, b, saved[b], 1)
+            if b in cold:
+                backends[b].update(cold_t_filter_s=cold[b].t_filter_s,
+                                   cold_t_verify_s=cold[b].t_verify_s)
+        t0 = time.perf_counter()
+        warm.save_state(store, keep=1)
+        resave_s = time.perf_counter() - t0
+        steps = sorted(os.listdir(store))
+        _log("persist", users=len(eng.users), facilities=len(eng.facilities), queries=len(qs),
+             k=K, save_s=save_s, save_bytes=_store_bytes(save_info),
+             save_total_bytes=sum(v or 0 for v in _store_bytes(save_info).values()),
+             construct_s=construct_s, restore=warm_cats, backends=backends,
+             resave_s=resave_s, steps_kept=steps)
+        if steps != ["step_000000000001"]:
+            raise AssertionError(f"keep=1 left {steps}")
+        del warm
+
+        # the CLI in a fresh interpreter on the card: cold against warm
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.persist", "--verify", store],
+                             capture_output=True, text=True, env=env, timeout=900)
+        cli_s = time.perf_counter() - t0
+        first = [ln for ln in cli.stdout.splitlines() if ln.startswith("warm engine:")]
+        _log("persist_verify", returncode=cli.returncode, wall_s=cli_s,
+             first_answer=first[0] if first else None,
+             last_lines=cli.stdout.splitlines()[-2:], stderr=cli.stderr[-2000:])
+        if cli.returncode != 0 or "bit-identical" not in cli.stdout:
+            raise AssertionError(f"persist --verify failed: {cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+
+        # hot adopt into the live engine while a reader serves the batch
+        v0 = eng._snap.version
+        stop = threading.Event()
+        reads: list = []
+        errors: list = []
+
+        def reader() -> None:
+            try:
+                while not stop.is_set() or len({v for v, _ in reads}) < 2:
+                    r = eng.query_batch(qs, K)
+                    same = (np.array_equal(r.masks, saved["dense"].masks)
+                            and np.array_equal(r.counts, saved["dense"].counts))
+                    reads.append((r.version, same))
+                    if len(reads) > 200:
+                        break
+            except Exception as e:  # surfaced below
+                errors.append(e)
+
+        set_active_profile(None)  # the store's profile is adopted, not skipped
+        th = threading.Thread(target=reader, name="persist-reader")
+        th.start()
+        while not reads and th.is_alive():
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        adopt = eng.restore(store)
+        adopt_s = time.perf_counter() - t0
+        stop.set()
+        th.join()
+        adopt_cats = restored(adopt, "hot adopt")
+        versions = sorted({v for v, _ in reads})
+        hot = {"seconds": adopt_s, "version_before": v0, "version_after": eng._snap.version,
+               "reader_batches": len(reads),
+               "reader_batches_per_version": {str(v): sum(1 for w, _ in reads if w == v)
+                                              for v in versions},
+               "reader_mismatches": sum(1 for _, same in reads if not same),
+               "restore": adopt_cats}
+        _log("persist_hot_adopt", **hot)
+        if (errors or eng._snap.version != v0 + 1 or hot["reader_mismatches"]
+                or versions != [v0, v0 + 1]):
+            raise AssertionError(f"hot adopt: {hot}, reader errors {errors}")
+
+        # the 4-shard engine: its partition restored, S launches a batch
+        shards = sharded.n_shards
+        want = {b: sharded.query_batch(qs, K, backend=b) for b in PERSIST_BACKENDS}
+        sh_store = os.path.join(tmp, "sharded")
+        t0 = time.perf_counter()
+        sharded.save_state(sh_store, keep=1)
+        sh_save_s = time.perf_counter() - t0
+        sh_bytes = _store_bytes(sharded.persist_info)
+        set_active_profile(None)
+        t0 = time.perf_counter()
+        sh_warm = ShardedEngine(sharded.facilities, sharded.users,
+                                RkNNConfig(backend="dense", warm_store=sh_store),
+                                shards=shards, device=dev)
+        sh_construct_s = time.perf_counter() - t0
+        sh_cats = restored(sh_warm.persist_info, "sharded warm construct")
+        if sh_cats.get("shards", {}).get("status") != "restored":
+            raise AssertionError(f"the shards category was not restored: {sh_cats}")
+        sh_lines = {b: serve(sh_warm, b, want[b], 1 if b == "brute" else shards)
+                    for b in PERSIST_BACKENDS}
+        partition = sh_warm._snap.shard_state
+        same_partition = (np.array_equal(partition.perm, sharded._snap.shard_state.perm)
+                          and np.array_equal(partition.bounds, sharded._snap.shard_state.bounds)
+                          and all(v.xs.device == dev for v in partition.views))
+        _log("persist_sharded", shards=shards, save_s=sh_save_s, save_bytes=sh_bytes,
+             construct_s=sh_construct_s, restore=sh_cats, backends=sh_lines,
+             same_partition=same_partition, seconds=time.perf_counter() - t_phase)
+        if not same_partition:
+            raise AssertionError("the restored partition differs from the saved one")
+        del sh_warm, want
+    set_active_profile(prev_profile)
+
+
+def _ops(dev, eng, batches, main_stream_s: float) -> None:
+    """The ops layer on the card (``repro_torch.obs``), on the main path's
+    engine after its hot adopt: ``serve_obs(port=0)``; a thread runs
+    ``stream`` over ``batches`` (new facility queries, so their scenes are
+    built cold as the main path's stream's were) while the main thread
+    scrapes ``/metrics``, ``/snapshot``, ``/spans``, ``/explain`` and
+    ``/healthz`` in turn, with span tracing on.  Logs each route's scrape
+    latency (p50, max), the stream's wall time beside the main path's
+    (``main_stream_s``) and ``/snapshot``'s ``device_bytes.total`` beside
+    ``torch.cuda.memory_allocated()``.  Then, under a ``FlightRecorder``
+    used as a context manager, a query of an out-of-range facility id
+    must write one ``rknn-flight/1`` bundle (``exception:query``), which
+    ``python -m repro_torch.obs --postmortem`` digests with exit 0."""
+    import http.client
+    import os
+    import tempfile
+    import threading
+
+    import torch
+
+    from repro_torch.kernels import raycast, ref
+    from repro_torch.obs import FlightRecorder, Tracer, set_tracer
+
+    if not batches or not all(batches):
+        raise AssertionError(f"the ops stream needs non-empty batches: {batches}")
+    routes = ("/metrics", "/snapshot", "/spans?n=64", "/explain", "/healthz")
+    tracer = Tracer(capacity=1 << 14)
+    prev = set_tracer(tracer)
+    tracer.enable()
+    srv = eng.serve_obs(port=0)
+    try:
+        raycast.batch_launches = 0
+        ref.calls = 0
+        done = threading.Event()
+        result: dict = {}
+
+        def streamer() -> None:
+            try:
+                t0 = time.perf_counter()
+                result["rows"] = sum(m.shape[0] for _, m in eng.stream(batches, K))
+                result["wall_s"] = time.perf_counter() - t0
+            except Exception as e:  # surfaced below
+                result["error"] = e
+            finally:
+                done.set()
+
+        lat: dict = {r: [] for r in routes}
+        codes: dict = {r: set() for r in routes}
+        snapshot = None
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        th = threading.Thread(target=streamer, name="ops-stream")
+        th.start()
+        while not done.is_set():
+            for route in routes:
+                t0 = time.perf_counter()
+                conn.request("GET", route)
+                resp = conn.getresponse()
+                body = resp.read()
+                lat[route].append(time.perf_counter() - t0)
+                codes[route].add(resp.status)
+                if route == "/snapshot" and resp.status == 200:
+                    snapshot = json.loads(body)
+        th.join()
+        conn.close()
+        torch.cuda.synchronize(dev)
+        if "error" in result:
+            raise result["error"]
+        scrape = {r: {"n": len(v), "p50_ms": 1e3 * float(np.median(v)),
+                      "max_ms": 1e3 * max(v), "codes": sorted(codes[r])}
+                  for r, v in lat.items()}
+        line = {"stream_wall_s": result["wall_s"], "main_path_stream_wall_s": main_stream_s,
+                "rows": result["rows"], "launches": raycast.batch_launches,
+                "plain_calls": ref.calls, "scrape": scrape,
+                "snapshot_version": snapshot and snapshot["version"],
+                "device_bytes": snapshot and snapshot["device_bytes"],
+                "memory_allocated": torch.cuda.memory_allocated(dev),
+                "spans_recorded": sum(1 for _ in tracer.records())}
+        bad_routes = [r for r, c in codes.items()
+                      if not c or not c <= ({200, 503} if r == "/healthz" else {200})]
+        if (bad_routes or snapshot is None or line["launches"] != len(batches)
+                or line["plain_calls"] or result["rows"] != sum(len(b) for b in batches)):
+            _log("ops", **line)
+            raise AssertionError(f"ops: routes {bad_routes}, {line}")
+
+        # the flight recorder around a failing query, at CAL size
+        with tempfile.TemporaryDirectory(prefix="rknn-flight-") as tmp:
+            t0 = time.perf_counter()
+            try:
+                with FlightRecorder(eng, dir=tmp):
+                    eng.query(len(eng.facilities) + 7, K)
+                raise AssertionError("a query of an out-of-range facility id did not raise")
+            except IndexError:
+                pass
+            dump_s = time.perf_counter() - t0
+            bundles = sorted(os.listdir(tmp))
+            if len(bundles) != 1:
+                raise AssertionError(f"flight bundles written: {bundles}")
+            path = os.path.join(tmp, bundles[0])
+            with open(path) as fh:
+                bundle = json.load(fh)
+            env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+            pm = subprocess.run([sys.executable, "-m", "repro_torch.obs", "--postmortem", path],
+                                capture_output=True, text=True, env=env, timeout=300)
+            line.update(flight={"schema": bundle["schema"], "reason": bundle["reason"],
+                                "bytes": os.path.getsize(path), "dump_s": dump_s,
+                                "spans": len(bundle["spans"]),
+                                "postmortem_returncode": pm.returncode,
+                                "postmortem_head": pm.stdout.splitlines()[:2]})
+        _log("ops", **line)
+        if (bundle["schema"] != "rknn-flight/1" or bundle["reason"] != "exception:query"
+                or pm.returncode != 0 or eng.flight is not None):
+            raise AssertionError(f"flight recorder: {line['flight']} {pm.stderr[-2000:]}")
+    finally:
+        srv.close()
+        set_tracer(prev)
 
 
 def main(argv=None) -> int:

@@ -223,6 +223,26 @@ class Backend:
         :meth:`count_batch` dispatches.  Runs inside ``t_filter_s``."""
         return None
 
+    # ---- persistence (repro_torch.persist) ------------------------------
+    def export_state(self, index) -> tuple[str, dict, dict] | None:
+        """Serializable form of a built index: ``(kind, arrays, meta)``.
+
+        ``arrays`` maps names to host numpy arrays; ``meta`` is JSON-safe.
+        ``None`` means the backend keeps no persistable index state (the
+        dense family stacks scene coefficients directly; brute has no
+        geometry) — such backends rebuild for free on restore.  ``kind``
+        tags the encoding so :meth:`import_state` can reject a payload it
+        does not understand.
+        """
+        return None
+
+    def import_state(self, kind: str, arrays: dict, meta: dict):
+        """Inverse of :meth:`export_state`: rebuild the in-memory index
+        object from its serialized form.  Raises ``ValueError`` on an
+        unrecognized ``kind`` (a stale or foreign payload must fall back
+        to a cold build, not be misread)."""
+        raise ValueError(f"backend {self.name!r} cannot import state kind {kind!r}")
+
     # ---- verify phase (device) ------------------------------------------
     def count(self, req: QueryRequest) -> np.ndarray:
         """``[N]`` int32 hit counts for one query."""
@@ -435,6 +455,45 @@ class GridBackend(Backend):
             if g is not None:
                 return g, True
         return self.build_index(new_scene, grid_g=grid_g), False
+
+    def export_state(self, index) -> tuple[str, dict, dict] | None:
+        """The JAX package's ``grid`` kind (``base``, ``lists``,
+        ``coeffs``, ``G``, ``rect``), plus ``planes``: the one packed
+        ``[G*G, 3, 3, L]`` plane array the bucketed backends hang off the
+        shared grid (:meth:`GridPallasBackend._planes_for`), when packed.
+        ``plane_pads`` stays empty: the JAX package's per-lane-pad planes
+        are not this package's, and a JAX reader ignores ``planes``."""
+        if index is None:
+            return None
+        arrays = {"base": index.base, "lists": index.lists, "coeffs": index.coeffs}
+        planes = getattr(index, "_cell_planes", None)
+        if planes is not None:
+            arrays["planes"] = planes
+        r = index.rect
+        meta = {
+            "G": int(index.G),
+            "rect": [float(r.xmin), float(r.ymin), float(r.xmax), float(r.ymax)],
+            "plane_pads": [],
+        }
+        return "grid", arrays, meta
+
+    def import_state(self, kind: str, arrays: dict, meta: dict):
+        """A ``grid`` payload as an :class:`OccluderGrid`; its ``planes``
+        adopted when present, else left for :meth:`GridPallasBackend
+        ._planes_for` to pack at first use (a JAX store's
+        ``planes_{pad}`` arrays are ignored)."""
+        if kind != "grid":
+            return super().import_state(kind, arrays, meta)
+        g = OccluderGrid(
+            base=np.ascontiguousarray(arrays["base"], np.int32),
+            lists=np.ascontiguousarray(arrays["lists"], np.int32),
+            coeffs=np.ascontiguousarray(arrays["coeffs"], np.float32),
+            G=int(meta["G"]),
+            rect=Rect(*(float(v) for v in meta["rect"])),
+        )
+        if "planes" in arrays:
+            g._cell_planes = np.ascontiguousarray(arrays["planes"], np.float32)
+        return g
 
     def count(self, req: QueryRequest) -> np.ndarray:
         g = req.index
@@ -721,6 +780,22 @@ class BvhBackend(Backend):
             if bvh is not None:
                 return bvh, True
         return self.build_index(new_scene, grid_g=grid_g), False
+
+    def export_state(self, index) -> tuple[str, dict, dict] | None:
+        if index is None:
+            return None
+        arrays = {"left": index.left, "right": index.right, "bbox": index.bbox}
+        return "bvh", arrays, {"n_tris": int(index.n_tris)}
+
+    def import_state(self, kind: str, arrays: dict, meta: dict):
+        if kind != "bvh":
+            return super().import_state(kind, arrays, meta)
+        return BVH(
+            left=np.ascontiguousarray(arrays["left"], np.int32),
+            right=np.ascontiguousarray(arrays["right"], np.int32),
+            bbox=np.ascontiguousarray(arrays["bbox"], np.float32),
+            n_tris=int(meta["n_tris"]),
+        )
 
     def count(self, req: QueryRequest) -> np.ndarray:
         bvh: BVH = req.index

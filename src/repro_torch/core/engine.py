@@ -28,8 +28,12 @@ Batches can be served sharded: the engine's own ``mesh=`` path (a
 :class:`~repro_torch.shard.mesh.UserMesh`; users cut in row order into one
 slab per mesh device) and :class:`repro_torch.shard.ShardedEngine` (a
 spatial partition with per-shard state) both inject their dispatch as
-``BatchRequest.dispatch``.  The JAX engine's persistence, flight recorder
-and health endpoints are not part of this package yet.
+``BatchRequest.dispatch``.  The health layer hangs off the engine
+(:meth:`RkNNEngine.serve_obs`, :attr:`RkNNEngine.sentinel`, the flight
+recorder armed by ``RkNNConfig.flight_recorder``; :mod:`repro_torch.obs`),
+and so does persistence (:meth:`RkNNEngine.save_state`,
+:meth:`RkNNEngine.restore`, ``RkNNConfig.warm_store``;
+:mod:`repro_torch.persist`).
 """
 
 from __future__ import annotations
@@ -65,10 +69,6 @@ from repro_torch.planner.models import WorkloadShape
 
 __all__ = ["RkNNConfig", "EngineStats", "RkNNEngine"]
 
-#: Config fields of the JAX engine whose subsystems this package does not
-#: have yet; setting one raises instead of being ignored.
-_NOT_IMPLEMENTED = ("flight_recorder", "warm_store")
-
 #: Backends the engine's ``mesh=`` path serves: the JAX engine's
 #: (``dense-ref``, ``grid``, ``bvh``) and ``dense``, the port's default.
 _MESH_BACKENDS = frozenset({"dense", "dense-ref", "grid", "bvh"})
@@ -91,9 +91,15 @@ class RkNNConfig:
 
     ``online_recalibration`` feeds the planner's observed-vs-predicted
     residuals back into the active profile's coefficients (damped;
-    ``auto`` backend only).  ``flight_recorder`` and ``warm_store`` exist
-    for parity with the JAX config; their subsystems are not ported yet,
-    and setting either raises ``NotImplementedError``.
+    ``auto`` backend only).  ``flight_recorder`` arms a
+    :class:`repro_torch.obs.FlightRecorder` at construction: any reader or
+    writer exception (and sentinel trips) dumps a postmortem bundle under
+    ``flight_dir``.  ``warm_store`` warm-starts from a ``rknn-store/1``
+    directory (:mod:`repro_torch.persist`): at construction every
+    fingerprint-matching state category (scenes, indexes, the kernel
+    bucketing, shards, the planner profile) is adopted into the fresh
+    snapshot.  Best-effort — a missing or stale store leaves a fully
+    functional cold engine.
     """
 
     backend: str = "dense"
@@ -107,14 +113,8 @@ class RkNNConfig:
     pad_scene_to: int = 128
     online_recalibration: bool = False
     flight_recorder: bool = False
+    flight_dir: str = "flight"
     warm_store: str | None = None
-
-    def __post_init__(self):
-        for name in _NOT_IMPLEMENTED:
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"RkNNConfig.{name} is not implemented in repro_torch yet"
-                )
 
 
 class EngineStats:
@@ -313,12 +313,26 @@ class RkNNEngine:
         #: no lock touches the read path.
         self._read_clock = 0
         self._plan_log: "collections.deque[dict]" = collections.deque(maxlen=128)
-        #: The flight recorder's slot: the recorder is not ported yet
-        #: (``RkNNConfig.flight_recorder`` raises), so it stays ``None`` and
-        #: :meth:`_flight_exception` does nothing.
+        #: Health layer (all optional, never on the hot path): a flight
+        #: recorder armed by config, a lazily-built sentinel and any live
+        #: introspection servers.
         self.flight = None
+        self._sentinel = None
+        self._obs_servers: list = []
+        #: Last persist operation's report (:mod:`repro_torch.persist`):
+        #: store path, schema, and per-category restored/stale/absent
+        #: statuses.
+        self.persist_info: dict | None = None
+        if config.flight_recorder:
+            from repro_torch.obs.flight import FlightRecorder
+
+            self.flight = FlightRecorder(self, dir=config.flight_dir)
         if mesh is not None:
             self._init_mesh(self._snap, mesh)
+        if config.warm_store:
+            from repro_torch.persist import warm_start
+
+            warm_start(self, config.warm_store)
 
     def _make_snapshot(
         self,
@@ -420,12 +434,102 @@ class RkNNEngine:
         self._m_lag.set(float(self._snap.version - snap.version))
 
     def _flight_exception(self, where: str, exc: BaseException) -> None:
-        """Hand a failed entry point's exception to the flight recorder
-        when one is armed; with none (always, until the recorder is
-        ported) it does nothing and never raises."""
+        """Dump a postmortem bundle when a recorder is armed (never
+        raises; never runs when flight is off — the common case costs
+        one attribute read on the exception path only)."""
         fr = self.flight
         if fr is not None:
             fr.record_exception(where, exc)
+
+    # ------------------------------------------------------------------
+    # health layer (live introspection, SLO sentinel, flight recorder)
+    # ------------------------------------------------------------------
+    def serve_obs(self, port: int = 0, host: str = "127.0.0.1"):
+        """Boot the live introspection endpoint for this engine
+        (``/metrics``, ``/spans``, ``/explain``, ``/snapshot``,
+        ``/healthz``) on a daemon thread.  ``port=0`` binds an ephemeral
+        port — read it back from the returned server's ``.port``/``.url``.
+        Read-only and lock-free; see :mod:`repro_torch.obs.health.server`."""
+        from repro_torch.obs.health import ObsServer
+
+        srv = ObsServer(self, port=port, host=host)
+        self._obs_servers.append(srv)
+        return srv
+
+    @property
+    def sentinel(self):
+        """The engine's SLO sentinel (built on first touch with the
+        default rule families — see :func:`repro_torch.obs.engine_rules`).
+        Drives ``/healthz``; a sustained breach dumps a flight bundle
+        when a recorder is armed."""
+        s = self._sentinel
+        if s is None:
+            from repro_torch.obs.sentinel import Sentinel, engine_rules
+
+            rules, discover = engine_rules(self)
+
+            def on_trip(st) -> None:
+                fr = self.flight
+                if fr is not None:
+                    fr.dump(f"slo:{st.rule.name}")
+
+            # benign first-touch race: two racing builders produce
+            # equivalent sentinels, last assignment wins
+            s = self._sentinel = Sentinel(
+                rules, on_trip=on_trip, discover=discover
+            )
+        return s
+
+    # ------------------------------------------------------------------
+    # persistence (repro_torch.persist — versioned warm-start state store)
+    # ------------------------------------------------------------------
+    def save_state(self, directory: str, *, keep: int = 3) -> str:
+        """Export the served snapshot's amortized state (scenes, packed
+        indexes, the kernel bucketing, planner profile, shard partition)
+        as the next ``rknn-store/1`` step under ``directory``.  Atomic:
+        readers of the store always see a complete step.  Returns the
+        published step folder."""
+        from repro_torch.persist import save_engine_state
+
+        return save_engine_state(self, directory, keep=keep)
+
+    def restore(self, directory: str) -> dict:
+        """Hot-adopt a ``rknn-store/1`` store into this **live** engine:
+        builds a snapshot around the store's dataset, adopts every
+        fingerprint-matching category, and publishes it as MVCC version
+        N+1 via the atomic swap — in-flight readers keep serving N.
+        Returns the per-category status report (also on
+        ``self.persist_info``)."""
+        from repro_torch.persist import restore_engine
+
+        return restore_engine(self, directory)
+
+    def _persist_note(self, op: str, category: str, nbytes: int, seconds) -> None:
+        """Record one category's persist traffic (registry dedupes by
+        label, so these are stable per-category instruments)."""
+        self.metrics.gauge("persist.bytes", category=category, op=op).set(
+            float(nbytes)
+        )
+        if seconds is not None:
+            self.metrics.histogram(f"persist.{op}_s", category=category).observe(
+                float(seconds)
+            )
+
+    def _persist_extra_fingerprints(self, snap: EngineSnapshot) -> dict:
+        """Subclass hook: expected fingerprints for engine-specific
+        categories (ShardedEngine adds ``shards``)."""
+        return {}
+
+    def _persist_extra_categories(self, snap: EngineSnapshot) -> dict:
+        """Subclass hook: extra ``{name: {fingerprint, meta, arrays}}``
+        categories to persist."""
+        return {}
+
+    def _persist_adopt_extra(self, snap: EngineSnapshot, name: str, entry, arrays):
+        """Subclass hook: adopt one engine-specific category (fingerprint
+        already matched).  Return the adopted item count, or ``None`` if
+        the category is not recognized."""
+        return None
 
     def _phase_hist(self, phase: str, backend: str) -> Histogram:
         key = (phase, backend)

@@ -103,6 +103,25 @@ class SceneCache:
             self.misses += 1
         return scene, False
 
+    def items(self) -> list[tuple[tuple, Scene]]:
+        """Snapshot of ``(key, scene)`` pairs in insertion order — the
+        persistence layer serializes these (key = ``(fp, q_key, k,
+        rect)``)."""
+        with self._lock:
+            return list(self._store.items())
+
+    def seed(self, key: tuple, scene: Scene) -> None:
+        """Insert a restored entry without touching the miss counter.
+
+        Used by warm restore (:mod:`repro_torch.persist`): the entry is
+        re-keyed under the *live* process's facility fingerprint — the
+        ``hash()`` in :meth:`fingerprint` is salted per process, so
+        persisted keys are never reused verbatim."""
+        with self._lock:
+            self._store[key] = scene
+            while len(self._store) > self.capacity:
+                self._store.popitem(last=False)
+
     def cow_migrate(self, select, migrate) -> tuple["SceneCache", int, int]:
         """Copy-on-write delta migration: build the **next version's**
         cache without touching this one (readers of the current engine

@@ -284,25 +284,20 @@ class EngineSnapshot:
         # order matters for attribution (not for the total): scenes walk
         # before the index memo so packed occluder geometry lands under
         # "scenes" and the memo contributes only the index-side arrays.
-        out = {
-            "users": _nbytes_walk(
-                (self.users, self.facilities, self._xs, self._ys,
-                 self.mesh_xs, self.mesh_ys),
-                seen,
-            ),
-            "shards": _nbytes_walk(self.shard_state, seen),
-            "scenes": _nbytes_walk(
-                self.scene_cache.scenes() if self.scene_cache is not None else None,
-                seen,
-            ),
-            "indexes": _nbytes_walk(list(self.index_memo._store.values()), seen),
-            "kernel": _nbytes_walk(
-                (self.kernel_memo.items(),
-                 [m.items() for m in self.mesh_memos or ()]),
-                seen,
-            ),
-            "batches": _nbytes_walk(self.batch_cache.items(), seen),
+        # Every root is held until the walk ends: the seen set holds ids,
+        # and a root list freed after its category would hand its id to
+        # the next category's fresh list, which would then read as seen.
+        roots = {
+            "users": (self.users, self.facilities, self._xs, self._ys,
+                      self.mesh_xs, self.mesh_ys),
+            "shards": self.shard_state,
+            "scenes": self.scene_cache.scenes() if self.scene_cache is not None else None,
+            "indexes": list(self.index_memo._store.values()),
+            "kernel": (self.kernel_memo.items(),
+                       [m.items() for m in self.mesh_memos or ()]),
+            "batches": self.batch_cache.items(),
         }
+        out = {cat: _nbytes_walk(root, seen) for cat, root in roots.items()}
         out["total"] = sum(out.values())
         return out
 

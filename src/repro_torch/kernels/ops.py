@@ -4,6 +4,8 @@ Same signatures and results as the JAX package's ops, with the Pallas
 tiling arguments gone: ``backend="cuda"`` (the default) launches the
 hand-written kernel for CUDA tensors and takes the plain PyTorch version
 only for CPU tensors; ``backend="ref"`` always takes the plain version.
+Host arrays (numpy) are put on the card, as every entry point's
+``device=None`` is, and raise where there is none.
 For a CUDA tensor there is no fallback: a kernel that fails to build or
 launch raises.  Unlike the Pallas wrappers these need no user or
 triangle padding: the kernels mask their ragged edges themselves.
@@ -16,6 +18,7 @@ import operator
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.bvh import MAX_STACK as BVH_MAX_STACK
 from repro_torch.kernels.bvh import (
@@ -63,7 +66,11 @@ _BVH_CHUNK_LANES = 1 << 24
 
 
 def _device_of(x) -> torch.device:
-    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+    """The device a wrapper runs on: a tensor's own, and for a host array
+    (anything that is not a tensor) the port's default, the card
+    (:func:`~repro_torch.device.resolve_device`), which raises where there
+    is none: a host array never selects the plain version by itself."""
+    return x.device if isinstance(x, torch.Tensor) else resolve_device(None)
 
 
 def _f32(x, device: torch.device) -> torch.Tensor:

@@ -378,12 +378,17 @@ class ShardedEngine(DynamicEngine):
             and st.n_shards == self.n_shards
         ):
             return st
-        users = snap.users
-        n = len(users)
-        perm = _spatial_perm(users, snap.rect, self.config.grid_g)
+        n = len(snap.users)
+        perm = _spatial_perm(snap.users, snap.rect, self.config.grid_g)
         pos = np.empty(n, np.int64)
         pos[perm] = np.arange(n)
-        bounds = user_shard_bounds(n, self.n_shards)
+        return self._install_shard_state(snap, perm, pos, user_shard_bounds(n, self.n_shards))
+
+    def _install_shard_state(self, snap: EngineSnapshot, perm, pos, bounds) -> ShardState:
+        """Build the views of the partition ``(perm, pos, bounds)`` of
+        ``snap``'s users, each on its shard's device, and install them as
+        ``snap.shard_state`` in one assignment."""
+        users = snap.users
         rows = torch.from_numpy(perm).to(self._shard_devices[0])
         views = []
         for s in range(self.n_shards):
@@ -395,6 +400,47 @@ class ShardedEngine(DynamicEngine):
         # states; one atomic assignment wins (never a mixed-version set)
         snap.shard_state = st
         return st
+
+    # ------------------------------------------------------------------
+    # persistence hooks (repro_torch.persist: the ``shards`` category)
+    # ------------------------------------------------------------------
+    def _persist_extra_fingerprints(self, snap: EngineSnapshot) -> dict:
+        from repro_torch.persist.store import _rect_parts, content_digest
+
+        return {
+            "shards": content_digest(
+                "shards",
+                snap.users,
+                _rect_parts(snap.rect),
+                int(self.config.grid_g),
+                int(self.n_shards),
+            )
+        }
+
+    def _persist_extra_categories(self, snap: EngineSnapshot) -> dict:
+        st = self._shard_state_for(snap)
+        return {
+            "shards": {
+                "meta": {"n_shards": int(st.n_shards)},
+                "arrays": {"perm": st.perm, "pos": st.pos, "bounds": st.bounds},
+            }
+        }
+
+    def _persist_adopt_extra(self, snap: EngineSnapshot, name: str, entry, arrays):
+        """The ``shards`` category: the partition comes from the store; each
+        view's tensors are re-placed on its shard's device from the host
+        float32 cast the snapshot uses (device placement is host state,
+        not store state).  The per-view memos (the users' order, the cell
+        buckets, the composed scatter index) rebuild at first use."""
+        if name != "shards":
+            return None
+        self._install_shard_state(
+            snap,
+            np.ascontiguousarray(arrays["perm"], np.int64),
+            np.ascontiguousarray(arrays["pos"], np.int64),
+            np.ascontiguousarray(arrays["bounds"], np.int64),
+        )
+        return self.n_shards
 
     # ------------------------------------------------------------------
     # the dispatch injection point (covers batches, groups, stream)

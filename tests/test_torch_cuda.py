@@ -733,3 +733,68 @@ def test_engine_mesh_path_on_card_equals_meshless(cuda_device, backend):
     want = RkNNEngine(dyn.facilities, dyn.users, RkNNConfig(backend=backend),
                       device=cuda_device).query_batch(qs, k)
     np.testing.assert_array_equal(dyn.query_batch(qs, k).counts, want.counts)
+
+
+@pytest.mark.parametrize("backend", ["dense", "grid-pallas", "bvh", "brute"])
+def test_warm_started_engine_on_card_equals_the_saved_engine(cuda_device, backend, tmp_path):
+    """``save_state`` then ``RkNNConfig(warm_store=...)`` on the card: the
+    warm engine's batch is bit-identical to the saved engine's, through
+    the backend's kernel (one launch), with no scene rebuilt and no plain
+    call."""
+    from repro_torch.core import RkNNConfig
+
+    rng = np.random.default_rng(37)
+    F, U = rng.random((80, 2)), rng.random((20_000, 2))
+    qs, k = [5, 9, 13, 17], 6
+    eng = RkNNEngine(F, U, RkNNConfig(backend=backend), device=cuda_device)
+    want = eng.query_batch(qs, k)
+    eng.save_state(str(tmp_path))
+    warm = RkNNEngine(F, U, RkNNConfig(backend=backend, warm_store=str(tmp_path)),
+                      device=cuda_device)
+    cats = {n: st["status"] for n, st in warm.persist_info["categories"].items()}
+    assert cats["dataset"] == "restored"
+    if backend != "brute":
+        assert cats["scenes"] == cats["indexes"] == "restored"
+    if backend == "grid-pallas":
+        assert cats["kernel"] == "restored"
+    module, counter = _DYN_KERNEL.get(backend, (rank_count, "batch_launches"))
+    setattr(module, counter, 0)
+    ref.calls = 0
+    got = warm.query_batch(qs, k)
+    torch.cuda.synchronize(cuda_device)
+    assert getattr(module, counter) == 1 and ref.calls == 0
+    assert warm._snap.scene_cache.misses == 0
+    np.testing.assert_array_equal(got.counts, want.counts)
+    np.testing.assert_array_equal(got.masks, want.masks)
+
+
+def test_adopted_cell_buckets_on_card_equal_a_cold_bucketing(cuda_device, tmp_path):
+    """The kernel category's ``CellBuckets``, uploaded to the card on
+    adoption, equal the cold engine's bucketing tensor for tensor (dtype,
+    device and values), and no bucketing runs on the warm engine."""
+    from repro_torch.core import RkNNConfig
+    from repro_torch.core.backends import CellBuckets, GridPallasBackend
+
+    rng = np.random.default_rng(41)
+    F, U = rng.random((80, 2)), rng.random((30_000, 2))
+    eng = RkNNEngine(F, U, RkNNConfig(backend="grid-pallas"), device=cuda_device)
+    want = eng.query_batch([3, 7], 6)
+    eng.save_state(str(tmp_path))
+    warm = RkNNEngine(F, U, RkNNConfig(backend="grid-pallas", warm_store=str(tmp_path)),
+                      device=cuda_device)
+    real, calls = GridPallasBackend._bucket, []
+    GridPallasBackend._bucket = lambda self, *a: calls.append(1) or real(self, *a)
+    try:
+        got = warm.query_batch([3, 7], 6)
+    finally:
+        GridPallasBackend._bucket = real
+    assert calls == []
+    np.testing.assert_array_equal(got.counts, want.counts)
+    [cold] = [v[1] for key, v in eng._snap.kernel_memo.items() if key[0] == "gp-buckets"]
+    [adopted] = [v[1] for key, v in warm._snap.kernel_memo.items() if key[0] == "gp-buckets"]
+    for name in CellBuckets._fields:
+        a, b = getattr(cold, name), getattr(adopted, name)
+        if isinstance(a, torch.Tensor):
+            assert b.device == a.device and b.dtype == a.dtype and torch.equal(a, b), name
+        else:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)

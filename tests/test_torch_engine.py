@@ -250,12 +250,27 @@ def test_default_device_is_cuda_and_never_falls_back():
     "field,value",
     [("online_recalibration", True), ("flight_recorder", True), ("warm_store", "store")],
 )
-def test_unported_config_fields_raise(field, value):
-    """The JAX config's fields whose subsystems the port lacks raise;
-    ``online_recalibration`` came with the planner and is accepted (its
-    behaviour is held in ``tests/test_torch_planner.py``)."""
-    if field == "online_recalibration":
-        assert getattr(RkNNConfig(**{field: value}), field) == value
-        return
-    with pytest.raises(NotImplementedError, match=field):
-        RkNNConfig(**{field: value})
+def test_unported_config_fields_raise(field, value, tmp_path):
+    """No field of the JAX config is left unported: the port's config has
+    every one of them, and each is accepted and runs its subsystem —
+    ``online_recalibration`` (held in ``tests/test_torch_planner.py``),
+    ``flight_recorder`` arms a recorder writing under ``flight_dir``, and a
+    ``warm_store`` with no store behind it leaves a cold engine that
+    reports why."""
+    import dataclasses
+
+    from repro_torch.obs import FlightRecorder
+
+    assert ({f.name for f in dataclasses.fields(RkNNConfig)}
+            == {f.name for f in dataclasses.fields(JConfig)})
+    if field == "warm_store":
+        value = str(tmp_path / value)
+    cfg = RkNNConfig(**{field: value}, flight_dir=str(tmp_path / "flight"))
+    assert getattr(cfg, field) == value
+    F, U, _ = instance(1, M=20, N=100)
+    eng = RkNNEngine(F, U, cfg, device=CPU)
+    if field == "flight_recorder":
+        assert isinstance(eng.flight, FlightRecorder) and eng.flight.dir == cfg.flight_dir
+    if field == "warm_store":
+        assert "FileNotFoundError" in eng.persist_info["error"]
+    assert eng.query(0, 3).mask.shape == (len(U),)

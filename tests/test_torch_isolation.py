@@ -43,5 +43,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
             "repro_torch.workloads.scenarios",
             "repro_torch.core.baselines.tpl", "repro_torch.shard", "repro_torch.shard.engine",
             "repro_torch.shard.mesh", "repro_torch.shard.reduce",
-            "repro_torch.distributed.sharding", "repro_torch.launch.serve"} <= set(report["modules"])
+            "repro_torch.distributed.sharding", "repro_torch.launch.serve",
+            "repro_torch.obs.export", "repro_torch.obs.promtext", "repro_torch.obs.jitmon",
+            "repro_torch.obs.sentinel", "repro_torch.obs.flight", "repro_torch.obs.health",
+            "repro_torch.obs.health.server", "repro_torch.obs.__main__",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+            "repro_torch.persist", "repro_torch.persist.store",
+            "repro_torch.persist.__main__"} <= set(report["modules"])
     assert report["leaked"] == []

@@ -217,3 +217,37 @@ def test_rounding_contract_on_the_gaussian_scenario():
         np.testing.assert_array_equal(got[i][~ties], want[i][~ties])
         host = points_in_tris_np(U.astype(np.float64), coeffs[i].astype(np.float64)).sum(1)
         np.testing.assert_array_equal(got[i][~ties], host[~ties])
+
+
+def _wrapper_calls():
+    """Each wrapper called on host (numpy) arrays, and on the same arrays
+    as CPU tensors: ``(name, call(as_array))``."""
+    sc, rng = _scene(5, 12)
+    U = rng.random((50, 2)).astype(np.float32)
+    F = rng.random((9, 2)).astype(np.float32)
+    co = sc.coeffs
+    return {
+        "raycast_count": lambda a: ops.raycast_count(a(U[:, 0]), a(U[:, 1]), a(co)),
+        "raycast_count_batch": lambda a: ops.raycast_count_batch(
+            a(U[:, 0]), a(U[:, 1]), a(np.stack([co, co]))),
+        "rank_count": lambda a: ops.rank_count(a(U), a(F), a(F[2]), exclude=2),
+        "rank_count_batch": lambda a: ops.rank_count_batch(a(U), a(F), a(F[:3]), exclude=[0, 1, 2]),
+        "rank_count_batch_xy": lambda a: ops.rank_count_batch_xy(
+            a(U[:, 0]), a(U[:, 1]), a(F), a(F[:2]), exclude=[0, 1]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_wrapper_calls()))
+def test_host_arrays_go_to_the_card_never_the_plain_version(name, monkeypatch):
+    """A numpy argument takes the port's default device, the card: without
+    one it raises (never the plain version on the CPU), while CPU tensors
+    still run the plain version."""
+    call = _wrapper_calls()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = ref.calls
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        call(np.asarray)
+    assert ref.calls == calls
+    out = call(_t)
+    assert out.device.type == "cpu" and out.dtype == torch.int32
+    assert ref.calls > calls
