@@ -63,7 +63,15 @@ read just after:
 * ``ops`` — the ops layer (``repro_torch.obs``): every live endpoint
   scraped while a stream runs, and a flight bundle written for a failing
   query and digested by ``python -m repro_torch.obs --postmortem`` (see
-  :func:`_ops`).
+  :func:`_ops`);
+* ``lm_serve`` — the LM substrate's serving path: qwen2-7b at the
+  published widths and full depth, bf16 weights from the port's ``init``,
+  8 prompts of 2,048 tokens through ``make_prefill_step`` (28 launches of
+  the flash attention kernel) and 64 greedy ``make_decode_step`` steps
+  (1,792 launches of the decode attention kernel), both kernels held
+  against their plain versions and float64, the forward against prefill
+  and decode, and the kernel path against plain and float32 paths (see
+  :func:`_lm_serve`).
 
 Wherever the grid and dense paths both count, their counts must be equal
 on every user: the port evaluates every edge with one rounding order.
@@ -110,11 +118,14 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -1206,6 +1217,8 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     _persist(dev, qs, eng, sharded, {"dense": res, "grid-pallas": g_res, "bvh": b_res})
     del sharded
     _ops(dev, eng, ops_qs, stream_s)
+    del eng, mono_eng
+    records += _lm_serve(dev, seed)
     _log("kernels", bit_identical_raycast=True, bit_identical_grid=True, bit_identical_bvh=True,
          rank_checked_queries=len(rank_out), d2h_counts_ms=d2h_ms,
          d2h_counts_pinned_ms=d2h_pinned_ms, counts_mb=got.numel() * 4 / 1e6,
@@ -2250,6 +2263,477 @@ def _ops(dev, eng, batches, main_stream_s: float) -> None:
     finally:
         srv.close()
         set_tracer(prev)
+
+
+# ---- the LM substrate's serving path (lm_serve) ------------------------------
+
+LM_ARCH = "qwen2_7b"
+LM_BATCH = 8
+LM_PROMPT = 2048
+LM_DECODE = 64
+LM_CHECK_ROWS = 2  # prompts of the forward check (f32 logits of 2 x 2049 x V: 2.5 GB)
+LM_B1_STEPS = 16  # decode steps timed at B = 1
+LM_PROFILE_STEPS = 3
+# Kernel path against plain path end to end: two plain paths that differ
+# only in the order of the prefill's f32 sums already differ by 0.034 of
+# max |logits| after 28 bf16 layers (on an H100, PERF.md), so the rule is
+# relative: the kernel path's distance to the plain path at most twice that
+# spread, and its distance to a float32 path at most twice the plain path's.
+LM_E2E_FACTOR = 2.0
+LM_FWD_REL = 0.05  # tests/test_models.py's forward-against-prefill-and-decode rule
+# H100 SXM, bf16 dense tensor cores at the full 700 W (data sheet)
+PEAK_BF16_TC_S = 989e12
+# awkward shapes for the kernels beside the phase's own: (B, S, K, G, D)
+LM_FLASH_SHAPES = ((8, 1, 4, 7, 128), (2, 2049, 4, 7, 128), (1, 4097, 4, 7, 128),
+                   (2, 1000, 4, 1, 128), (2, 1000, 4, 8, 128), (2, 1000, 4, 7, 64))
+# (B, Smax, K, G, D) with their positions
+LM_DECODE_SHAPES = ((4, 1000, 4, 1, 128), (4, 1000, 4, 8, 128), (4, 1000, 4, 7, 64))
+
+
+def _attention64(q, k, v, causal: bool):
+    """Float64 attention in the JAX GQA layout, one row at a time: the
+    yardstick of row 7 and its plain version (shares no code with the
+    port)."""
+    import torch
+
+    B, S, K, G, D = q.shape
+    Skv = k.shape[1]
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.arange(S, device=q.device)[:, None] >= torch.arange(Skv, device=q.device)
+    for b in range(B):
+        s = torch.einsum("qkgd,skd->kgqs", q[b].double(), k[b].double()) * D ** -0.5
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        del s
+        out[b] = torch.einsum("kgqs,skd->qkgd", p, v[b].double())
+    return out
+
+
+def _decode64(q, k_cache, v_cache, pos):
+    """Float64 one-token attention over slots ``s <= pos[b]``: row 8's
+    yardstick."""
+    import torch
+
+    Smax, D = k_cache.shape[1], q.shape[-1]
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.double(), k_cache.double()) * D ** -0.5
+    valid = torch.arange(Smax, device=q.device)[None, :] <= pos.long()[:, None]
+    p = torch.softmax(s.masked_fill(~valid[:, None, None, None, :], float("-inf")), dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.double())
+
+
+def _yardstick(kernel, plain, want64) -> dict:
+    """Row by row (every index but the last, the head dimension): the
+    kernel's max abs error against float64 must be at most twice the plain
+    version's on that row plus one bf16 ulp at the row's own max |out|.
+    Logs the largest errors over all rows and the row nearest its limit."""
+    import torch
+
+    err_k = (kernel.double() - want64).abs().amax(-1)
+    err_p = (plain.double() - want64).abs().amax(-1)
+    ulp = torch.exp2(torch.floor(torch.log2(want64.abs().amax(-1).clamp_min(1e-30))) - 7)
+    excess = err_k - (2 * err_p + ulp)
+    i = int(excess.argmax())
+    out = {"err_kernel": float(err_k.max()), "err_plain": float(err_p.max()),
+           "kernel_vs_plain": float((kernel.float() - plain.float()).abs().max()),
+           "rows": excess.numel(), "rows_over": int((excess > 0).sum()),
+           "worst_row": {"index": [int(j) for j in np.unravel_index(i, tuple(err_k.shape))],
+                         "err_kernel": float(err_k.flatten()[i]),
+                         "err_plain": float(err_p.flatten()[i]),
+                         "bf16_ulp": float(ulp.flatten()[i])}}
+    if out["rows_over"]:
+        raise AssertionError(f"kernel outside 2 x plain error + 1 ulp against float64: {out}")
+    return out
+
+
+def _flash_bound(B, S, K, G, D) -> tuple[float, str]:
+    t_ops = 4 * B * K * G * D * S * S / 2 / PEAK_BF16_TC_S
+    t_bytes = 2 * (2 * B * S * K * G * D + 2 * B * S * K * D) / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _decode_bound(pos, B, K, G, D, Smax) -> tuple[float, str]:
+    slots = sum(min(int(p) + 1, Smax) for p in pos)
+    n_bytes = 2 * slots * K * D * 2 + 2 * (2 * B * K * G * D)
+    return n_bytes / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def _kernel_device_ms(prof) -> dict:
+    """Device milliseconds of a profiled window by kind of kernel: the two
+    attention kernels, matrix products (cuBLAS), and everything else
+    (elementwise, norms, RoPE, embedding, argmax, copies)."""
+    import torch
+
+    kinds = {"flash_fwd": 0.0, "decode_attn": 0.0, "matmul": 0.0, "other": 0.0}
+    for evt in prof.key_averages():
+        # the device's own events only: an operator's self device time
+        # repeats the time of the kernels it launched
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if not us or us <= 0:
+            continue
+        name = evt.key
+        if "flash_fwd_kernel" in name:
+            kinds["flash_fwd"] += us / 1e3
+        elif "decode_chunk_kernel" in name or "decode_merge_kernel" in name:
+            kinds["decode_attn"] += us / 1e3
+        elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
+            kinds["matmul"] += us / 1e3
+        else:
+            kinds["other"] += us / 1e3
+    return kinds
+
+
+def _start_profiler(notes: dict):
+    """A started ``torch.profiler`` over the host and the card, or None
+    (the error noted) where it cannot start: the profile is a diagnostic."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as exc:
+        notes["error"] = repr(exc)
+        return None
+    return prof
+
+
+def _lm_serve(dev, seed: int) -> list:
+    """qwen2-7b at the published widths and full depth on the card through
+    ``build_model`` / ``make_prefill_step`` / ``make_decode_step``: 8
+    prompts of 2,048 tokens from the token pipeline, prefill with the cache
+    padded to 2,048 + 64, then 64 greedy decode steps.  Checks: rows 7 and
+    8 against their plain versions and float64 at the phase's shapes and
+    awkward ones; the forward against prefill and the first decode step on
+    2 prompts (0.05 of max |logits|) with ``pos == 2049``; the kernel path
+    against the plain path teacher-forced with the kernel path's tokens
+    (within twice the spread of two plain paths, and within twice the plain
+    path's distance to a float32 path: ``LM_E2E_FACTOR``); 28 flash
+    launches in the prefill and 64 x 28 decode launches in the decode, with
+    no plain call.  Returns rows 7 and 8's records."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import ShardedTokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import ref
+    from repro_torch.models import decoder as dec
+    from repro_torch.models.common import Policy, rope_tables, take_embedding
+    from repro_torch.models.registry import build_model
+    from repro_torch.steps.train import make_decode_step, make_prefill_step
+
+    def plain_attention():
+        """The plain versions in place of the kernels' wrappers while the
+        plain paths of check 3 run (the decoder calls the wrappers through
+        ``repro_torch.kernels.attention``)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(
+            kattn, "flash_attention", lambda q, k, v, *, causal=True, q_block=512, kv_block=1024:
+            ref.flash_attention_ref(q, k, v, causal, q_block, kv_block)))
+        stack.enter_context(mock.patch.object(kattn, "decode_attention", ref.decode_attention_ref))
+        return stack
+
+    # float32 products in full float32 (PyTorch's default, stated): the plain
+    # versions and the yardsticks must not run in TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.zeros((), device=dev)  # the card's allocator is up before its stats are read
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(LM_ARCH)
+    G = cfg.n_heads // cfg.n_kv_heads
+    smax = LM_PROMPT + LM_DECODE
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(dev).manual_seed(seed), dtype=Policy.compute_dtype)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, the config counts {cfg.param_count()}")
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+
+    t0 = time.perf_counter()
+    pipe = ShardedTokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=LM_PROMPT, global_batch=LM_BATCH, seed=seed))
+    prompts = torch.from_numpy(pipe.batch_at(0)["tokens"]).long().to(dev)
+    data_s = time.perf_counter() - t0
+    prefill = make_prefill_step(model, pad_cache_to=smax)
+    decode = make_decode_step(model)
+
+    # warm-up (cuBLAS handles, the kernels' first launches), not counted
+    _, wc = make_prefill_step(model, pad_cache_to=80)(params, prompts[:1, :64], {})
+    decode(params, prompts[:1, 64:65], wc)
+    del wc
+    torch.cuda.synchronize(dev)
+
+    # ---- counted prefill -----------------------------------------------------
+    kattn.flash_launches = kattn.decode_launches = 0
+    ref.calls = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompts, {})
+    torch.cuda.synchronize(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_counted = {"flash_fwd": kattn.flash_launches, "decode_attn": kattn.decode_launches,
+                       "plain_calls": ref.calls}
+    if prefill_counted != {"flash_fwd": cfg.n_layers, "decode_attn": 0, "plain_calls": 0}:
+        raise AssertionError(f"prefill window: {prefill_counted}, want {cfg.n_layers} flash")
+    prefill_logits = logits
+
+    # ---- counted decode: 64 greedy steps -------------------------------------
+    tok = logits.argmax(dim=-1, keepdim=True)
+    tokens, step_logits = [tok], []
+    kattn.flash_launches = kattn.decode_launches = 0
+    ref.calls = 0
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE):
+        logits, cache = decode(params, tok, cache)
+        if i == 0:
+            pos_after_first = cache["pos"].clone()
+        tok = logits.argmax(dim=-1, keepdim=True)
+        step_logits.append(logits)
+        tokens.append(tok)
+    torch.cuda.synchronize(dev)
+    decode_s = time.perf_counter() - t0
+    decode_counted = {"flash_fwd": kattn.flash_launches, "decode_attn": kattn.decode_launches,
+                      "plain_calls": ref.calls}
+    if decode_counted != {"flash_fwd": 0, "decode_attn": LM_DECODE * cfg.n_layers,
+                          "plain_calls": 0}:
+        raise AssertionError(f"decode window: {decode_counted}, want "
+                             f"{LM_DECODE * cfg.n_layers} decode")
+    gen = torch.cat(tokens, dim=1)  # [B, 65]: tok0 from the prefill, then one a step
+    if int(cache["pos"].min()) != smax or not bool(torch.isfinite(torch.stack(step_logits)).all()):
+        raise AssertionError(f"decode ended at pos {cache['pos'].tolist()} or non-finite logits")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    _log("lm_serve", arch=cfg.name, describe=cfg.describe(), params=n_params,
+         weight_gb=weight_bytes / 1e9, batch=LM_BATCH, prompt=LM_PROMPT, decode_steps=LM_DECODE,
+         cache_slots=smax, init_s=init_s, data_s=data_s, prefill_s=prefill_s,
+         prefill_tok_s=LM_BATCH * LM_PROMPT / prefill_s, decode_ms_step=decode_s * 1e3 / LM_DECODE,
+         decode_tok_s=LM_BATCH * LM_DECODE / decode_s, serving_max_memory_allocated_gb=peak_gb,
+         memory_before_gb=mem_before / 1e9, prefill_counted=prefill_counted,
+         decode_counted=decode_counted, first_tokens=gen[:, :8].tolist())
+
+    failures = []  # raised at the end, after every reading is logged
+    # ---- check 2: forward against prefill and the first decode step ------------
+    rows = LM_CHECK_ROWS
+    fwd_tokens = torch.cat([prompts[:rows], gen[:rows, :1]], dim=1)  # 2,049 tokens
+    fwd, _ = model.forward(params, fwd_tokens, {})
+    scale = float(fwd.abs().max())
+    fwd_check = {
+        "prefill_rel": float((prefill_logits[:rows] - fwd[:, LM_PROMPT - 1]).abs().max()) / scale,
+        "decode_rel": float((step_logits[0][:rows] - fwd[:, LM_PROMPT]).abs().max()) / scale,
+        "pos_after_first": pos_after_first.tolist(), "scale": scale}
+    del fwd
+    torch.cuda.empty_cache()
+    if (fwd_check["prefill_rel"] >= LM_FWD_REL or fwd_check["decode_rel"] >= LM_FWD_REL
+            or any(p != LM_PROMPT + 1 for p in fwd_check["pos_after_first"])):
+        raise AssertionError(f"forward against prefill and decode: {fwd_check}")
+
+    # ---- check 1: rows 7 and 8 against their plain versions and float64 --------
+    layer0 = params.groups[0]["p0"][0]
+    positions = torch.arange(LM_PROMPT, dtype=torch.int32, device=dev)[None].expand(LM_BATCH, -1)
+    x0 = take_embedding(params.embed, prompts)
+    q, k, v = dec._qkv(layer0.attn, dec._norm(cfg, x0, layer0.norm1),
+                       rope_tables(positions, cfg.hd, cfg.rope_theta), cfg)
+    del x0
+    flash_checks = {"phase": _yardstick(
+        kattn.flash_attention(q, k, v, causal=True),
+        ref.flash_attention_ref(q, k, v, True, cfg.q_block, cfg.kv_block),
+        _attention64(q, k, v, True))}
+    gen_rng = torch.Generator(dev).manual_seed(seed + 23)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen_rng, device=dev).to(torch.bfloat16)
+
+    for B, S, K, Gs, D in LM_FLASH_SHAPES:
+        qa, ka, va = randn(B, S, K, Gs, D), randn(B, S, K, D), randn(B, S, K, D)
+        flash_checks[f"{B}x{S}x{K}x{Gs}x{D}"] = _yardstick(
+            kattn.flash_attention(qa, ka, va), ref.flash_attention_ref(qa, ka, va, True, 512, 1024),
+            _attention64(qa, ka, va, True))
+    qa, ka, va = randn(2, 300, 4, 7, 128), randn(2, 700, 4, 128), randn(2, 700, 4, 128)
+    flash_checks["2x300x700 non-causal"] = _yardstick(
+        kattn.flash_attention(qa, ka, va, causal=False),
+        ref.flash_attention_ref(qa, ka, va, False, 512, 1024), _attention64(qa, ka, va, False))
+    del qa, ka, va
+
+    kc, vc = cache["groups"][0]["p0"]["k"][0], cache["groups"][0]["p0"]["v"][0]  # layer 0
+    qd = q[:, -1:].contiguous()  # layer 0's query at the last prompt position
+    pos_sets = {"equal": [LM_PROMPT] * LM_BATCH,
+                "ragged": [i * (smax - 1) // (LM_BATCH - 1) for i in range(LM_BATCH)],
+                "one_zero": [0] + [LM_PROMPT] * (LM_BATCH - 1)}
+    decode_checks = {}
+    for name, pos_list in pos_sets.items():
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        decode_checks[name] = _yardstick(
+            kattn.decode_attention(qd, kc, vc, pos), ref.decode_attention_ref(qd, kc, vc, pos),
+            _decode64(qd, kc, vc, pos))
+    for B, Smax, K, Gs, D in LM_DECODE_SHAPES:
+        qa, ka, va = randn(B, 1, K, Gs, D), randn(B, Smax, K, D), randn(B, Smax, K, D)
+        pos = torch.tensor([0, Smax // 3, Smax - 2, Smax - 1][:B], dtype=torch.int32, device=dev)
+        decode_checks[f"{B}x{Smax}x{K}x{Gs}x{D}"] = _yardstick(
+            kattn.decode_attention(qa, ka, va, pos), ref.decode_attention_ref(qa, ka, va, pos),
+            _decode64(qa, ka, va, pos))
+    _log("lm_serve_kernels", flash=flash_checks, decode=decode_checks)
+
+    # ---- check 3: kernel path against plain path, teacher-forced ---------------
+    def teacher_forced(mdl):
+        """Logits of the prefill and of the 64 steps, fed the kernel path's
+        tokens: ``[65, B, V]`` f32."""
+        lg, c = make_prefill_step(mdl, pad_cache_to=smax)(params, prompts, {})
+        out = [lg]
+        step = make_decode_step(mdl)
+        for i in range(LM_DECODE):
+            lg, c = step(params, gen[:, i:i + 1], c)
+            out.append(lg)
+        return torch.stack(out)
+
+    kernel_path = torch.cat([prefill_logits[None], torch.stack(step_logits)])
+    kattn.flash_launches = kattn.decode_launches = 0
+    ref.calls = 0
+    t0 = time.perf_counter()
+    with plain_attention():
+        plain_path = teacher_forced(model)
+    torch.cuda.synchronize(dev)
+    plain_path_s = time.perf_counter() - t0
+    plain_counted = {"flash_fwd": kattn.flash_launches, "decode_attn": kattn.decode_launches,
+                     "plain_calls": ref.calls}
+    # the spread of two plain paths that differ only in the prefill's blocks
+    # (another order of the f32 sums), and a float32 path (the weights
+    # upcast exactly, float32 compute, plain attention): what bf16 rounding
+    # alone makes of 28 layers
+    other_blocks = dataclasses.replace(cfg, q_block=256, kv_block=256)
+    compute = Policy.compute_dtype
+    with plain_attention():
+        plain_other = teacher_forced(build_model(other_blocks, device=dev))
+        try:
+            params.float()
+            Policy.compute_dtype = torch.float32
+            f32_path = teacher_forced(model)
+        finally:
+            Policy.compute_dtype = compute
+            params.to(torch.bfloat16)  # exact: the values came from bf16
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return ((a - b).abs().amax(dim=(1, 2)) / b.abs().amax(dim=(1, 2))).tolist()
+
+    def argmax_share(a, b):
+        return float((a.argmax(-1) != b.argmax(-1)).float().mean())
+
+    def argmax_steps(a, b):  # share of steps with any row's argmax apart
+        return float((a.argmax(-1) != b.argmax(-1)).any(dim=1).float().mean())
+
+    kp, pp = rel(kernel_path, plain_path), rel(plain_other, plain_path)
+    k32, p32 = rel(kernel_path, f32_path), rel(plain_path, f32_path)
+    e2e = {"kernel_vs_plain_max": max(kp), "kernel_vs_plain_prefill": kp[0],
+           "plain_blocks_vs_plain_max": max(pp), "kernel_vs_f32_max": max(k32),
+           "plain_vs_f32_max": max(p32),
+           "argmax_differs_share": {"kernel_vs_plain": argmax_share(kernel_path, plain_path),
+                                    "plain_blocks_vs_plain": argmax_share(plain_other, plain_path),
+                                    "kernel_vs_f32": argmax_share(kernel_path, f32_path),
+                                    "plain_vs_f32": argmax_share(plain_path, f32_path)},
+           "argmax_differs_steps_share": argmax_steps(kernel_path, plain_path),
+           "per_step": {"kernel_vs_plain": kp, "plain_blocks_vs_plain": pp,
+                        "kernel_vs_f32": k32, "plain_vs_f32": p32},
+           "plain_path_s": plain_path_s, "plain_counted": plain_counted}
+    del kernel_path, plain_path, plain_other, f32_path
+    _log("lm_serve_checks", forward=fwd_check, e2e=e2e)
+    if plain_counted["flash_fwd"] or plain_counted["decode_attn"]:
+        raise AssertionError(f"the plain path launched a kernel: {plain_counted}")
+    if max(kp) > LM_E2E_FACTOR * max(pp):
+        failures.append(f"kernel path against plain path {max(kp)} > {LM_E2E_FACTOR} x the "
+                        f"plain paths' spread {max(pp)}")
+    if max(k32) > LM_E2E_FACTOR * max(p32):
+        failures.append(f"kernel path against float32 {max(k32)} > {LM_E2E_FACTOR} x the plain "
+                        f"path's {max(p32)}")
+
+    # ---- times of rows 7 and 8 at the phase's shapes ---------------------------
+    import torch.nn.functional as F
+
+    B, S, K, D = LM_BATCH, LM_PROMPT, cfg.n_kv_heads, cfg.hd
+    H = cfg.n_heads
+    q_sdpa = q.permute(0, 2, 3, 1, 4).reshape(B, H, S, D).contiguous()
+    k_sdpa, v_sdpa = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    flash_ms = _sync_ms(lambda: kattn.flash_attention(q, k, v), 10, dev)
+    flash_plain_ms = _sync_ms(
+        lambda: ref.flash_attention_ref(q, k, v, True, cfg.q_block, cfg.kv_block), 2, dev)
+    flash_lib_ms = _sync_ms(lambda: F.scaled_dot_product_attention(
+        q_sdpa, k_sdpa, v_sdpa, is_causal=True, enable_gqa=True), 10, dev)
+    del q_sdpa, k_sdpa, v_sdpa
+    pos = torch.full((B,), LM_PROMPT, dtype=torch.int32, device=dev)  # the first decode step
+    qd_sdpa = qd.reshape(B, 1, H, D).transpose(1, 2).contiguous()
+    kc_sdpa, vc_sdpa = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(smax, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
+    decode_ms = _sync_ms(lambda: kattn.decode_attention(qd, kc, vc, pos), 50, dev)
+    decode_plain_ms = _sync_ms(lambda: ref.decode_attention_ref(qd, kc, vc, pos), 20, dev)
+    decode_lib_ms = _sync_ms(lambda: F.scaled_dot_product_attention(
+        qd_sdpa, kc_sdpa, vc_sdpa, attn_mask=mask, enable_gqa=True), 50, dev)
+    del qd_sdpa, kc_sdpa, vc_sdpa, q, k, v
+
+    # ---- decode at B = 1, and a profiled window of B = 1 and B = 8 -------------
+    del cache  # full: the profiled B = 8 steps take a fresh one, inside its slots
+    _, c1 = prefill(params, prompts[:1], {})
+    tok1 = gen[:1, :1]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(LM_B1_STEPS):
+        l1, c1 = decode(params, tok1, c1)
+        tok1 = l1.argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize(dev)
+    b1_ms = (time.perf_counter() - t0) * 1e3 / LM_B1_STEPS
+    _, c8 = prefill(params, prompts, {})
+    profiles = {}
+    # B = 1 at pos 2,064 on, B = 8 at pos 2,048 on: both inside the cache
+    steps = {"b1": (c1, tok1, b1_ms), "b8": (c8, gen[:, :1], decode_s * 1e3 / LM_DECODE)}
+    for name, (c, t, step_ms) in steps.items():
+        for _ in range(2):  # the first profiled window pays the profiler's start
+            torch.cuda.synchronize(dev)
+            prof = _start_profiler(profiles)
+            if prof is None:
+                break
+            for _ in range(LM_PROFILE_STEPS):
+                _, c = decode(params, t, c)
+            torch.cuda.synchronize(dev)
+            prof.stop()
+        if prof is None:
+            break
+        kinds = {k2: v2 / LM_PROFILE_STEPS for k2, v2 in _kernel_device_ms(prof).items()}
+        busy = sum(kinds.values())
+        # against the unprofiled step's wall time (the profiler slows the host)
+        profiles[name] = {"device_ms_step": kinds, "device_busy_ms_step": busy,
+                          "unprofiled_ms_step": step_ms,
+                          "idle_share": 1 - busy / step_ms if busy else None}
+    _log("lm_serve_decode", b1_ms_step=b1_ms, b1_tok_s=1e3 / b1_ms,
+         b8_ms_step=decode_s * 1e3 / LM_DECODE, b8_tok_s=LM_BATCH * LM_DECODE / decode_s,
+         profiled_steps=LM_PROFILE_STEPS, profiles=profiles,
+         phase_max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    del c1, c8, params
+    torch.cuda.empty_cache()
+
+    if failures:
+        raise AssertionError("; ".join(failures))
+    src = "src/repro_torch/csrc/attention.cu"
+    flash_bound, flash_by = _flash_bound(B, S, K, G, D)
+    decode_bound, decode_by = _decode_bound(pos.tolist(), B, K, G, D, smax)
+    return [
+        {"name": "flash_fwd", "route": "cuda", "source": src,
+         "replaces": "src/repro/models/attention.py:59", "launches": prefill_counted["flash_fwd"],
+         "max_abs_err": flash_checks["phase"]["kernel_vs_plain"], "ms": flash_ms,
+         "plain_ms": flash_plain_ms, "bound_ms": flash_bound, "bound_by": flash_by,
+         "library_ms": flash_lib_ms, "shape": {"B": B, "S": S, "K": K, "G": G, "D": D}},
+        {"name": "decode_attn", "route": "cuda", "source": src,
+         "replaces": "src/repro/models/attention.py:344",
+         "launches": decode_counted["decode_attn"],
+         "max_abs_err": decode_checks["equal"]["kernel_vs_plain"], "ms": decode_ms,
+         "plain_ms": decode_plain_ms, "bound_ms": decode_bound, "bound_by": decode_by,
+         "library_ms": decode_lib_ms,
+         "shape": {"B": B, "Smax": smax, "pos": LM_PROMPT, "K": K, "G": G, "D": D}},
+    ]
 
 
 def main(argv=None) -> int:

@@ -24,6 +24,14 @@ per-sub-tile facility classifier, in its float32 order with no margin
 plain version of the BVH walk (``csrc/bvh_traverse.cu``): the reference
 walk, one stack per lane, written out over all lanes at once, whose pops
 the kernel's warp walk repeats lane for lane.
+
+:func:`flash_attention_ref` and :func:`decode_attention_ref` are the plain
+versions of the LM attention kernels (``csrc/attention.cu``): the JAX
+package's own math (``repro.models.attention``), float32 scores from the
+inputs, scaled by ``D ** -0.5``, masked at ``-1e30``; the flash version
+is its running ``(max, sum, acc)`` over ``_pick_block`` blocks, every key
+block scanned masked, and ``acc / max(sum, 1e-30)``; the decode version
+a softmax over the whole cache.  Both cast the output to ``q``'s dtype.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ __all__ = [
     "grid_raycast_ref",
     "grid_cells_count_batch_ref",
     "bvh_hit_counts_ref",
+    "flash_attention_ref",
+    "decode_attention_ref",
 ]
 
 #: Number of calls into the plain versions since the last reset to 0.
@@ -312,3 +322,66 @@ def bvh_hit_counts_ref(xs, ys, left, right, bbox, coeffs, k_cap: int, depth: int
         walking = a[(sp[a] > 0) & (counts[a] < k_cap)]
     counts = counts.reshape(q_n, n)
     return (counts, popped.reshape(2, q_n, n)) if pops else counts
+
+
+# ---- LM attention ------------------------------------------------------------
+
+_NEG = -1e30  # the JAX package's mask value
+
+
+def _pick_block(S: int, pref: int) -> int:
+    """Largest divisor of ``S`` that is ``<= pref`` (the JAX package's)."""
+    b = min(pref, S)
+    while S % b:
+        b -= 1
+    return max(b, 1)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, q_block: int = 512,
+                        kv_block: int = 1024):
+    """Blockwise attention: ``q [B, S, K, G, D]``, ``k``/``v [B, Skv, K, D]``
+    -> ``[B, S, K, G, D]`` in ``q``'s dtype (``repro.models.attention``
+    ``flash_attention`` without ``causal_skip``)."""
+    _count()
+    B, S, K, G, D = q.shape
+    Skv = k.shape[1]
+    bq, bk = _pick_block(S, q_block), _pick_block(Skv, kv_block)
+    scale = D ** -0.5
+    out = torch.empty_like(q)
+    for q0 in range(0, S, bq):
+        q_blk = q[:, q0:q0 + bq].float()
+        m = torch.full((B, K, G, bq), _NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, K, G, bq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, K, G, bq, D), dtype=torch.float32, device=q.device)
+        for k0 in range(0, Skv, bk):
+            s = torch.einsum("bqkgd,bskd->bkgqs", q_blk, k[:, k0:k0 + bk].float()) * scale
+            if causal:
+                qpos = torch.arange(q0, q0 + bq, device=q.device)
+                kpos = torch.arange(k0, k0 + bk, device=q.device)
+                s = torch.where((qpos[:, None] >= kpos[None, :])[None, None, None], s, _NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p, v[:, k0:k0 + bk].float())
+            m = m_new
+        o = acc / torch.clamp(l[..., None], min=1e-30)
+        out[:, q0:q0 + bq] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out
+
+
+def decode_attention_ref(q, k_cache, v_cache, pos):
+    """One query token per row against the cache: ``q [B, 1, K, G, D]``,
+    caches ``[B, Smax, K, D]``, ``pos [B]`` (slots ``s <= pos`` are valid;
+    the caller has written the new token at ``pos``) -> ``[B, 1, K, G, D]``
+    (``repro.models.attention`` ``decode_attention``)."""
+    _count()
+    Smax = k_cache.shape[1]
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k_cache.float()) * scale
+    valid = torch.arange(Smax, device=q.device)[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, None, None, :], s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
+    return out.to(q.dtype)

@@ -1,0 +1,79 @@
+"""Model registry (``repro.models.registry``): ArchConfig -> Model.
+
+``Model`` carries the JAX package's fields, ``init``, ``forward``,
+``prefill``, ``decode`` and ``init_cache``, as functions over the port's
+parameters (:class:`~repro_torch.models.decoder.Decoder`) on one device.
+``build_model(cfg)`` without a device serves on the card and raises
+where there is none, as every entry point of the port does; the parity
+tests pass ``device="cpu"``.  ``forward``, ``prefill`` and ``decode`` raise
+``ValueError`` when the parameters, tokens or cache lie on another device
+than the model's.
+
+Serving weights: ``init(seed, dtype=Policy.compute_dtype)`` draws each
+weight in float32 and casts it once to the compute dtype, which is what
+the JAX package's ``_w`` casts at every use.  Only the ``attn``/``dense``
+layer stacks are ported; the encoder-decoder, MoE, SSM and hybrid
+families raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import decoder as dec
+
+__all__ = ["Model", "build_model"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+    init: Callable[..., Any]  # (seed or torch.Generator, dtype=None) -> params
+    forward: Callable[..., Any]  # (params, tokens, extras) -> (logits, aux)
+    prefill: Callable[..., Any]  # (params, tokens, extras, pad_cache_to) -> (logits, cache)
+    decode: Callable[..., Any]  # (params, token, cache) -> (logits, cache)
+    init_cache: Callable[..., Any]  # (batch, max_len) -> cache
+    device: torch.device
+
+    def extras_shapes(self, batch: int) -> dict:
+        """Modality-stub inputs: none for the decoder-only families."""
+        return {}
+
+
+def _check_device(dev: torch.device, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} lies on {t.device}, the model on {dev}")
+
+
+def build_model(cfg: ArchConfig, device=None) -> Model:
+    dec.check_supported(cfg)
+    dev = resolve_device(device)
+
+    def init(seed, dtype: torch.dtype | None = None):
+        gen = seed
+        if not isinstance(seed, torch.Generator):
+            gen = torch.Generator(dev).manual_seed(int(seed))
+        return dec.init_decoder(gen, cfg, dtype=dtype)
+
+    def forward(params, tokens, extras=None):
+        _check_device(dev, params=params.embed, tokens=tokens)
+        return dec.decoder_forward(params, tokens, cfg)
+
+    def prefill(params, tokens, extras=None, pad_cache_to=None):
+        _check_device(dev, params=params.embed, tokens=tokens)
+        return dec.decoder_prefill(params, tokens, cfg, pad_cache_to=pad_cache_to)
+
+    def decode(params, token, cache):
+        _check_device(dev, params=params.embed, tokens=token, cache=cache["pos"])
+        return dec.decoder_decode(params, token, cache, cfg)
+
+    def init_cache(batch, max_len):
+        return dec.init_cache(cfg, batch, max_len, device=dev)
+
+    return Model(cfg, init, forward, prefill, decode, init_cache, dev)

@@ -273,3 +273,57 @@ def warp_walk_twin(xs_s, ys_s, nodes, tris, root, k_cap, warp=32):
                 code, mask = stack.pop()
             counts[q, sl], pops[0, q, sl], pops[1, q, sl] = count, inner, leaves
     return counts, pops, steps, most
+
+
+# ---- LM attention yardsticks (float64, independent of the port) -------------
+
+def attention64(q, k, v, causal=True):
+    """Float64 attention of bf16/f32 tensors in the JAX GQA layout:
+    ``q [B, S, K, G, D]``, ``k``/``v [B, Skv, K, D]`` -> float64 like ``q``,
+    one row ``b`` at a time (the scores of a row are ``[K, G, S, Skv]``)."""
+    B, S, K, G, D = q.shape
+    Skv = k.shape[1]
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.arange(S, device=q.device)[:, None] >= torch.arange(Skv, device=q.device)
+    for b in range(B):
+        s = torch.einsum("qkgd,skd->kgqs", q[b].double(), k[b].double()) * D ** -0.5
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        out[b] = torch.einsum("kgqs,skd->qkgd", p, v[b].double())
+    return out
+
+
+def decode_attention64(q, k_cache, v_cache, pos):
+    """Float64 one-token attention: slots ``s <= pos[b]`` of each row
+    (``pos >= 0``)."""
+    Smax, D = k_cache.shape[1], q.shape[-1]
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.double(), k_cache.double()) * D ** -0.5
+    valid = torch.arange(Smax, device=q.device)[None, :] <= pos.long()[:, None]
+    p = torch.softmax(s.masked_fill(~valid[:, None, None, None, :], float("-inf")), dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.double())
+
+
+def bf16_ulp(scale):
+    """One bf16 ulp at ``scale`` (8 significant bits: ``2**(e - 7)`` for
+    values in ``[2**e, 2**(e + 1))``)."""
+    return 2.0 ** (np.floor(np.log2(max(float(scale), 1e-30))) - 7)
+
+
+def kernel_within_yardstick(kernel, plain, want64):
+    """``(ok, err_kernel, err_plain, worst)``, row by row: each output row
+    (every index but the last, head dimension) holds the kernel's max abs
+    error against the float64 yardstick to at most twice the plain
+    version's error on that row plus one bf16 ulp at the row's own
+    max |out|.  ``err_kernel``/``err_plain`` are the largest errors over
+    all rows; ``worst`` is the row nearest to (or furthest past) its
+    limit."""
+    err_k = (kernel.double() - want64).abs().amax(-1)
+    err_p = (plain.double() - want64).abs().amax(-1)
+    ulp = torch.exp2(torch.floor(torch.log2(want64.abs().amax(-1).clamp_min(1e-30))) - 7)
+    excess = err_k - (2 * err_p + ulp)
+    i = int(excess.argmax())
+    worst = {"row": tuple(int(j) for j in np.unravel_index(i, tuple(err_k.shape))),
+             "err_kernel": float(err_k.flatten()[i]), "err_plain": float(err_p.flatten()[i]),
+             "bf16_ulp": float(ulp.flatten()[i])}
+    return bool((excess <= 0).all()), float(err_k.max()), float(err_p.max()), worst

@@ -798,3 +798,117 @@ def test_adopted_cell_buckets_on_card_equal_a_cold_bucketing(cuda_device, tmp_pa
             assert b.device == a.device and b.dtype == a.dtype and torch.equal(a, b), name
         else:
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=name)
+
+
+# ---- LM attention (csrc/attention.cu, rows 7 and 8) ------------------------
+
+def _bf16(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        device=dev, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,K,G,D,causal", [
+    (1, 1, 1, 1, 64, True),
+    (2, 65, 2, 7, 128, True),  # S not a multiple of the 64-key tile
+    (1, 130, 1, 8, 64, True),
+    (1, 129, 3, 1, 128, True),  # G = 1: 128 positions a block
+    (2, 200, 4, 7, 128, True),
+    (1, 77, 2, 7, 128, False),
+    (1, 33, 1, 16, 32, False),
+])
+def test_flash_attention_kernel_matches_plain_on_card(cuda_device, B, S, K, G, D, causal):
+    from repro_torch.kernels import attention as kattn
+    from _torch_parity import attention64, kernel_within_yardstick
+
+    rng = np.random.default_rng(S * 131 + G)
+    q, k, v = (_bf16(rng, (B, S, K, G, D), cuda_device), _bf16(rng, (B, S, K, D), cuda_device),
+               _bf16(rng, (B, S, K, D), cuda_device))
+    kattn.flash_launches = 0
+    got = kattn.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kattn.flash_launches == 1 and got.dtype == torch.bfloat16
+    plain = ref.flash_attention_ref(q, k, v, causal, 64, 64)
+    ok, err_k, err_p, worst = kernel_within_yardstick(got, plain, attention64(q, k, v, causal))
+    assert ok, (err_k, err_p, worst)
+
+
+def test_flash_attention_kernel_cross_lengths_on_card(cuda_device):
+    from repro_torch.kernels import attention as kattn
+    from _torch_parity import attention64, kernel_within_yardstick
+
+    rng = np.random.default_rng(7)
+    q = _bf16(rng, (2, 40, 2, 4, 64), cuda_device)
+    k, v = _bf16(rng, (2, 150, 2, 64), cuda_device), _bf16(rng, (2, 150, 2, 64), cuda_device)
+    for causal in (False, True):
+        got = kattn.flash_attention(q, k, v, causal=causal)
+        plain = ref.flash_attention_ref(q, k, v, causal, 40, 50)
+        ok, *errs = kernel_within_yardstick(got, plain, attention64(q, k, v, causal))
+        assert ok, errs
+
+
+@pytest.mark.parametrize("G,D", [(1, 64), (7, 128), (8, 128), (16, 64)])
+@pytest.mark.parametrize("pos_kind", ["zero", "last", "ragged"])
+def test_decode_attention_kernel_matches_plain_on_card(cuda_device, G, D, pos_kind):
+    from repro_torch.kernels import attention as kattn
+    from _torch_parity import decode_attention64, kernel_within_yardstick
+
+    rng = np.random.default_rng(G * 10 + D)
+    B, Smax, K = 4, 300, 2  # Smax not a multiple of the 128-slot chunk
+    q = _bf16(rng, (B, 1, K, G, D), cuda_device)
+    kc, vc = _bf16(rng, (B, Smax, K, D), cuda_device), _bf16(rng, (B, Smax, K, D), cuda_device)
+    pos = {"zero": [0] * B, "last": [Smax - 1] * B, "ragged": [0, 127, 128, 299]}[pos_kind]
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
+    kattn.decode_launches = 0
+    got = kattn.decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert kattn.decode_launches == 1 and got.shape == q.shape
+    plain = ref.decode_attention_ref(q, kc, vc, pos)
+    ok, *errs = kernel_within_yardstick(got, plain, decode_attention64(q, kc, vc, pos))
+    assert ok, errs
+
+
+def test_decode_attention_kernel_edge_positions_on_card(cuda_device):
+    """``pos`` past the end reads every slot; ``pos < 0`` masks every slot,
+    and JAX's softmax then averages them all: the kernel does both as the
+    plain version does."""
+    from repro_torch.kernels import attention as kattn
+
+    rng = np.random.default_rng(9)
+    q = _bf16(rng, (2, 1, 1, 3, 64), cuda_device)
+    kc, vc = _bf16(rng, (2, 140, 1, 64), cuda_device), _bf16(rng, (2, 140, 1, 64), cuda_device)
+    pos = torch.tensor([500, -1], dtype=torch.int32, device=cuda_device)
+    got = kattn.decode_attention(q, kc, vc, pos).float()
+    want = ref.decode_attention_ref(q, kc, vc, pos).float()
+    torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=2.0 ** -9)
+
+
+def test_attention_cpu_tensors_never_reach_the_kernels(cuda_device):
+    from repro_torch.kernels import attention as kattn
+
+    rng = np.random.default_rng(10)
+    q = _bf16(rng, (1, 9, 1, 2, 64), CPU)
+    k, v = _bf16(rng, (1, 9, 1, 64), CPU), _bf16(rng, (1, 9, 1, 64), CPU)
+    kattn.flash_launches = kattn.decode_launches = 0
+    kattn.flash_attention(q, k, v)
+    kattn.decode_attention(q[:, :1], k, v, torch.tensor([3], dtype=torch.int32))
+    assert kattn.flash_launches == 0 and kattn.decode_launches == 0
+
+
+def test_attention_kernels_refuse_bad_inputs_on_card(cuda_device):
+    from repro_torch.kernels import attention as kattn
+
+    rng = np.random.default_rng(11)
+    q = _bf16(rng, (1, 8, 1, 2, 64), cuda_device)
+    k, v = _bf16(rng, (1, 8, 1, 64), cuda_device), _bf16(rng, (1, 8, 1, 64), cuda_device)
+    pos = torch.tensor([3], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kattn.flash_attention(q.float(), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        kattn.flash_attention(q.transpose(1, 3).contiguous().transpose(1, 3), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        kattn.decode_attention(q[:, :1], k[:, ::2], v[:, ::2], pos)
+    with pytest.raises(ValueError, match="int32"):
+        kattn.decode_attention(q[:, :1], k, v, pos.long())
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kattn.flash_attention(q[..., :40].contiguous(), k[..., :40].contiguous(),
+                              v[..., :40].contiguous())

@@ -49,5 +49,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
             "repro_torch.obs.health.server", "repro_torch.obs.__main__",
             "repro_torch.checkpoint", "repro_torch.checkpoint.store",
             "repro_torch.persist", "repro_torch.persist.store",
-            "repro_torch.persist.__main__"} <= set(report["modules"])
+            "repro_torch.persist.__main__",
+            "repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.registry",
+            "repro_torch.configs.qwen2_7b", "repro_torch.configs.llama3_405b",
+            "repro_torch.configs.whisper_medium", "repro_torch.data.tokens",
+            "repro_torch.models", "repro_torch.models.common", "repro_torch.models.attention",
+            "repro_torch.models.ffn", "repro_torch.models.decoder", "repro_torch.models.convert",
+            "repro_torch.models.registry", "repro_torch.steps", "repro_torch.steps.train",
+            "repro_torch.kernels.attention"} <= set(report["modules"])
     assert report["leaked"] == []
