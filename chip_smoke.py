@@ -70,8 +70,9 @@ read just after:
   the flash attention kernel) and 64 greedy ``make_decode_step`` steps
   (1,792 launches of the decode attention kernel), both kernels held
   against their plain versions and float64, the forward against prefill
-  and decode, and the kernel path against plain and float32 paths (see
-  :func:`_lm_serve`).
+  and decode, and the kernel path against plain and float32 paths, and
+  the two kernels' wrapper times beside their device times alone (a CUDA
+  graph of launches; the ``lm_serve_times`` line; see :func:`_lm_serve`).
 
 Wherever the grid and dense paths both count, their counts must be equal
 on every user: the port evaluates every edge with one rounding order.
@@ -187,7 +188,7 @@ def _graph_ms(fn, reps: int, dev) -> float:
         fn()  # warm-up on a side stream, as graph capture asks
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):  # the warmed-up stream
         for _ in range(reps):
             fn()
     graph.replay()
@@ -2376,9 +2377,11 @@ def _kernel_device_ms(prof) -> dict:
         if not us or us <= 0:
             continue
         name = evt.key
-        if "flash_fwd_kernel" in name:
+        # csrc/attention.cu: flash_fwd_wgmma_kernel (D = 64, 128) and
+        # flash_fwd_mma_kernel (other head dims); decode_attn_kernel
+        if "flash_fwd" in name:
             kinds["flash_fwd"] += us / 1e3
-        elif "decode_chunk_kernel" in name or "decode_merge_kernel" in name:
+        elif "decode_attn_kernel" in name:
             kinds["decode_attn"] += us / 1e3
         elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
             kinds["matmul"] += us / 1e3
@@ -2572,13 +2575,26 @@ def _lm_serve(dev, seed: int) -> list:
         decode_checks[name] = _yardstick(
             kattn.decode_attention(qd, kc, vc, pos), ref.decode_attention_ref(qd, kc, vc, pos),
             _decode64(qd, kc, vc, pos))
+    # B = 1, the most splits a pair (a plan of its own): row 0 of layer 0's
+    # cache at the first decode step's and the last slot's positions, at a
+    # split's edges, 0, and < 0 (every slot masked: the mean of v over them)
+    qd1, kc1, vc1 = qd[:1], kc[:1], vc[:1]
+    b1_splits, b1_len = kattn.decode_plan(dev, 1, cfg.n_kv_heads, smax, cfg.hd)
+    for p in (LM_PROMPT, smax - 1, b1_len - 1, b1_len, 0, -1):
+        pos = torch.tensor([p], dtype=torch.int32, device=dev)
+        want64 = (_decode64(qd1, kc1, vc1, pos) if p >= 0 else
+                  vc1.double().mean(1)[:, None, :, None, :].expand(qd1.shape))
+        decode_checks[f"b1_pos{p}"] = _yardstick(
+            kattn.decode_attention(qd1, kc1, vc1, pos),
+            ref.decode_attention_ref(qd1, kc1, vc1, pos), want64)
     for B, Smax, K, Gs, D in LM_DECODE_SHAPES:
         qa, ka, va = randn(B, 1, K, Gs, D), randn(B, Smax, K, D), randn(B, Smax, K, D)
         pos = torch.tensor([0, Smax // 3, Smax - 2, Smax - 1][:B], dtype=torch.int32, device=dev)
         decode_checks[f"{B}x{Smax}x{K}x{Gs}x{D}"] = _yardstick(
             kattn.decode_attention(qa, ka, va, pos), ref.decode_attention_ref(qa, ka, va, pos),
             _decode64(qa, ka, va, pos))
-    _log("lm_serve_kernels", flash=flash_checks, decode=decode_checks)
+    _log("lm_serve_kernels", flash=flash_checks, decode=decode_checks,
+         decode_b1_plan={"n_splits": b1_splits, "split_len": b1_len})
 
     # ---- check 3: kernel path against plain path, teacher-forced ---------------
     def teacher_forced(mdl):
@@ -2660,6 +2676,7 @@ def _lm_serve(dev, seed: int) -> list:
     q_sdpa = q.permute(0, 2, 3, 1, 4).reshape(B, H, S, D).contiguous()
     k_sdpa, v_sdpa = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     flash_ms = _sync_ms(lambda: kattn.flash_attention(q, k, v), 10, dev)
+    flash_device_ms = _graph_ms(lambda: kattn.flash_attention(q, k, v), 10, dev)
     flash_plain_ms = _sync_ms(
         lambda: ref.flash_attention_ref(q, k, v, True, cfg.q_block, cfg.kv_block), 2, dev)
     flash_lib_ms = _sync_ms(lambda: F.scaled_dot_product_attention(
@@ -2670,10 +2687,17 @@ def _lm_serve(dev, seed: int) -> list:
     kc_sdpa, vc_sdpa = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     mask = (torch.arange(smax, device=dev)[None, :] <= pos[:, None])[:, None, None, :]
     decode_ms = _sync_ms(lambda: kattn.decode_attention(qd, kc, vc, pos), 50, dev)
+    decode_device_ms = _graph_ms(lambda: kattn.decode_attention(qd, kc, vc, pos), 50, dev)
+    decode_splits = kattn.decode_plan(dev, B, K, smax, D)
     decode_plain_ms = _sync_ms(lambda: ref.decode_attention_ref(qd, kc, vc, pos), 20, dev)
     decode_lib_ms = _sync_ms(lambda: F.scaled_dot_product_attention(
         qd_sdpa, kc_sdpa, vc_sdpa, attn_mask=mask, enable_gqa=True), 50, dev)
     del qd_sdpa, kc_sdpa, vc_sdpa, q, k, v
+    # the device's time alone (a CUDA graph of the launches), beside the
+    # wrapper's in the kernels line (CUDA events around back-to-back calls:
+    # bound by the host's work per call where that exceeds the kernel's)
+    _log("lm_serve_times", flash_device_ms=flash_device_ms, decode_device_ms=decode_device_ms,
+         decode_splits={"n_splits": decode_splits[0], "split_len": decode_splits[1]})
 
     # ---- decode at B = 1, and a profiled window of B = 1 and B = 8 -------------
     del cache  # full: the profiled B = 8 steps take a fresh one, inside its slots

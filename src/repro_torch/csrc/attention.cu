@@ -22,50 +22,92 @@
 //   decode: the same for the one query, over cache slots s <= pos[b]
 //           (every slot, all masked, where pos[b] < 0, as JAX's softmax
 //           then gives their plain mean).
+// The softmax runs in base 2: exp(x - m) as exp2(x log2 e - m log2 e).
 //
 // flash_fwd.  What bounds it: operations (4 B H D S^2 / 2 with the
-// causal half, against 989 TFLOP/s of bf16 tensor cores; its bytes are
-// those of q, k, v and out once).  One block of 8 warps serves 128 query
-// rows (a row is one (position, query head) pair; all G heads of a KV
-// head for 128 / G positions), so every K and V tile staged in shared
-// memory is read once for the whole group.  Each warp owns 16 rows and
-// keeps, FlashAttention-2 style, its scores, its running max and sum and
-// its output rows in registers in the m16n8k16 accumulator layout:
-// S = Q K^T by mma.sync on bf16 (products of bf16 are exact in the f32
-// accumulator), the online softmax in f32 with the 4 threads of a row
-// reduced by shuffles, then O += P V by mma.sync.  P is split into
-// P_hi = bf16(P) and P_lo = bf16(P - P_hi), two products, so P reaches V
-// with about 16 bits and not bf16's 8: the plain version multiplies
-// float32 P, and the kernel should stay within its error (the card check
-// holds both against float64).  Key tiles wholly above the diagonal of a
-// block are skipped (the JAX scan masks them); the masked tail of S and
-// Skv needs no divisor rule.  A simple kernel: mma.sync without TMA,
-// wgmma or a pipeline of tiles is later work (PERF.md).
+// causal half, against 989 TFLOP/s of bf16 tensor cores; its bytes, q, k,
+// v and out once, take a third of that time).  Only wgmma reaches that
+// rate, and the tensor cores must not wait on loads or on the softmax, so
+// for D = 64 and 128 (every config of the repo) it is FlashAttention-3-
+// shaped, flash_fwd_wgmma_kernel.  A work item is 128 query rows (a row is
+// one (position, query head) pair: all G heads of a KV head for 128 / G
+// positions, so each K and V tile is read once for the group), and a
+// persistent grid of one CTA an SM walks the items, those with the most
+// key tiles under the causal mask first, in rounds that zigzag across the
+// CTAs.  A CTA is three warpgroups.  Warpgroup 2 is the producer: it gives
+// its registers to the consumers (setmaxnreg), and one thread issues TMA
+// loads, each item's Q (a [positions, G, D] box of q; rows past the box
+// zeroed once) behind a Q full/empty barrier pair, then its K and V tiles
+// of 128 keys into a ring of three stages guarded by mbarriers (full: the
+// bytes landed; empty: both consumers are done).  Warpgroups 0 and 1 each
+// own 64 rows: S = Q K^T by wgmma from shared memory (both operands
+// K-major, 128-byte swizzled as TMA writes them), the online softmax in
+// f32 on the accumulator in base 2 (one FFMA and one MUFU.EX2 an element,
+// the 4 threads of a row reduced by shuffles), then O += P V by wgmma with
+// P converted to bf16 in registers as the A operand and V read MN-major
+// (transposed) from the same stage.  Tile t's S GEMM is issued before tile
+// t - 1's P V GEMM, so the softmax of t waits only for S while P V runs,
+// and the two warpgroups take turns to issue their GEMMs (named barriers)
+// so that one's GEMMs run while the other's softmax does.  P meets V once,
+// in bf16, as FlashAttention does; the card check holds it to 2x the plain
+// version's error plus one bf16 ulp against float64.  Key tiles wholly
+// above the diagonal are never loaded, and only tiles that cross the
+// diagonal or the end of k are masked.  The consumers' S, O and P take
+// about 200 registers; ptxas fits them only under setmaxnreg's 240 (at
+// 168, or with a clock read and trap in the barrier wait, it serialises
+// every wgmma: PERF.md).  Other head dims (16 to 112 but 64) go to
+// flash_fwd_mma_kernel, the first kernel kept as it was: mma.sync m16n8k16
+// on tiles staged by plain loads, P split into two bf16 products.
 //
 // decode_attn (flash-decoding).  What bounds it: bytes, each cache slot
-// s <= pos[b] read once from K and once from V.  A decode step has only
-// B * K (row, KV head) pairs, 32 at B = 8 for qwen2-7b, for 132 SMs, so
-// the cache is cut into chunks of 128 slots: one block per (chunk, KV
-// head, row) stages its chunk of K and V in shared memory, computes the
-// G heads' scores (a thread per slot), their max, exp and sum, and its
-// partial output sum_s p_s v_s (a thread per dimension), in float32.
-// Chunks beyond pos[b] exit at once.  A second kernel merges each pair's
-// chunks' (max, sum, partial output) and rounds to bf16.
+// s <= pos[b] read once from K and once from V (33.6 MB at B = 8,
+// qwen2-7b, pos 2,048: 10 us at 3.35 TB/s).  A step has only B * K (row,
+// KV head) pairs, 32 at B = 8, for 132 SMs, so each pair's slots are cut
+// into splits (the wrapper picks their number from B * K, Smax, the SMs
+// and the blocks an SM holds, so that every block is resident at once:
+// one wave).  A block of 8 warps (4 past D = 128) takes one split; each
+// warp streams its groups of 16 slots through a two-stage cp.async ring of
+// its own, computing on one stage while the next lands, so every thread
+// has 16 to 32 loads of 16 bytes in flight.  Both products run on tensor cores
+// (mma.sync m16n8k16 with the G <= 16 heads as the 16 rows): scores from
+// ldmatrix of K, then P V from ldmatrix.trans of V, P split into bf16 high
+// and low parts (two products: the kernel is bound by bytes, so P keeps
+// about 16 bits for free).  Head dims that are not a multiple of 16 run
+// padded with zeros.  The warps' (max, sum, output) meet in shared memory;
+// a pair with one split writes its output there, otherwise each block
+// stores its partial and takes a ticket, and the last block of the pair
+// merges all partials, rounds to bf16 and resets the ticket for the next
+// launch: one launch a step, no second kernel.  Launches that share a ticket
+// buffer must not overlap, so the wrapper keeps one buffer per stream.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no link to libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr float kNeg = -1e30f;  // the JAX package's _NEG
+constexpr float kLog2e = 1.4426950408889634f;
 
-// ---- flash_fwd ------------------------------------------------------------
+// cudaFuncSetAttribute for a kernel's dynamic shared memory, once per
+// kernel and device (a host call of about a microsecond).
+template <auto Kernel>
+cudaError_t smem_limit_once(size_t bytes) {
+  static std::atomic<uint32_t> done{0};  // one bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint32_t bit = 1u << (dev & 31);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
 
-constexpr int kFaRows = 128;          // query rows of a block
-constexpr int kFaWarps = kFaRows / 16;
-constexpr int kFaThreads = 32 * kFaWarps;
-constexpr int kFaKeys = 64;           // keys of a tile
+// ---- shared helpers ---------------------------------------------------------
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -86,8 +128,16 @@ __device__ __forceinline__ void split_bf16x2(float lo, float hi, uint32_t& big, 
   small = *reinterpret_cast<const uint32_t*>(&r);
 }
 
+
+// ---- flash_fwd: mma.sync (head dims other than 64 and 128) ------------------
+
+constexpr int kFaRows = 128;          // query rows of a block
+constexpr int kFaWarps = kFaRows / 16;
+constexpr int kFaThreads = 32 * kFaWarps;
+constexpr int kFaKeys = 64;           // keys of a tile
+
 template <int NK>  // D = 16 * NK
-__global__ void __launch_bounds__(kFaThreads) flash_fwd_kernel(
+__global__ void __launch_bounds__(kFaThreads) flash_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int S, int Skv,
     int K, int G, int bq, int causal, float scale) {
@@ -262,27 +312,568 @@ __global__ void __launch_bounds__(kFaThreads) flash_fwd_kernel(
 }
 
 template <int NK>
-cudaError_t launch_flash(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+cudaError_t launch_flash_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                          __nv_bfloat16* out, int B, int S, int Skv, int K, int G, int causal,
                          float scale, cudaStream_t stream) {
   constexpr int D = 16 * NK;
   const size_t smem = (size_t)(kFaRows + 2 * kFaKeys) * (D + 8) * sizeof(__nv_bfloat16);
-  // above 48 KB only after this (a host call of about a microsecond)
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<NK>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = smem_limit_once<flash_fwd_mma_kernel<NK>>(smem);
   if (err != cudaSuccess) return err;
   const int bq = kFaRows / G;
   const dim3 grid((unsigned)((S + bq - 1) / bq), (unsigned)K, (unsigned)B);
-  flash_fwd_kernel<NK><<<grid, kFaThreads, smem, stream>>>(q, k, v, out, S, Skv, K, G, bq,
+  flash_fwd_mma_kernel<NK><<<grid, kFaThreads, smem, stream>>>(q, k, v, out, S, Skv, K, G, bq,
                                                            causal, scale);
   return cudaGetLastError();
 }
 
-// ---- decode_attn ----------------------------------------------------------
+// ---- flash_fwd: wgmma, TMA ring (D = 64, 128) ------------------------------
 
-constexpr int kDcChunk = 128;  // cache slots of a block
-constexpr int kDcThreads = 128;
-constexpr int kDcMaxG = 16;
+constexpr int kFwRows = 128;  // query rows of a CTA: two consumer warpgroups of 64
+constexpr int kFwKeys = 128;  // keys of a K or V tile
+constexpr int kFwStages = 3;  // the ring of K and V tiles
+// two consumer warpgroups, then the producer warpgroup, whose registers go
+// to the consumers (setmaxnreg): their S, O and P need more than the 168
+// registers a thread of 384 starts with, and ptxas serialises the wgmmas
+// when they do not fit
+constexpr int kFwThreads = 384;
+constexpr int kFwProducerRegs = 24;   // 128 x 24 + 256 x 240 <= 65,536
+constexpr int kFwConsumerRegs = 240;
+
+static_assert(kFwRows == kFwKeys, "a half of Q and of a K or V tile share one size");
+
+// Byte offsets in the CTA's shared memory.  Every tile is stored as 64-wide
+// column halves of 128-byte rows (TMA's 128-byte swizzle spans one row), each
+// half 1024-byte aligned.
+template <int D>
+struct FwSmem {
+  static constexpr int kHalves = D / 64;
+  static constexpr int kHalfRows = kFwRows;  // rows of a half of Q or of a tile
+  static constexpr int kQ = 0;
+  static constexpr int kQBytes = kHalves * kFwRows * 128;
+  static constexpr int kTileBytes = kHalves * kFwKeys * 128;
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kFwStages * kTileBytes;
+  static constexpr int kBar = kV + kFwStages * kTileBytes;  // q_full, q_empty, full[], empty[]
+  static constexpr int kBytes = kBar + 64 + 1024;           // and room to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Spins until the barrier's phase of parity `parity` has completed.  (No
+// watchdog here: a clock read and a trap in this loop make ptxas ignore the
+// consumers' setmaxnreg budget and serialise their wgmmas.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
+      : "memory");
+}
+
+// A wgmma operand in shared memory with the 128-byte swizzle: rows of 128
+// bytes, 8-row groups 1024 bytes apart (SBO); `lbo` is the byte distance
+// between 64-wide column halves, read only for an MN-major operand.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>  // at most N committed groups still running
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma uses across the fence, commit and wait around it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// 2^x in one MUFU instruction (2^-inf = 0; no denormal handling: the
+// results are probabilities added to a sum of at least 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128]; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128]; A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64]; A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwThreads, 1) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out, int S, int Skv,
+    int K, int G, int npos, int n_qblocks, int n_pairs, int causal, float scale_log2) {
+  using L = FwSmem<D>;
+  constexpr int kHalfBytes = L::kHalfRows * 128;
+  extern __shared__ __align__(1024) unsigned char fw_smem[];
+  const uint32_t raw = smem_u32(fw_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = fw_smem + (base - raw);
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_q_full = base + L::kBar, bar_q_empty = bar_q_full + 8;
+  const uint32_t bar_full = bar_q_full + 16, bar_empty = bar_full + 8 * kFwStages;
+  const int n_items = n_qblocks * n_pairs;
+
+  // Work item i: the query blocks with the most key tiles under the causal
+  // mask come first.  Round r gives CTA c item r * grid + c, or
+  // r * grid + grid - 1 - c in odd rounds, so that the CTAs' sums of
+  // decreasing lengths even out.
+  const int grid = gridDim.x, c = blockIdx.x;
+  auto item_of = [&](int r) { return r * grid + ((r & 1) ? grid - 1 - c : c); };
+  struct Item {
+    int b, kh, q0, nq, n_tiles;
+  };
+  auto item = [&](int i) {
+    Item it;
+    const int pair = i % n_pairs, qb = n_qblocks - 1 - i / n_pairs;
+    it.b = pair / K;
+    it.kh = pair % K;
+    it.q0 = qb * npos;
+    it.nq = min(npos, S - it.q0);
+    const int kv_end = causal ? min(Skv, it.q0 + it.nq) : Skv;
+    it.n_tiles = (kv_end + kFwKeys - 1) / kFwKeys;
+    return it;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q_full, 1);
+    mbar_init(bar_q_empty, 2 * 128);  // every consumer thread arrives
+    for (int s = 0; s < kFwStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer warpgroup: one thread issues every load -----------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kFwProducerRegs));
+    if (threadIdx.x == 256) {
+      int tile = 0;  // tiles loaded so far: the ring's stage and phase
+      for (int j = 0; item_of(j) < n_items; ++j) {
+        const Item w = item(item_of(j));
+        mbar_wait(bar_q_empty, (j & 1) ^ 1);  // the last item's S GEMMs are done
+        mbar_expect_tx(bar_q_full, (uint32_t)(D * G * npos * 2));
+#pragma unroll
+        for (int h = 0; h < L::kHalves; ++h)
+          tma_load_5d(sQ + h * kHalfBytes, &tm_q, bar_q_full, 64 * h, 0, w.kh, w.q0, w.b);
+        for (int t = 0; t < w.n_tiles; ++t, ++tile) {
+          const int st = tile % kFwStages;
+          mbar_wait(bar_empty + 8 * st, ((tile / kFwStages) & 1) ^ 1);
+          mbar_expect_tx(bar_full + 8 * st, 2 * L::kTileBytes);
+#pragma unroll
+          for (int h = 0; h < L::kHalves; ++h) {
+            const uint32_t off = st * L::kTileBytes + h * kHalfBytes;
+            tma_load_4d(sK + off, &tm_k, bar_full + 8 * st, 64 * h, w.kh, t * kFwKeys, w.b);
+            tma_load_4d(sV + off, &tm_v, bar_full + 8 * st, 64 * h, w.kh, t * kFwKeys, w.b);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kFwConsumerRegs));
+    const int tw = threadIdx.x - 128 * wg, wi = tw >> 5, lane = tw & 31;
+    // rows past the TMA box (npos * G of the 128) are never loaded: zero them
+    const int boxed = npos * G;
+    for (int i = tw; i < L::kHalves * 64 * 8; i += 128) {
+      const int h = i / 512, r = 64 * wg + (i / 8) % 64, ch = i % 8;
+      if (r >= boxed)
+        *reinterpret_cast<uint4*>(gbase + L::kQ + h * kHalfBytes + r * 128 + ch * 16) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+
+    const int r0 = 64 * wg + 16 * wi + (lane >> 2), r1 = r0 + 8;
+    const int col = 2 * (lane & 3);
+    float o[D / 2];
+    uint32_t pa[kFwKeys / 16][4];  // P of the previous tile, wgmma's A operand
+    float m0, m1, l0, l1;
+    int pos0, pos1, q0;  // of the current item
+
+    // S = Q K^T of the tile in stage st: 64 rows x 128 keys, D / 16 steps
+    auto qk = [&](float (&s)[64], int st) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t half = (kk / 4) * kHalfBytes, step = (kk % 4) * 32;
+        wgmma_ss_n128(s, sw128_desc(sQ + half + wg * 64 * 128 + step, 0),
+                      sw128_desc(sK + st * L::kTileBytes + half + step, 0), kk);
+      }
+      wgmma_commit();
+    };
+    // O += P V of the tile in stage st: 16 keys a step, V MN-major (its
+    // 64-wide halves LBO apart)
+    auto pv = [&](int st) {
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kFwKeys / 16; ++kk) {
+        const uint64_t dv = sw128_desc(sV + st * L::kTileBytes + kk * 16 * 128, kHalfBytes);
+        if constexpr (D == 128) {
+          wgmma_rs_n128(o, pa[kk], dv);
+        } else {
+          wgmma_rs_n64(o, pa[kk], dv);
+        }
+      }
+      wgmma_commit();
+    };
+    // The online softmax of tile t in base 2 (m in units of the scaled
+    // scores): masks the tiles that cross the diagonal or Skv, turns s into
+    // P = exp2(scale S - m) in f32, and returns the rescale of O and l for
+    // each of the thread's two rows.
+    auto softmax = [&](float (&s)[64], int t, float& c0, float& c1) {
+      const int kt0 = t * kFwKeys;
+      if (kt0 + kFwKeys > Skv || (causal && kt0 + kFwKeys - 1 > q0)) {
+#pragma unroll
+        for (int j = 0; j < kFwKeys / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kt0 + 8 * j + col + (e & 1);
+            if (key >= Skv || (causal && key > (e < 2 ? pos0 : pos1))) s[4 * j + e] = kNeg;
+          }
+      }
+      float mx0 = s[0], mx1 = s[2];
+#pragma unroll
+      for (int j = 0; j < kFwKeys / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      mx0 = fmaxf(m0, mx0 * scale_log2);  // the scale is positive: max commutes
+      mx1 = fmaxf(m1, mx1 * scale_log2);
+      c0 = ex2(m0 - mx0);
+      c1 = ex2(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      // this thread's share of the row sums; the 4 of a row add up at the end
+      l0 *= c0;
+      l1 *= c1;
+#pragma unroll
+      for (int j = 0; j < kFwKeys / 8; ++j) {
+        s[4 * j] = ex2(fmaf(s[4 * j], scale_log2, -m0));
+        s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], scale_log2, -m0));
+        s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], scale_log2, -m1));
+        s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], scale_log2, -m1));
+        l0 += s[4 * j] + s[4 * j + 1];
+        l1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+    };
+    // P in bf16 as the A operand: the accumulator of keys 16kk..16kk+15 is
+    // the A fragment of step kk
+    auto to_a = [&](const float (&s)[64]) {
+#pragma unroll
+      for (int kk = 0; kk < kFwKeys / 16; ++kk) {
+        pa[kk][0] = pack_bf16x2(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+    auto rescale = [&](float c0, float c1) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= c0;
+        o[4 * j + 1] *= c0;
+        o[4 * j + 2] *= c1;
+        o[4 * j + 3] *= c1;
+      }
+    };
+    // Ping-pong: the two warpgroups take turns to issue their GEMMs (named
+    // barriers 3 and 4), so that one's GEMMs run while the other does its
+    // softmax.  A turn is one sync on this warpgroup's barrier, then one
+    // arrive on the other's.  Warpgroup 1 opens with an arrive, and
+    // warpgroup 0 closes with a sync, so every arrive meets one sync.
+    auto my_turn = [&] { asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory"); };
+    auto your_turn = [&] { asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory"); };
+    if (wg == 1) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+
+    int tile = 0;  // tiles consumed so far: the ring's stage and phase
+    for (int j = 0; item_of(j) < n_items; ++j) {
+      const Item w = item(item_of(j));
+      q0 = w.q0;
+      const int rows = w.nq * G;  // real rows: row r = (position q0 + r / G, head r % G)
+      // rows past the real ones have no position: no causal mask, zero q
+      pos0 = r0 < rows ? q0 + r0 / G : 0x7fffffff;
+      pos1 = r1 < rows ? q0 + r1 / G : 0x7fffffff;
+      m0 = m1 = kNeg;
+      l0 = l1 = 0.f;
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+
+      mbar_wait(bar_q_full, j & 1);
+      float c0, c1;  // the rescale of O from the latest softmax
+      {
+        const int st = tile % kFwStages;
+        mbar_wait(bar_full + 8 * st, (tile / kFwStages) & 1);
+        float s[64];
+        my_turn();
+        qk(s, st);
+        your_turn();
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (w.n_tiles == 1) mbar_arrive(bar_q_empty);  // Q may take the next item
+        softmax(s, 0, c0, c1);
+        to_a(s);
+      }
+      // Tile t's S = Q K^T runs on the tensor cores with the previous
+      // tile's O += P V queued behind it; the softmax of tile t waits only
+      // for S.
+      for (int t = 1; t < w.n_tiles; ++t) {
+        const int st = (tile + t) % kFwStages, prev = (tile + t - 1) % kFwStages;
+        mbar_wait(bar_full + 8 * st, ((tile + t) / kFwStages) & 1);
+        float s[64];
+        my_turn();
+        qk(s, st);
+        rescale(c0, c1);  // O is not in flight: the previous P V has completed
+        pv(prev);
+        your_turn();
+        wgmma_wait<1>();  // S of tile t
+        fence_regs(s);
+        if (t == w.n_tiles - 1) mbar_arrive(bar_q_empty);
+        softmax(s, t, c0, c1);
+        wgmma_wait<0>();  // P V of tile t - 1: its stage is free
+        fence_regs(o);
+        mbar_arrive(bar_empty + 8 * prev);
+        to_a(s);
+      }
+      tile += w.n_tiles;
+      my_turn();
+      rescale(c0, c1);
+      pv((tile - 1) % kFwStages);
+      your_turn();
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(bar_empty + 8 * ((tile - 1) % kFwStages));
+
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? r1 : r0;
+        if (r >= rows) continue;
+        const float inv = half ? inv1 : inv0;
+        const int s_pos = q0 + r / G, g = r % G;
+        __nv_bfloat16* dst =
+            out + ((((size_t)w.b * S + s_pos) * K + w.kh) * G + g) * D + col;
+#pragma unroll
+        for (int x = 0; x < D / 8; ++x)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * x) =
+              __floats2bfloat162_rn(o[4 * x + 2 * half] * inv, o[4 * x + 2 * half + 1] * inv);
+      }
+    }
+    if (wg == 0) my_turn();  // warpgroup 1's last arrive
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime (no link to
+// libcuda), looked up once.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A bf16 tensor map with 64-element (128-byte) rows per box, swizzled for
+// wgmma; dims innermost first, strides in bytes for dims 1 on.
+template <int R>
+cudaError_t make_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)[R],
+                     const cuuint64_t (&strides)[R - 1], const cuuint32_t (&box)[R]) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  cuuint32_t ones[R];
+  for (int i = 0; i < R; ++i) ones[i] = 1;
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, R, const_cast<void*>(ptr), dims,
+                         strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out of bounds: zeros
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_flash_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                               const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S, int Skv,
+                               int K, int G, int causal, float scale, cudaStream_t stream) {
+  const int npos = kFwRows / G;
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = make_map<5>(
+      &tq, q, {(cuuint64_t)D, (cuuint64_t)G, (cuuint64_t)K, (cuuint64_t)S, (cuuint64_t)B},
+      {D * e, (cuuint64_t)G * D * e, (cuuint64_t)K * G * D * e, (cuuint64_t)S * K * G * D * e},
+      {64u, (cuuint32_t)G, 1u, (cuuint32_t)npos, 1u});
+  if (err != cudaSuccess) return err;
+  const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)K, (cuuint64_t)Skv, (cuuint64_t)B};
+  const cuuint64_t kv_strides[3] = {D * e, (cuuint64_t)K * D * e, (cuuint64_t)Skv * K * D * e};
+  const cuuint32_t kv_box[4] = {64u, 1u, (cuuint32_t)kFwKeys, 1u};
+  if ((err = make_map<4>(&tk, k, kv_dims, kv_strides, kv_box)) != cudaSuccess) return err;
+  if ((err = make_map<4>(&tv, v, kv_dims, kv_strides, kv_box)) != cudaSuccess) return err;
+  if ((err = smem_limit_once<flash_fwd_wgmma_kernel<D>>(FwSmem<D>::kBytes)) != cudaSuccess)
+    return err;
+  const int n_qblocks = (S + npos - 1) / npos;
+  const long long items = (long long)n_qblocks * B * K;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  // persistent: one CTA an SM, each walking the work items a grid's stride apart
+  const unsigned blocks = (unsigned)(items < sms ? items : sms);
+  flash_fwd_wgmma_kernel<D><<<blocks, kFwThreads, FwSmem<D>::kBytes, stream>>>(
+      tq, tk, tv, out, S, Skv, K, G, npos, n_qblocks, B * K, causal, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+
+// ---- decode_attn: one-wave streaming flash-decode ----------------------------
+
+// Warps of a block: 8 of two stages take 139 KB at D = 128, one block an SM
+// and 4 splits a pair at B = 8 (16.1-16.8 us on an H100, against 20.7-21.1
+// us for 4 warps of two stages at three blocks an SM and 12 splits:
+// PERF.md); past D = 128, 4 warps, or the rings outgrow the 227 KB.
+__host__ __device__ constexpr int dc_warps(int NT) { return NT <= 8 ? 8 : 4; }
+constexpr int kDcGroup = 16;  // slots of a stage: one k-step of P V, two n-tiles of q K^T
+constexpr int kDcStages = 2;  // each warp's cp.async ring
+constexpr int kDcMaxG = 16;       // the G heads are the 16 rows of the mma
+constexpr int kDcMaxSplits = 128;
+constexpr float kDcInit = -3e38f;  // a running max below any score, masked ones included
 
 // Slots of row b that the step reads: s <= pos, or all Smax (masked) when
 // pos < 0.
@@ -290,150 +881,324 @@ __device__ __forceinline__ int decode_valid(int p, int Smax) {
   return p < 0 ? Smax : min(p + 1, Smax);
 }
 
-__global__ void __launch_bounds__(kDcThreads) decode_chunk_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-    const __nv_bfloat16* __restrict__ vc, const int32_t* __restrict__ pos,
-    float* __restrict__ part_o, float2* __restrict__ part_ml, int Smax, int K, int G, int D,
-    int n_chunks, float scale) {
-  const int c = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int p = pos[b];
-  const int n_valid = decode_valid(p, Smax);
-  const int start = c * kDcChunk;
-  if (start >= n_valid) return;  // the merge reads only chunks below n_valid
-  const int n = min(kDcChunk, n_valid - start);
-  const int n4 = (n + 3) & ~3;  // slots the output loop runs over, by 4
-  const int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);                    // [G][D]
-  float* ps = qs + G * D;                                             // [G][kDcChunk]
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(ps + G * kDcChunk);  // [chunk][LD]
-  __nv_bfloat16* Vs = Ks + kDcChunk * LD;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  const __nv_bfloat16* qrow = q + ((size_t)b * K + kh) * G * D;
-  for (int i = tid; i < G * D; i += kDcThreads) qs[i] = __bfloat162float(qrow[i]);
-  const int chunks = D / 8;
-  for (int i = tid; i < n4 * chunks; i += kDcThreads) {
-    const int r = i / chunks, part = i % chunks;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;  // zeros past n: 0 * pad stays 0
-    if (r < n) {
-      const size_t off = (((size_t)b * Smax + start + r) * K + kh) * D + part * 8;
-      kv = *reinterpret_cast<const uint4*>(kc + off);
-      vv = *reinterpret_cast<const uint4*>(vc + off);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * LD + part * 8) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * LD + part * 8) = vv;
-  }
-  __syncthreads();
-
-  // scores: a thread per slot, all G heads
-  if (tid < n) {
-    float acc[kDcMaxG];
-#pragma unroll
-    for (int g = 0; g < kDcMaxG; ++g) acc[g] = 0.f;
-    const __nv_bfloat16* krow = Ks + tid * LD;
-    for (int d = 0; d < D; d += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(krow + d);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      float kf[8];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(h[j]);
-        kf[2 * j] = f.x;
-        kf[2 * j + 1] = f.y;
-      }
-#pragma unroll
-      for (int g = 0; g < kDcMaxG; ++g) {
-        if (g < G) {
-          const float4 qa = *reinterpret_cast<const float4*>(qs + g * D + d);
-          const float4 qb = *reinterpret_cast<const float4*>(qs + g * D + d + 4);
-          acc[g] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                    qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < kDcMaxG; ++g)
-      if (g < G) ps[g * kDcChunk + tid] = p < 0 ? kNeg : acc[g] * scale;
-  }
-  __syncthreads();
-
-  // per head: the chunk's max, exp and sum (a warp per head)
-  float2* ml = part_ml + (((size_t)b * K + kh) * n_chunks + c) * G;
-  for (int g = warp; g < G; g += kDcThreads / 32) {
-    float* row = ps + g * kDcChunk;
-    float mx = -3.402823466e38f;
-    for (int s = lane; s < n; s += 32) mx = fmaxf(mx, row[s]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int s = lane; s < n4; s += 32) {
-      const float e = s < n ? expf(row[s] - mx) : 0.f;
-      row[s] = e;
-      sum += e;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) ml[g] = make_float2(mx, sum);
-  }
-  __syncthreads();
-
-  // partial output sum_s p_s v_s: a thread per dimension, all G heads
-  float* po = part_o + (((size_t)b * K + kh) * n_chunks + c) * G * D;
-  for (int d = tid; d < D; d += kDcThreads) {
-    float acc[kDcMaxG];
-#pragma unroll
-    for (int g = 0; g < kDcMaxG; ++g) acc[g] = 0.f;
-    for (int s = 0; s < n4; s += 4) {
-      const float v0 = __bfloat162float(Vs[s * LD + d]);
-      const float v1 = __bfloat162float(Vs[(s + 1) * LD + d]);
-      const float v2 = __bfloat162float(Vs[(s + 2) * LD + d]);
-      const float v3 = __bfloat162float(Vs[(s + 3) * LD + d]);
-#pragma unroll
-      for (int g = 0; g < kDcMaxG; ++g) {
-        if (g < G) {
-          const float4 pw = *reinterpret_cast<const float4*>(ps + g * kDcChunk + s);
-          acc[g] += pw.x * v0 + pw.y * v1 + pw.z * v2 + pw.w * v3;
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < kDcMaxG; ++g)
-      if (g < G) po[g * D + d] = acc[g];
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__global__ void __launch_bounds__(kDcThreads) decode_merge_kernel(
-    const float* __restrict__ part_o, const float2* __restrict__ part_ml,
-    const int32_t* __restrict__ pos, __nv_bfloat16* __restrict__ out, int Smax, int K, int G,
-    int D, int n_chunks) {
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int used = (decode_valid(pos[b], Smax) + kDcChunk - 1) / kDcChunk;
-  const size_t pair = (size_t)b * K + kh;
-  const float2* ml = part_ml + pair * n_chunks * G;
-  const float* po = part_o + pair * n_chunks * G * D;
-  __nv_bfloat16* dst = out + pair * G * D;
-  for (int g = 0; g < G; ++g) {
-    float mx = -3.402823466e38f;
-    for (int c = 0; c < used; ++c) mx = fmaxf(mx, ml[c * G + g].x);
-    float sum = 0.f;
-    for (int c = 0; c < used; ++c) sum += ml[c * G + g].y * expf(ml[c * G + g].x - mx);
-    const float inv = 1.f / fmaxf(sum, 1e-30f);
-    for (int d = threadIdx.x; d < D; d += kDcThreads) {
-      float acc = 0.f;
-      for (int c = 0; c < used; ++c)
-        acc += po[((size_t)c * G + g) * D + d] * expf(ml[c * G + g].x - mx);
-      dst[g * D + d] = __float2bfloat16_rn(acc * inv);
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// Shared memory of a decode block: the warps' rings, reused after the loop
+// for the warps' partials and then the merge's weights.
+template <int NT>
+constexpr size_t decode_smem_bytes() {
+  constexpr int DP = 16 * NT, kDcWarps = dc_warps(NT);
+  constexpr size_t ring = (size_t)kDcWarps * kDcStages * 2 * kDcGroup * (DP + 8) * 2;
+  constexpr size_t part = (size_t)(2 * kDcWarps * kDcMaxG + kDcWarps * kDcMaxG * DP +
+                                   2 * kDcMaxG + kDcWarps * kDcMaxG) * 4;
+  constexpr size_t merge = (size_t)(kDcMaxSplits * kDcMaxG + kDcMaxG) * 4;
+  return ring > part ? (ring > merge ? ring : merge) : (part > merge ? part : merge);
+}
+
+template <int NT>  // head dim padded to DP = 16 * NT (the pad is zeros)
+__global__ void __launch_bounds__(32 * dc_warps(NT), 1) decode_attn_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
+    const __nv_bfloat16* __restrict__ vc, const int32_t* __restrict__ pos,
+    float* __restrict__ part_o, float2* __restrict__ part_ml, int* __restrict__ tickets,
+    __nv_bfloat16* __restrict__ out, int Smax, int K, int G, int D, int n_splits, int split_len,
+    float scale_log2) {
+  constexpr int DP = 16 * NT, LD = DP + 8, CH = DP / 8;
+  constexpr int kDcWarps = dc_warps(NT), kDcThreads = 32 * kDcWarps;
+  constexpr int kStage = 2 * kDcGroup * LD;  // K then V, in elements
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int p = pos[b];
+  const int n_valid = decode_valid(p, Smax);
+  const int start = split * split_len;
+  if (start >= n_valid) return;  // the merge counts only splits below n_valid
+  const int end = min(start + split_len, n_valid);
+  const int n_act = (n_valid + split_len - 1) / split_len;
+  const int pair = b * K + kh;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, tig = lane & 3;
+
+  __nv_bfloat16* ring =
+      reinterpret_cast<__nv_bfloat16*>(smem_raw) + warp * kDcStages * kStage;
+  const int n_groups = (end - start + kDcGroup - 1) / kDcGroup;
+  const size_t slot_stride = (size_t)K * D;
+  const __nv_bfloat16* kbase = kc + ((size_t)b * Smax * K + kh) * D;
+  const __nv_bfloat16* vbase = vc + ((size_t)b * Smax * K + kh) * D;
+
+  // Group gi of the split into ring stage st; past `end` and past D the
+  // copy reads nothing and writes zeros (0 * a zero p stays 0).
+  auto issue = [&](int gi, int st) {
+    if (gi < n_groups) {
+      const int s0 = start + gi * kDcGroup;
+      __nv_bfloat16* dst = ring + st * kStage;
+#pragma unroll
+      for (int it = 0; it < CH; ++it) {  // 2 * kDcGroup * CH chunks, 32 a pass
+        const int c = lane + 32 * it;
+        const int kv = c / (kDcGroup * CH), r = (c / CH) % kDcGroup, part = c % CH;
+        const bool ok = s0 + r < end && part * 8 < D;
+        const __nv_bfloat16* src =
+            (kv ? vbase : kbase) + (size_t)(ok ? s0 + r : start) * slot_stride + (ok ? part * 8 : 0);
+        cp_async16(dst + (kv * kDcGroup + r) * LD + part * 8, src, ok ? 16 : 0);
+      }
     }
+    cp_async_commit();  // an empty group keeps the count of groups in step
+  };
+#pragma unroll
+  for (int st = 0; st < kDcStages; ++st) issue(warp + st * kDcWarps, st);
+
+  // q as the A operand: rows the G heads (zeros past G), k-steps of 16 dims
+  const __nv_bfloat16* qrow = q + (size_t)pair * G * D;
+  auto q_pair = [&](int g, int d) -> uint32_t {
+    return g < G && d < D ? *reinterpret_cast<const uint32_t*>(qrow + g * D + d) : 0u;
+  };
+  uint32_t qa[NT][4];
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    const int d = 16 * kk + 2 * tig;
+    qa[kk][0] = q_pair(grp, d);
+    qa[kk][1] = q_pair(grp + 8, d);
+    qa[kk][2] = q_pair(grp, d + 8);
+    qa[kk][3] = q_pair(grp + 8, d + 8);
   }
+
+  float m0 = kDcInit, m1 = kDcInit, l0 = 0.f, l1 = 0.f;  // heads grp and grp + 8
+  float o[2 * NT][4];
+#pragma unroll
+  for (int nd = 0; nd < 2 * NT; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+
+  for (int i = 0;; ++i) {
+    const int gi = warp + i * kDcWarps;
+    if (gi >= n_groups) break;
+    cp_async_wait<kDcStages - 1>();
+    __syncwarp();
+    const __nv_bfloat16* Ks = ring + (i % kDcStages) * kStage;
+    const __nv_bfloat16* Vs = Ks + kDcGroup * LD;
+
+    // scores of the 16 slots: n-tile 0 slots 0-7, n-tile 1 slots 8-15
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    {
+      const int mat = lane >> 3;
+      const __nv_bfloat16* kp = Ks + ((mat >> 1) * 8 + (lane & 7)) * LD + (mat & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, kp + 16 * kk);
+        mma_bf16(sc[0], qa[kk], kb[0], kb[1]);
+        mma_bf16(sc[1], qa[kk], kb[2], kb[3]);
+      }
+    }
+    const int s0 = start + gi * kDcGroup;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int slot = s0 + 8 * n + 2 * tig + (e & 1);
+        // past the split: -inf, no part of the softmax; pos < 0: every slot at _NEG
+        sc[n][e] = slot >= end ? -__int_as_float(0x7f800000)
+                               : (p < 0 ? kNeg : sc[n][e] * scale_log2);
+      }
+      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= c0;
+    l1 *= c1;
+#pragma unroll
+    for (int nd = 0; nd < 2 * NT; ++nd) {
+      o[nd][0] *= c0;
+      o[nd][1] *= c0;
+      o[nd][2] *= c1;
+      o[nd][3] *= c1;
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      sc[n][0] = exp2f(sc[n][0] - m0);
+      sc[n][1] = exp2f(sc[n][1] - m0);
+      sc[n][2] = exp2f(sc[n][2] - m1);
+      sc[n][3] = exp2f(sc[n][3] - m1);
+      l0 += sc[n][0] + sc[n][1];
+      l1 += sc[n][2] + sc[n][3];
+    }
+    // P as the A operand (the two n-tiles of scores are one k-step), high
+    // and low bf16 parts
+    uint32_t ph[4], pl[4];
+    split_bf16x2(sc[0][0], sc[0][1], ph[0], pl[0]);
+    split_bf16x2(sc[0][2], sc[0][3], ph[1], pl[1]);
+    split_bf16x2(sc[1][0], sc[1][1], ph[2], pl[2]);
+    split_bf16x2(sc[1][2], sc[1][3], ph[3], pl[3]);
+    {
+      // ldmatrix.trans: matrices (slots 0-7, dims d), (8-15, d), (0-7, d+8), (8-15, d+8)
+      const __nv_bfloat16* vp =
+          Vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8;
+#pragma unroll
+      for (int nd = 0; nd < 2 * NT; nd += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vp + nd * 8);
+        mma_bf16(o[nd], ph, vb[0], vb[1]);
+        mma_bf16(o[nd], pl, vb[0], vb[1]);
+        mma_bf16(o[nd + 1], ph, vb[2], vb[3]);
+        mma_bf16(o[nd + 1], pl, vb[2], vb[3]);
+      }
+    }
+    __syncwarp();  // the stage's readers are done before it is refilled
+    issue(gi + kDcStages * kDcWarps, i % kDcStages);
+  }
+  cp_async_wait<0>();
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  __syncthreads();  // every warp is out of its ring
+
+  // the warps' partials: wm, wl [warps][16], wo [warps][16][DP]
+  float* wm = reinterpret_cast<float*>(smem_raw);
+  float* wl = wm + kDcWarps * kDcMaxG;
+  float* wo = wl + kDcWarps * kDcMaxG;
+  float* bm = wo + kDcWarps * kDcMaxG * DP;  // the block's max and sum per head
+  float* bl = bm + kDcMaxG;
+  float* ww = bl + kDcMaxG;  // [warps][16]: each warp's weight exp2(m_w - M)
+  if (tig == 0) {
+    wm[warp * kDcMaxG + grp] = m0;
+    wm[warp * kDcMaxG + grp + 8] = m1;
+    wl[warp * kDcMaxG + grp] = l0;
+    wl[warp * kDcMaxG + grp + 8] = l1;
+  }
+#pragma unroll
+  for (int nd = 0; nd < 2 * NT; ++nd) {
+    float* row0 = wo + (warp * kDcMaxG + grp) * DP + 8 * nd + 2 * tig;
+    float* row1 = row0 + 8 * DP;
+    row0[0] = o[nd][0];
+    row0[1] = o[nd][1];
+    row1[0] = o[nd][2];
+    row1[1] = o[nd][3];
+  }
+  __syncthreads();
+  if (tid < G) {
+    float M = kDcInit;
+    for (int w = 0; w < kDcWarps; ++w) M = fmaxf(M, wm[w * kDcMaxG + tid]);
+    float Lsum = 0.f;
+    for (int w = 0; w < kDcWarps; ++w) {
+      const float wt = exp2f(wm[w * kDcMaxG + tid] - M);
+      ww[w * kDcMaxG + tid] = wt;
+      Lsum += wt * wl[w * kDcMaxG + tid];
+    }
+    bm[tid] = M;
+    bl[tid] = Lsum;
+  }
+  __syncthreads();
+  const size_t part_row = (size_t)pair * n_splits + split;
+  __nv_bfloat16* dst = out + (size_t)pair * G * D;
+  for (int idx = tid; idx < G * D; idx += kDcThreads) {
+    const int g = idx / D, d = idx % D;
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDcWarps; ++w)
+      acc += ww[w * kDcMaxG + g] * wo[(w * kDcMaxG + g) * DP + d];
+    if (n_act == 1)
+      dst[idx] = __float2bfloat16_rn(acc / fmaxf(bl[g], 1e-30f));
+    else
+      part_o[part_row * G * D + idx] = acc;
+  }
+  if (n_act == 1) return;
+  if (tid < G) part_ml[part_row * G + tid] = make_float2(bm[tid], bl[tid]);
+
+  // the last block of the pair to finish merges the splits
+  __threadfence();
+  __syncthreads();
+  __shared__ int last;
+  if (tid == 0) last = atomicAdd(tickets + pair, 1) == n_act - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float* mw = reinterpret_cast<float*>(smem_raw);  // [n_act][16] weights, then the sums
+  float* msum = mw + kDcMaxSplits * kDcMaxG;
+  const float2* ml = part_ml + (size_t)pair * n_splits * G;
+  if (tid < G) {
+    float M = kDcInit;
+    for (int c = 0; c < n_act; ++c) M = fmaxf(M, __ldcg(ml + c * G + tid).x);
+    float Lsum = 0.f;
+    for (int c = 0; c < n_act; ++c) {
+      const float2 v = __ldcg(ml + c * G + tid);
+      const float wt = exp2f(v.x - M);
+      mw[c * kDcMaxG + tid] = wt;
+      Lsum += wt * v.y;
+    }
+    msum[tid] = Lsum;
+  }
+  __syncthreads();
+  const float* po = part_o + (size_t)pair * n_splits * G * D;
+  for (int idx = tid; idx < G * D; idx += kDcThreads) {
+    const int g = idx / D;
+    float acc = 0.f;
+    for (int c = 0; c < n_act; ++c) acc += mw[c * kDcMaxG + g] * __ldcg(po + (size_t)c * G * D + idx);
+    dst[idx] = __float2bfloat16_rn(acc / fmaxf(msum[g], 1e-30f));
+  }
+  if (tid == 0) tickets[pair] = 0;  // ready for the next launch
+}
+
+template <int NT>
+cudaError_t launch_decode(const void* q, const void* kc, const void* vc, const void* pos,
+                          void* part_o, void* part_ml, void* tickets, void* out, int B, int Smax,
+                          int K, int G, int D, int n_splits, int split_len, float scale,
+                          cudaStream_t stream) {
+  constexpr size_t smem = decode_smem_bytes<NT>();
+  cudaError_t err = smem_limit_once<decode_attn_kernel<NT>>(smem);
+  if (err != cudaSuccess) return err;
+  decode_attn_kernel<NT><<<dim3((unsigned)n_splits, (unsigned)K, (unsigned)B),
+                           32 * dc_warps(NT), smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
+      static_cast<const __nv_bfloat16*>(vc), static_cast<const int32_t*>(pos),
+      static_cast<float*>(part_o), static_cast<float2*>(part_ml), static_cast<int*>(tickets),
+      static_cast<__nv_bfloat16*>(out), Smax, K, G, D, n_splits, split_len, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int NT>
+int decode_blocks(int* blocks) {
+  constexpr size_t smem = decode_smem_bytes<NT>();
+  const cudaError_t err = smem_limit_once<decode_attn_kernel<NT>>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, decode_attn_kernel<NT>, 32 * dc_warps(NT), smem));
 }
 
 }  // namespace
 
+#define DC_CASES(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16)
+
 extern "C" {
 
 // Launches flash_fwd on `stream`.  D = 16 * nk with 1 <= nk <= 8, G <= 128;
-// all pointers 16-byte aligned (the wrapper checks).  Returns a cudaError_t.
+// all pointers 16-byte aligned (the wrapper checks).  D = 64 and 128 run the
+// wgmma kernel, the other head dims the mma.sync one.  Returns a cudaError_t.
 int flash_fwd(const void* q, const void* k, const void* v, void* out, int B, int S, int Skv,
               int K, int G, int D, int causal, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || G <= 0 || G > kFaRows || D % 16 != 0)
@@ -445,52 +1210,61 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out, int B, int
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D / 16) {
-    case 1: err = launch_flash<1>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 2: err = launch_flash<2>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 3: err = launch_flash<3>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 4: err = launch_flash<4>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 5: err = launch_flash<5>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 6: err = launch_flash<6>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 7: err = launch_flash<7>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 8: err = launch_flash<8>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
+    case 1: err = launch_flash_mma<1>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
+    case 2: err = launch_flash_mma<2>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
+    case 3: err = launch_flash_mma<3>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
+    case 4: err = launch_flash_wgmma<64>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
+    case 5: err = launch_flash_mma<5>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
+    case 6: err = launch_flash_mma<6>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
+    case 7: err = launch_flash_mma<7>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
+    case 8: err = launch_flash_wgmma<128>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
 
-// Chunks of the cache per row: the workspace's second axis.
-int decode_attn_chunks(int Smax) { return (Smax + kDcChunk - 1) / kDcChunk; }
+// The decode kernel's geometry for head dim D: the blocks one SM holds at
+// once, the slots of a stage (a split's length is a multiple) and the most
+// splits of a pair; returns a cudaError_t.  The wrapper cuts the cache into
+// splits from them and checks its own copy of the last two against them.
+int decode_attn_geometry(int D, int* blocks, int* group, int* max_splits) {
+  if (D <= 0 || D % 8 != 0 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
+  *group = kDcGroup;
+  *max_splits = kDcMaxSplits;
+  switch ((D + 15) / 16) {
+#define DC_BLOCKS(n) \
+  case n: return decode_blocks<n>(blocks);
+    DC_CASES(DC_BLOCKS)
+#undef DC_BLOCKS
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
-// Launches decode_attn (chunks, then the merge) on `stream`.  Workspaces:
-// part_o [B, K, decode_attn_chunks(Smax), G, D] f32 and part_ml
-// [B, K, chunks, G, 2] f32, both uninitialised.  D % 8 == 0, D <= 256,
-// G <= 16; pointers 16-byte aligned.  Returns a cudaError_t.
+// Launches decode_attn on `stream`: one launch, the merge in its last block
+// per (row, KV head).  Splits of `split_len` slots (a multiple of 16),
+// n_splits of them per pair (n_splits <= 128, n_splits * split_len >= Smax).
+// Workspaces: part_o [B, K, n_splits, G, D] f32 and part_ml
+// [B, K, n_splits, G, 2] f32, uninitialised; tickets [B * K] int32, zero
+// before the launch and zero after it (launches that share them must run one
+// after another: the wrapper keeps one buffer per stream).  D % 8 == 0,
+// D <= 256, G <= 16; pointers 16-byte aligned.  Returns a cudaError_t.
 int decode_attn(const void* q, const void* kc, const void* vc, const void* pos, void* part_o,
-                void* part_ml, void* out, int B, int Smax, int K, int G, int D, float scale,
-                void* stream) {
+                void* part_ml, void* tickets, void* out, int B, int Smax, int K, int G, int D,
+                int n_splits, int split_len, float scale, void* stream) {
   if (B <= 0 || Smax <= 0 || K <= 0 || G <= 0 || G > kDcMaxG || D <= 0 || D % 8 != 0 ||
-      D > 256)
+      D > 256 || n_splits <= 0 || n_splits > kDcMaxSplits || split_len <= 0 ||
+      split_len % kDcGroup != 0 || (long long)n_splits * split_len < Smax)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_chunks = decode_attn_chunks(Smax);
-  const size_t smem = (size_t)G * D * sizeof(float) + (size_t)G * kDcChunk * sizeof(float) +
-                      (size_t)2 * kDcChunk * (D + 8) * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const auto st = static_cast<cudaStream_t>(stream);
-  decode_chunk_kernel<<<dim3((unsigned)n_chunks, (unsigned)K, (unsigned)B), kDcThreads, smem,
-                        st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), static_cast<const int32_t*>(pos),
-      static_cast<float*>(part_o), static_cast<float2*>(part_ml), Smax, K, G, D, n_chunks,
-      scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  decode_merge_kernel<<<dim3((unsigned)K, (unsigned)B), kDcThreads, 0, st>>>(
-      static_cast<const float*>(part_o), static_cast<const float2*>(part_ml),
-      static_cast<const int32_t*>(pos), static_cast<__nv_bfloat16*>(out), Smax, K, G, D,
-      n_chunks);
-  return static_cast<int>(cudaGetLastError());
+  switch ((D + 15) / 16) {
+#define DC_LAUNCH(n)                                                                           \
+  case n:                                                                                      \
+    return static_cast<int>(launch_decode<n>(q, kc, vc, pos, part_o, part_ml, tickets, out, B, \
+                                             Smax, K, G, D, n_splits, split_len, scale, st));
+    DC_CASES(DC_LAUNCH)
+#undef DC_LAUNCH
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* attention_error_string(int code) {

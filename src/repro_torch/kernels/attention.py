@@ -9,6 +9,17 @@ grouped-query layout.  A CPU tensor runs the plain version
 the current stream or raises: a failed build or launch is never caught.
 The kernels take contiguous bf16 tensors, 16-byte aligned; anything else
 on the card raises ``ValueError``.
+
+The decode kernel cuts each (row, KV head) pair's cache slots into splits
+(:func:`decode_split_plan`: as many as fill the card in one wave) and
+merges them in the same launch, in the last block of each pair to finish,
+which it knows by a ticket counter per pair.  The tickets are zero between
+launches and one buffer per stream, so launches that share one run one
+after another; a buffer outgrown by more pairs is kept, never freed, as a
+CUDA graph that captured a launch goes on using it.  A capture must follow
+an uncaptured launch on its stream at least as large (the buffer is zeroed
+outside the capture), else it raises.  A graph replays with its capture
+stream's tickets: do not replay it while a launch on that stream runs.
 """
 
 from __future__ import annotations
@@ -31,6 +42,10 @@ __all__ = [
     "FLASH_MAX_GROUP",
     "DECODE_MAX_HEAD_DIM",
     "DECODE_MAX_GROUP",
+    "DECODE_GROUP",
+    "DECODE_MAX_SPLITS",
+    "decode_plan",
+    "decode_split_plan",
 ]
 
 #: Launches by each wrapper since the last reset to 0 (one per launch,
@@ -45,21 +60,73 @@ FLASH_MAX_HEAD_DIM = 128
 FLASH_MAX_GROUP = 128
 DECODE_MAX_HEAD_DIM = 256
 DECODE_MAX_GROUP = 16
+#: Cache slots of a decode stage (a split's length is a multiple), and the
+#: most splits of a pair: the kernel's ``kDcGroup`` and ``kDcMaxSplits``,
+#: checked against the library's own when it first plans on a device.
+DECODE_GROUP = 16
+DECODE_MAX_SPLITS = 128
+
+_LIB: ctypes.CDLL | None = None
+_decode_fill: dict[tuple[int, int], int] = {}  # (device, D) -> SMs x blocks an SM holds
+# (device, stream) -> int32 tickets, zero between launches; outgrown ones are
+# kept in _retired for the graphs that captured them
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+_retired: list[torch.Tensor] = []
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("attention")
-    lib.flash_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
-    lib.flash_fwd.restype = ctypes.c_int
-    lib.decode_attn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    lib.decode_attn.restype = ctypes.c_int
-    lib.decode_attn_chunks.argtypes = [ctypes.c_int]
-    lib.decode_attn_chunks.restype = ctypes.c_int
-    lib.attention_error_string.argtypes = [ctypes.c_int]
-    lib.attention_error_string.restype = ctypes.c_char_p
-    return lib
+    """The library, with its signatures set when it is first loaded."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load("attention")
+        lib.flash_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p]
+        lib.flash_fwd.restype = ctypes.c_int
+        lib.decode_attn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p]
+        lib.decode_attn.restype = ctypes.c_int
+        lib.decode_attn_geometry.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.decode_attn_geometry.restype = ctypes.c_int
+        lib.attention_error_string.argtypes = [ctypes.c_int]
+        lib.attention_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def decode_split_plan(B: int, K: int, Smax: int, resident_blocks: int) -> tuple[int, int]:
+    """``(n_splits, split_len)`` for the decode kernel: each of the ``B * K``
+    pairs' ``Smax`` slots cut into ``n_splits`` splits of ``split_len``
+    slots (a multiple of :data:`DECODE_GROUP`), as many as keep every block
+    of the grid resident at once (``resident_blocks``: SMs times the blocks
+    an SM holds), at least 1 and at most :data:`DECODE_MAX_SPLITS`, with no
+    split wholly past ``Smax``."""
+    groups = -(-Smax // DECODE_GROUP)
+    n = max(1, min(resident_blocks // (B * K), DECODE_MAX_SPLITS, groups))
+    split_len = -(-groups // n) * DECODE_GROUP
+    return -(-Smax // split_len), split_len
+
+
+def decode_plan(device, B: int, K: int, Smax: int, D: int) -> tuple[int, int]:
+    """:func:`decode_split_plan` on a CUDA ``device``: its SMs times the
+    decode blocks of head dim ``D`` that one SM holds (asked of the kernel
+    once per device and ``D``, with its stage and most splits, which must
+    be :data:`DECODE_GROUP` and :data:`DECODE_MAX_SPLITS`)."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    fill = _decode_fill.get((idx, D))
+    if fill is None:
+        lib = _lib()
+        per_sm, group, max_splits = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            _raise_on(lib, lib.decode_attn_geometry(D, ctypes.byref(per_sm), ctypes.byref(group),
+                                                    ctypes.byref(max_splits)), "decode_attn")
+        if (group.value, max_splits.value) != (DECODE_GROUP, DECODE_MAX_SPLITS):
+            raise RuntimeError(f"the decode kernel's stage and most splits are "
+                               f"{group.value}, {max_splits.value}; the wrapper plans with "
+                               f"{DECODE_GROUP}, {DECODE_MAX_SPLITS}")
+        fill = _decode_fill[(idx, D)] = (
+            torch.cuda.get_device_properties(idx).multi_processor_count * max(per_sm.value, 1))
+    return decode_split_plan(B, K, Smax, fill)
 
 
 def _check_bf16(dev: torch.device, **tensors) -> None:
@@ -157,14 +224,27 @@ def decode_attention_kernel_call(q, k_cache, v_cache, pos) -> torch.Tensor:
     if Smax == 0:
         raise ValueError("the decode kernel needs at least one cache slot")
     lib = _lib()
-    chunks = lib.decode_attn_chunks(Smax)
-    part_o = torch.empty((B, K, chunks, G, D), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((B, K, chunks, G, 2), dtype=torch.float32, device=dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    n_splits, split_len = decode_plan(dev, B, K, Smax, D)
+    stream = torch.cuda.current_stream(dev)
+    tickets = _tickets.get((idx, stream.cuda_stream))
+    if tickets is None or tickets.numel() < B * K:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a captured decode launch needs an uncaptured one before it on "
+                               f"the capture stream with at least {B * K} (row, KV head) pairs")
+        if tickets is not None:
+            _retired.append(tickets)
+        tickets = _tickets[(idx, stream.cuda_stream)] = torch.zeros(
+            max(B * K, 1024), dtype=torch.int32, device=dev)
+    # one workspace: the splits' partial outputs [B, K, n_splits, G, D], then
+    # their (max, sum) [B, K, n_splits, G, 2], both f32
+    n_part = B * K * n_splits * G * D
+    work = torch.empty(n_part + 2 * B * K * n_splits * G, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.decode_attn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                             pos.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
-                             out.data_ptr(), B, Smax, K, G, D, D ** -0.5,
-                             torch.cuda.current_stream(dev).cuda_stream)
+                             pos.data_ptr(), work.data_ptr(), work.data_ptr() + 4 * n_part,
+                             tickets.data_ptr(), out.data_ptr(), B, Smax, K, G, D, n_splits,
+                             split_len, D ** -0.5, stream.cuda_stream)
     _raise_on(lib, rc, "decode_attn")
     decode_launches += 1
     return out

@@ -815,6 +815,23 @@ def _bf16(rng, shape, dev):
     (2, 200, 4, 7, 128, True),
     (1, 77, 2, 7, 128, False),
     (1, 33, 1, 16, 32, False),
+    # the wgmma kernel's edges: S one below, at and one above the 128-key
+    # tile, and the 18-position query block at G = 7 (128 rows)
+    (1, 127, 2, 7, 128, True),
+    (1, 128, 2, 7, 128, True),
+    (1, 129, 2, 7, 128, True),
+    (2, 17, 2, 7, 128, True),
+    (2, 18, 2, 7, 128, True),
+    (2, 19, 2, 7, 128, True),
+    (1, 257, 2, 7, 128, False),
+    # the configs' group sizes at D = 128, G = 1 at D = 64, a whole CTA of heads
+    (1, 300, 4, 6, 128, True),
+    (1, 300, 4, 12, 128, True),
+    (1, 300, 4, 16, 128, True),
+    (1, 300, 2, 1, 64, True),
+    (1, 130, 1, 128, 128, True),
+    (1, 200, 2, 100, 64, True),
+    (1, 200, 2, 7, 96, True),  # a head dim the mma.sync kernel serves
 ])
 def test_flash_attention_kernel_matches_plain_on_card(cuda_device, B, S, K, G, D, causal):
     from repro_torch.kernels import attention as kattn
@@ -846,17 +863,20 @@ def test_flash_attention_kernel_cross_lengths_on_card(cuda_device):
         assert ok, errs
 
 
-@pytest.mark.parametrize("G,D", [(1, 64), (7, 128), (8, 128), (16, 64)])
-@pytest.mark.parametrize("pos_kind", ["zero", "last", "ragged"])
+@pytest.mark.parametrize("G,D", [(1, 64), (7, 128), (8, 128), (16, 64), (6, 128), (12, 128),
+                                 (16, 128), (7, 24), (3, 256)])
+@pytest.mark.parametrize("pos_kind", ["zero", "last", "ragged", "split_edges"])
 def test_decode_attention_kernel_matches_plain_on_card(cuda_device, G, D, pos_kind):
     from repro_torch.kernels import attention as kattn
     from _torch_parity import decode_attention64, kernel_within_yardstick
 
     rng = np.random.default_rng(G * 10 + D)
-    B, Smax, K = 4, 300, 2  # Smax not a multiple of the 128-slot chunk
+    B, Smax, K = 4, 300, 2  # Smax not a multiple of a 16-slot stage
     q = _bf16(rng, (B, 1, K, G, D), cuda_device)
     kc, vc = _bf16(rng, (B, Smax, K, D), cuda_device), _bf16(rng, (B, Smax, K, D), cuda_device)
-    pos = {"zero": [0] * B, "last": [Smax - 1] * B, "ragged": [0, 127, 128, 299]}[pos_kind]
+    _, split = kattn.decode_plan(cuda_device, B, K, Smax, D)
+    pos = {"zero": [0] * B, "last": [Smax - 1] * B, "ragged": [0, 127, 128, 299],
+           "split_edges": [split - 1, split, split + 1, min(2 * split, Smax - 1)]}[pos_kind]
     pos = torch.tensor(pos, dtype=torch.int32, device=cuda_device)
     kattn.decode_launches = 0
     got = kattn.decode_attention(q, kc, vc, pos)
@@ -880,6 +900,116 @@ def test_decode_attention_kernel_edge_positions_on_card(cuda_device):
     got = kattn.decode_attention(q, kc, vc, pos).float()
     want = ref.decode_attention_ref(q, kc, vc, pos).float()
     torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=2.0 ** -9)
+
+
+@pytest.mark.parametrize("G,D", [(7, 128), (1, 64)])
+def test_decode_attention_kernel_one_row_most_splits_on_card(cuda_device, G, D):
+    """B = 1: the most splits a pair.  Positions at split edges, 0, the last
+    slot and < 0 (every slot masked: the plain mean of v, as the plain
+    version gives), each launched twice in a row: the merge's tickets are
+    back at zero after a launch, so the second agrees bit for bit."""
+    from repro_torch.kernels import attention as kattn
+    from _torch_parity import decode_attention64, kernel_within_yardstick
+
+    rng = np.random.default_rng(G + D)
+    Smax, K = 2112, 4
+    q = _bf16(rng, (1, 1, K, G, D), cuda_device)
+    kc, vc = _bf16(rng, (1, Smax, K, D), cuda_device), _bf16(rng, (1, Smax, K, D), cuda_device)
+    n_splits, split = kattn.decode_plan(cuda_device, 1, K, Smax, D)
+    assert n_splits > 1
+    for p in (0, split - 1, split, split + 1, 2048, Smax - 1, -1):
+        pos = torch.tensor([p], dtype=torch.int32, device=cuda_device)
+        kattn.decode_launches = 0
+        first = kattn.decode_attention(q, kc, vc, pos)
+        second = kattn.decode_attention(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        assert kattn.decode_launches == 2 and torch.equal(first, second), p
+        plain = ref.decode_attention_ref(q, kc, vc, pos)
+        if p < 0:
+            want = vc.double().mean(1)[:, None, :, None, :].expand(q.shape)
+        else:
+            want = decode_attention64(q, kc, vc, pos)
+        ok, *errs = kernel_within_yardstick(first, plain, want)
+        assert ok, (p, errs)
+
+
+def test_decode_attention_kernel_two_streams_on_card(cuda_device):
+    """Launches on two streams at once, each many splits a pair, agree bit
+    for bit with the same launches one after another: each stream has its
+    own merge tickets."""
+    from repro_torch.kernels import attention as kattn
+
+    rng = np.random.default_rng(31)
+    Smax, K, G, D = 2112, 4, 7, 128
+    inputs = []
+    for p in (2048, 1000):
+        q = _bf16(rng, (1, 1, K, G, D), cuda_device)
+        kc, vc = _bf16(rng, (1, Smax, K, D), cuda_device), _bf16(rng, (1, Smax, K, D), cuda_device)
+        inputs.append((q, kc, vc, torch.tensor([p], dtype=torch.int32, device=cuda_device)))
+    want = [kattn.decode_attention(*x) for x in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in inputs]
+    got = [[], []]
+    for _ in range(20):
+        for st, x, g in zip(streams, inputs, got):
+            st.wait_stream(torch.cuda.current_stream(cuda_device))
+            with torch.cuda.stream(st):
+                g.append(kattn.decode_attention(*x))
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert all(torch.equal(w, o) for o in g)
+
+
+def test_decode_attention_kernel_graph_outlives_a_grown_ticket_buffer_on_card(cuda_device):
+    """A CUDA graph of a decode launch, captured after one uncaptured launch
+    on its stream, replays right after a launch with more (row, KV head)
+    pairs than the stream's ticket buffer held made it take a larger one."""
+    from repro_torch.kernels import attention as kattn
+
+    rng = np.random.default_rng(32)
+    Smax, K, G, D = 2112, 4, 7, 128
+    q = _bf16(rng, (1, 1, K, G, D), cuda_device)
+    kc, vc = _bf16(rng, (1, Smax, K, D), cuda_device), _bf16(rng, (1, Smax, K, D), cuda_device)
+    pos = torch.tensor([2048], dtype=torch.int32, device=cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        want = kattn.decode_attention(q, kc, vc, pos)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = kattn.decode_attention(q, kc, vc, pos)
+    key = (cuda_device.index, side.cuda_stream)
+    held = kattn._tickets[key].numel()
+    B = held // K + 1
+    big = (_bf16(rng, (B, 1, K, G, 16), cuda_device), _bf16(rng, (B, 64, K, 16), cuda_device),
+           _bf16(rng, (B, 64, K, 16), cuda_device),
+           torch.full((B,), 63, dtype=torch.int32, device=cuda_device))
+    with torch.cuda.stream(side):
+        kattn.decode_attention(*big)
+    torch.cuda.synchronize()
+    assert kattn._tickets[key].numel() >= B * K > held
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def test_flash_attention_kernel_key_tile_edges_cross_lengths_on_card(cuda_device):
+    """Key lengths one below, at and one above the 128-key tile against
+    other query lengths, causal and not."""
+    from repro_torch.kernels import attention as kattn
+    from _torch_parity import attention64, kernel_within_yardstick
+
+    rng = np.random.default_rng(12)
+    for S, Skv in ((40, 127), (40, 128), (40, 129), (200, 129), (130, 255)):
+        q = _bf16(rng, (1, S, 2, 7, 128), cuda_device)
+        k, v = _bf16(rng, (1, Skv, 2, 128), cuda_device), _bf16(rng, (1, Skv, 2, 128), cuda_device)
+        for causal in (False, True):
+            got = kattn.flash_attention(q, k, v, causal=causal)
+            plain = ref.flash_attention_ref(q, k, v, causal, 64, 64)
+            ok, *errs = kernel_within_yardstick(got, plain, attention64(q, k, v, causal))
+            assert ok, (S, Skv, causal, errs)
 
 
 def test_attention_cpu_tensors_never_reach_the_kernels(cuda_device):

@@ -167,3 +167,79 @@ def test_yardstick_holds_each_row_to_its_own_scale():
     assert whole_err <= whole_limit  # one limit for the whole output lets it through
     ok, err_k, err_p, worst = kernel_within_yardstick(wrong, plain, want)
     assert not ok and worst["row"][1] >= 1024, worst
+
+
+def _flash_bf16_p(q, k, v, causal=True, tile=128):
+    """The wgmma flash kernel's arithmetic on the CPU: float32 scores and
+    softmax over key tiles of ``tile``, the running max per tile, and P
+    rounded once to bf16 where it meets V (one product, no high and low
+    parts), the output rounded to bf16 once."""
+    B, S, K, G, D = q.shape
+    Skv = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((B, K, G, S), -1e30)
+    l = torch.zeros((B, K, G, S))
+    acc = torch.zeros((B, K, G, S, D))
+    qpos = torch.arange(S)
+    for k0 in range(0, Skv, tile):
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf[:, k0:k0 + tile]) * D ** -0.5
+        if causal:
+            kpos = torch.arange(k0, min(k0 + tile, Skv))
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.to(torch.bfloat16).float(), vf[:, k0:k0 + tile])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).permute(0, 3, 1, 2, 4).to(torch.bfloat16)
+
+
+def test_single_bf16_product_of_p_meets_the_card_rule():
+    """The flash kernel multiplies P by V once, with P in bf16 (the first
+    kernel split P into two bf16 parts).  Emulated at a causal S = 1,000
+    with qwen2-7b's G = 7 and D = 128, it stays within the card check's
+    per-row rule against float64: twice the plain version's error plus one
+    bf16 ulp at the row's max |out|."""
+    from tests._torch_parity import attention64, kernel_within_yardstick
+
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(12, 1, 1000, 1, 7, 128))
+    want = attention64(q, k, v)
+    plain = ref.flash_attention_ref(q, k, v, True, 512, 1024)
+    ok, err_k, err_p, worst = kernel_within_yardstick(_flash_bf16_p(q, k, v), plain, want)
+    assert ok, (err_k, err_p, worst)
+    # the emulation is not the plain version: P's rounding shows
+    assert not torch.equal(_flash_bf16_p(q, k, v), plain)
+
+
+def _split_ranges(pos, Smax, split_len):
+    """The slots ``[start, end)`` each split of a row reads, as
+    ``csrc/attention.cu`` ``decode_attn_kernel`` cuts them: the valid slots
+    ``s <= pos`` (all ``Smax``, masked, where ``pos < 0``) in runs of
+    ``split_len``; a split that starts past them exits at once."""
+    n_valid = Smax if pos < 0 else min(pos + 1, Smax)
+    return [(s, min(s + split_len, n_valid)) for s in range(0, n_valid, split_len)]
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("Smax", [1, 16, 17, 300, 2112, 5000])
+@pytest.mark.parametrize("resident", [1, 132 * 3, 132 * 16])
+def test_decode_split_plan_covers_every_valid_slot_once(B, Smax, resident):
+    """The decode kernel's splits: every valid slot in exactly one split,
+    none past ``pos``, no more than the card holds at once where it holds
+    one split a pair, lengths in whole stages."""
+    K = 4
+    n_splits, split_len = kattn.decode_split_plan(B, K, Smax, resident)
+    assert 1 <= n_splits <= kattn.DECODE_MAX_SPLITS
+    assert split_len % kattn.DECODE_GROUP == 0 and n_splits * split_len >= Smax
+    assert (n_splits - 1) * split_len < Smax  # no split wholly past the cache
+    if resident >= B * K:
+        assert B * K * n_splits <= max(resident, B * K)
+    for pos in {-1, 0, Smax // 2, Smax - 1, Smax + 5}:
+        n_valid = Smax if pos < 0 else min(pos + 1, Smax)
+        ranges = _split_ranges(pos, Smax, split_len)
+        assert len(ranges) <= n_splits
+        covered = [s for a, b in ranges for s in range(a, b)]
+        assert covered == list(range(n_valid))  # each valid slot once, in order
+        assert all(a < b <= n_valid and a % split_len == 0 for a, b in ranges)
