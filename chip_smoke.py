@@ -72,7 +72,17 @@ read just after:
   against their plain versions and float64, the forward against prefill
   and decode, and the kernel path against plain and float32 paths, and
   the two kernels' wrapper times beside their device times alone (a CUDA
-  graph of launches; the ``lm_serve_times`` line; see :func:`_lm_serve`).
+  graph of launches; the ``lm_serve_times`` line; see :func:`_lm_serve`);
+* ``lm_train`` — the LM substrate's training step: starcoder2-3b at the
+  published widths and full depth, float32 master parameters from the
+  port's ``init``, bf16 compute with per-layer remat, 4 AdamW steps of
+  8 x 2,048 tokens in 2 microbatches through ``make_train_step`` (120
+  launches of the flash kernel with its log-sum-exp and 60 of the
+  backward kernel a step), a profiled step by kind of kernel; the backward
+  kernel and the log-sum-exp held against their plain versions and
+  float64, and one step of a 2-layer model through the kernels against
+  plain and float32 paths (``lm_train_kernels``, ``lm_train_checks``; see
+  :func:`_lm_train`).
 
 Wherever the grid and dense paths both count, their counts must be equal
 on every user: the port evaluates every edge with one rounding order.
@@ -1220,6 +1230,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     _ops(dev, eng, ops_qs, stream_s)
     del eng, mono_eng
     records += _lm_serve(dev, seed)
+    records += _lm_train(dev, seed)
     _log("kernels", bit_identical_raycast=True, bit_identical_grid=True, bit_identical_bvh=True,
          rank_checked_queries=len(rank_out), d2h_counts_ms=d2h_ms,
          d2h_counts_pinned_ms=d2h_pinned_ms, counts_mb=got.numel() * 4 / 1e6,
@@ -2323,17 +2334,19 @@ def _decode64(q, k_cache, v_cache, pos):
     return torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.double())
 
 
-def _yardstick(kernel, plain, want64) -> dict:
+def _yardstick(kernel, plain, want64, floor: float = 0.0) -> dict:
     """Row by row (every index but the last, the head dimension): the
     kernel's max abs error against float64 must be at most twice the plain
-    version's on that row plus one bf16 ulp at the row's own max |out|.
-    Logs the largest errors over all rows and the row nearest its limit."""
+    version's on that row plus one bf16 ulp at the row's own max |out|
+    (plus ``floor`` times the largest |out| of the whole tensor, where a
+    caller states one).  Logs the largest errors over all rows and the row
+    nearest its limit."""
     import torch
 
     err_k = (kernel.double() - want64).abs().amax(-1)
     err_p = (plain.double() - want64).abs().amax(-1)
     ulp = torch.exp2(torch.floor(torch.log2(want64.abs().amax(-1).clamp_min(1e-30))) - 7)
-    excess = err_k - (2 * err_p + ulp)
+    excess = err_k - (2 * err_p + ulp + floor * float(want64.abs().max()))
     i = int(excess.argmax())
     out = {"err_kernel": float(err_k.max()), "err_plain": float(err_p.max()),
            "kernel_vs_plain": float((kernel.float() - plain.float()).abs().max()),
@@ -2365,7 +2378,8 @@ def _kernel_device_ms(prof) -> dict:
     (elementwise, norms, RoPE, embedding, argmax, copies)."""
     import torch
 
-    kinds = {"flash_fwd": 0.0, "decode_attn": 0.0, "matmul": 0.0, "other": 0.0}
+    kinds = {"flash_fwd": 0.0, "flash_bwd": 0.0, "decode_attn": 0.0, "matmul": 0.0,
+             "other": 0.0}
     for evt in prof.key_averages():
         # the device's own events only: an operator's self device time
         # repeats the time of the kernels it launched
@@ -2378,9 +2392,12 @@ def _kernel_device_ms(prof) -> dict:
             continue
         name = evt.key
         # csrc/attention.cu: flash_fwd_wgmma_kernel (D = 64, 128) and
-        # flash_fwd_mma_kernel (other head dims); decode_attn_kernel
+        # flash_fwd_mma_kernel (other head dims); decode_attn_kernel;
+        # csrc/attention_bwd.cu: flash_bwd_{delta,dkdv,dq}_kernel
         if "flash_fwd" in name:
             kinds["flash_fwd"] += us / 1e3
+        elif "flash_bwd" in name:
+            kinds["flash_bwd"] += us / 1e3
         elif "decode_attn_kernel" in name:
             kinds["decode_attn"] += us / 1e3
         elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
@@ -2388,6 +2405,24 @@ def _kernel_device_ms(prof) -> dict:
         else:
             kinds["other"] += us / 1e3
     return kinds
+
+
+def _device_kernels_ms(prof, top: int = 12) -> dict:
+    """The ``top`` kernels of a profiled window by device milliseconds,
+    their names cut to 60 characters (row 9's three passes are
+    ``flash_bwd_{delta,dkdv,dq}_kernel``)."""
+    import torch
+
+    out = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if us and us > 0:
+            out[evt.key[:60]] = out.get(evt.key[:60], 0.0) + us / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1])[:top])
 
 
 def _start_profiler(notes: dict):
@@ -2757,6 +2792,398 @@ def _lm_serve(dev, seed: int) -> list:
          "plain_ms": decode_plain_ms, "bound_ms": decode_bound, "bound_by": decode_by,
          "library_ms": decode_lib_ms,
          "shape": {"B": B, "Smax": smax, "pos": LM_PROMPT, "K": K, "G": G, "D": D}},
+    ]
+
+
+# ---- the LM substrate's training step (lm_train) -----------------------------
+
+LM_TRAIN_ARCH = "starcoder2_3b"
+LM_TRAIN_BATCH = 8
+LM_TRAIN_SEQ = 2048
+LM_TRAIN_MICRO = 2
+LM_TRAIN_STEPS = 4  # the first is the warm-up: the kernels' and cuBLAS's first calls
+# lm_train_kernels, (B, S, Skv, K, G, D, causal): a microbatch of the phase,
+# the other wgmma head dim, a head dim of the mma.sync forward, and Skv != S
+# without the causal mask
+LM_TRAIN_SHAPES = ((4, 2048, 2048, 2, 12, 128, True), (2, 1000, 1000, 4, 7, 64, True),
+                   (2, 1000, 1000, 4, 7, 80, True), (2, 300, 700, 4, 7, 128, False))
+# lm_train_checks: one step at the published widths and 2 layers
+LM_CHECK_LAYERS = 2
+LM_CHECK_BATCH = 2
+LM_CHECK_SEQ = 512
+# lse against float64, per row: the kernel's error at most twice the plain
+# version's plus 2^-17 of max(|lse|, 1) (64 f32 ulps: sums of ex2.approx terms)
+LSE_ABS = 2.0 ** -17
+# Row 9's rows against float64 also get 2^-18 of the tensor's largest value
+# (32 f32 ulps there): a query that sees one key has an exact zero dq, as
+# dS = P (dP - delta) cancels, and f32 sums of dP and delta in another order
+# than the plain version's leave a few ulps of dP (1.7e-6 on the H100)
+BWD_FLOOR = 2.0 ** -18
+
+
+def _attention64_grads(q, k, v, do, causal: bool):
+    """Float64 exact softmax attention, one row b at a time: its output,
+    log-sum-exp ``[B, K, G, S]`` and the gradients of ``q``, ``k``, ``v``
+    for the output's gradient ``do`` by autograd; the yardstick of row 9 and
+    of row 7's ``lse`` (shares no code with the port)."""
+    import torch
+
+    B, S, K, G, D = q.shape
+    Skv = k.shape[1]
+    f64 = dict(dtype=torch.float64, device=q.device)
+    out, dq = torch.empty(q.shape, **f64), torch.empty(q.shape, **f64)
+    dk, dv = torch.empty(k.shape, **f64), torch.empty(k.shape, **f64)
+    lse = torch.empty((B, K, G, S), **f64)
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.arange(S, device=q.device)[:, None] >= torch.arange(Skv, device=q.device)
+    for b in range(B):
+        qb, kb, vb = (t[b].double().requires_grad_(True) for t in (q, k, v))
+        s = (torch.einsum("qkgd,skd->kgqs", qb, kb) * D ** -0.5).masked_fill(~mask, float("-inf"))
+        lse[b] = torch.logsumexp(s.detach(), dim=-1)
+        o = torch.einsum("kgqs,skd->qkgd", torch.softmax(s, dim=-1), vb)
+        out[b] = o.detach()
+        dq[b], dk[b], dv[b] = torch.autograd.grad(o, (qb, kb, vb), do[b].double())
+        del s, o
+    return out, lse, dq, dk, dv
+
+
+def _lse_check(kernel, plain, want64) -> dict:
+    """Each row's log-sum-exp: the kernel's error against float64 at most
+    twice the plain version's plus ``LSE_ABS`` of max(|lse|, 1)."""
+    err_k = (kernel.double() - want64).abs()
+    err_p = (plain.double() - want64).abs()
+    excess = err_k - (2 * err_p + LSE_ABS * want64.abs().clamp_min(1.0))
+    out = {"err_kernel": float(err_k.max()), "err_plain": float(err_p.max()),
+           "kernel_vs_plain": float((kernel - plain).abs().max()), "rows": excess.numel(),
+           "rows_over": int((excess > 0).sum()), "worst_excess": float(excess.max())}
+    if out["rows_over"]:
+        raise AssertionError(f"lse outside 2 x plain error + {LSE_ABS} x max(|lse|, 1): {out}")
+    return out
+
+
+def _flash_bwd_bound(B, S, Skv, K, G, D, causal: bool) -> tuple[float, str]:
+    """Row 9: five products of 2 B H D S Skv FLOPs (half under the causal
+    mask) on the bf16 tensor cores, or q, k, v, out, dO, dq, dk, dv (bf16) and
+    lse (f32) once over the memory's rate."""
+    H = K * G
+    t_ops = 10 * B * H * D * S * Skv * (0.5 if causal else 1.0) / PEAK_BF16_TC_S
+    t_bytes = (2 * (4 * B * S * H * D + 4 * B * Skv * K * D) + 4 * B * H * S) / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _rel_leaves(a: dict, b: dict) -> dict:
+    """Per leaf, max |a - b| over max |b|."""
+    return {n: float((a[n] - b[n]).abs().max()) / max(float(b[n].abs().max()), 1e-30)
+            for n in b}
+
+
+def _lm_train(dev, seed: int) -> list:
+    """starcoder2-3b at the published widths and full depth trained on the
+    card through ``build_model`` / ``init_train_state`` / ``make_train_step``:
+    float32 master parameters from the port's ``init``, bf16 compute with
+    the config's ``remat="full"``, ``AdamWConfig()``; 4 steps of 8 x 2,048
+    tokens from the token pipeline in 2 microbatches, each step 120
+    launches of row 7 (with ``lse``: forward and remat recompute) and 60 of
+    row 9 with no plain call, a finite loss and parameters that move; a
+    profiled step by kind of kernel.  Checks: rows 9 and 7's ``lse``
+    against their plain versions and float64 at the phase's shape and
+    awkward ones, two row-9 launches bit for bit; one step of a 2-layer
+    model at the published widths through the kernels against two plain
+    paths that differ only in their blocks and a float32 path (``lm_serve``
+    check 3's rule: the loss, ``grad_norm`` and each gradient leaf within
+    twice the plain paths' spread, and within twice the plain path's
+    distance to float32).  Returns rows 9's and 7's (with ``lse``)
+    records."""
+    import copy
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import ShardedTokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import ref
+    from repro_torch.models.common import Policy
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.steps.train import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(LM_TRAIN_ARCH)
+    G = cfg.n_heads // cfg.n_kv_heads
+    opt_cfg = AdamWConfig()
+    failures = []  # raised at the end, after every reading is logged
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    state = init_train_state(model, torch.Generator(dev).manual_seed(seed), opt_cfg)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    params = state["params"]
+    n_params = sum(p.numel() for p in params.parameters())
+    # the config counts one vector a norm; layernorm also has its bias
+    n_norms = 2 * cfg.n_layers + 1
+    want_params = cfg.param_count() + (n_norms * cfg.d_model if cfg.norm == "layernorm" else 0)
+    if n_params != want_params:
+        raise AssertionError(f"{n_params} parameters, the config counts {want_params}")
+    if not all(p.requires_grad and p.dtype == torch.float32 for p in params.parameters()):
+        raise AssertionError("init did not give trainable float32 parameters")
+    state_gb = 16 * n_params / 1e9  # parameters, gradients, m and v, float32
+
+    pipe = ShardedTokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ, global_batch=LM_TRAIN_BATCH, seed=seed))
+
+    def batch_at(i):
+        b = pipe.batch_at(i)
+        return {"tokens": torch.from_numpy(b["tokens"]).long().to(dev),
+                "labels": torch.from_numpy(b["labels"]).long().to(dev)}
+
+    step = make_train_step(model, opt_cfg, n_microbatches=LM_TRAIN_MICRO)
+    watched = {"embed": params.embed, "final_norm.scale": params.final_norm.scale,
+               "layer0.attn.wq": params.groups[0]["p0"][0].attn.wq,
+               "last.ffn.w_out": params.groups[0]["p0"][cfg.n_layers - 1].ffn.w_out}
+    before = {n: p.detach()[:64].clone() for n, p in watched.items()}
+    recompute = 1 if cfg.remat == "none" else 2  # remat runs each layer's forward again
+    want = {"flash_fwd": recompute * cfg.n_layers * LM_TRAIN_MICRO,
+            "flash_bwd": cfg.n_layers * LM_TRAIN_MICRO, "decode_attn": 0, "plain_calls": 0}
+    steps, totals = [], dict.fromkeys(want, 0)
+    for i in range(LM_TRAIN_STEPS):
+        batch = batch_at(i)
+        kattn.flash_launches = kattn.flash_bwd_launches = kattn.decode_launches = 0
+        ref.calls = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counted = {"flash_fwd": kattn.flash_launches, "flash_bwd": kattn.flash_bwd_launches,
+                   "decode_attn": kattn.decode_launches, "plain_calls": ref.calls}
+        steps.append({"step": i + 1, "wall_s": wall, "counted": counted,
+                      **{k: float(v) for k, v in metrics.items()}})
+        totals = {k: totals[k] + counted[k] for k in want}
+        if counted != want:
+            raise AssertionError(f"train step {i + 1}: {counted}, want {want}")
+        if not math.isfinite(steps[-1]["loss"]) or not math.isfinite(steps[-1]["grad_norm"]):
+            raise AssertionError(f"train step {i + 1}: non-finite loss or grad_norm {steps[-1]}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    moved = {n: float((p.detach()[:64] - before[n]).abs().max()) for n, p in watched.items()}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"parameters did not move: {moved}")
+    wall_s = sum(r["wall_s"] for r in steps[1:]) / (LM_TRAIN_STEPS - 1)
+
+    # a profiled step, and the optimizer's update alone (its kernels are
+    # among the step's "other")
+    notes = {}
+    batch = batch_at(LM_TRAIN_STEPS)
+    profile = None
+    for _ in range(2):  # the first profiled window pays the profiler's start
+        torch.cuda.synchronize(dev)
+        prof = _start_profiler(notes)
+        if prof is None:
+            break
+        state, _ = step(state, batch)
+        torch.cuda.synchronize(dev)
+        prof.stop()
+    if prof is not None:
+        kinds = _kernel_device_ms(prof)
+        zeros = {n: torch.zeros_like(p) for n, p in params.named_parameters()}
+        torch.cuda.synchronize(dev)
+        oprof = _start_profiler(notes)
+        adamw_update(params, zeros, state["opt"], opt_cfg)
+        torch.cuda.synchronize(dev)
+        del zeros
+        opt_ms = None
+        if oprof is not None:
+            oprof.stop()
+            opt_ms = sum(_kernel_device_ms(oprof).values())
+        busy = sum(kinds.values())
+        profile = {"device_ms_step": {**{k: v for k, v in kinds.items() if k != "other"},
+                                      "optimizer": opt_ms,
+                                      "rest": kinds["other"] - (opt_ms or 0.0)},
+                   "top_kernels_ms_step": _device_kernels_ms(prof),
+                   "device_busy_ms_step": busy, "unprofiled_ms_step": wall_s * 1e3,
+                   "idle_share": 1 - busy / (wall_s * 1e3)}
+    _log("lm_train", arch=cfg.name, describe=cfg.describe(), params=n_params,
+         state_gb_16_bytes_a_param=state_gb, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+         microbatches=LM_TRAIN_MICRO, remat=cfg.remat, init_s=init_s, steps=steps,
+         wall_s_step=wall_s, tokens_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ / wall_s,
+         max_memory_allocated_gb=peak_gb, memory_before_gb=mem_before / 1e9,
+         launches_per_step=want, launches_total=totals, moved=moved, profile=profile,
+         profile_notes=notes)
+    del state, params, watched, step, model, batch
+    torch.cuda.empty_cache()
+
+    # ---- rows 9 and 7 (lse) against their plain versions and float64 -----------
+    gen_rng = torch.Generator(dev).manual_seed(seed + 29)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen_rng, device=dev).to(torch.bfloat16)
+
+    checks, phase_inputs = {}, None
+    for B, S, Skv, K, Gs, D, causal in LM_TRAIN_SHAPES:
+        qa, ka, va, doa = randn(B, S, K, Gs, D), randn(B, Skv, K, D), randn(B, Skv, K, D), \
+            randn(B, S, K, Gs, D)
+        out_k, lse_k = kattn.flash_attention_fwd(qa, ka, va, causal=causal)
+        out_p, lse_p = ref.flash_attention_fwd_ref(qa, ka, va, causal, 512, 1024)
+        out64, lse64, dq64, dk64, dv64 = _attention64_grads(qa, ka, va, doa, causal)
+        g_k = kattn.flash_attention_bwd(qa, ka, va, out_k, lse_k, doa, causal=causal)
+        g_k2 = kattn.flash_attention_bwd(qa, ka, va, out_k, lse_k, doa, causal=causal)
+        g_p = ref.flash_attention_bwd_ref(qa, ka, va, out_k, lse_k, doa, causal, 512, 1024)
+        torch.cuda.synchronize(dev)
+        name = f"{B}x{S}x{Skv}x{K}x{Gs}x{D}" + ("" if causal else " non-causal")
+        checks[name] = {
+            "bit_identical_twice": all(torch.equal(a, b) for a, b in zip(g_k, g_k2)),
+            "out": _yardstick(out_k, out_p, out64), "lse": _lse_check(lse_k, lse_p, lse64),
+            **{f"d{n}": _yardstick(gk, gp, g64, BWD_FLOOR)
+               for n, gk, gp, g64 in zip("qkv", g_k, g_p, (dq64, dk64, dv64))}}
+        if not checks[name]["bit_identical_twice"]:
+            raise AssertionError(f"{name}: two row-9 launches differ")
+        if phase_inputs is None:
+            phase_inputs = (qa, ka, va, doa, out_k, lse_k, (B, S, Skv, K, Gs, D, causal))
+        del out64, lse64, dq64, dk64, dv64, g_k, g_k2, g_p
+        torch.cuda.empty_cache()
+
+    qa, ka, va, doa, out_k, lse_k, shape = phase_inputs
+    B, S, Skv, K, Gs, D, causal = shape
+    H = K * Gs
+    bwd_ms = _sync_ms(lambda: kattn.flash_attention_bwd(qa, ka, va, out_k, lse_k, doa), 10, dev)
+    bwd_device_ms = _graph_ms(
+        lambda: kattn.flash_attention_bwd(qa, ka, va, out_k, lse_k, doa), 10, dev)
+    bwd_plain_ms = _sync_ms(
+        lambda: ref.flash_attention_bwd_ref(qa, ka, va, out_k, lse_k, doa, True, 512, 1024), 2,
+        dev)
+    fwd_ms = _sync_ms(lambda: kattn.flash_attention_fwd(qa, ka, va), 10, dev)
+    fwd_device_ms = _graph_ms(lambda: kattn.flash_attention_fwd(qa, ka, va), 10, dev)
+    fwd_plain_ms = _sync_ms(lambda: ref.flash_attention_fwd_ref(qa, ka, va, True, 512, 1024), 2,
+                            dev)
+    qs = qa.permute(0, 2, 3, 1, 4).reshape(B, H, S, D).contiguous().requires_grad_(True)
+    ks = ka.transpose(1, 2).contiguous().requires_grad_(True)
+    vs = va.transpose(1, 2).contiguous().requires_grad_(True)
+    dos = doa.permute(0, 2, 3, 1, 4).reshape(B, H, S, D).contiguous()
+    fwd_lib_ms = _sync_ms(lambda: F.scaled_dot_product_attention(
+        qs.detach(), ks.detach(), vs.detach(), is_causal=True, enable_gqa=True), 10, dev)
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    bwd_lib_ms = _sync_ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), dos,
+                                                      retain_graph=True), 10, dev)
+    del qs, ks, vs, dos, o_sdpa
+    _log("lm_train_kernels", checks=checks,
+         times={"flash_bwd_device_ms": bwd_device_ms, "flash_fwd_lse_device_ms": fwd_device_ms},
+         shape={"B": B, "S": S, "K": K, "G": Gs, "D": D})
+    phase_err = checks[next(iter(checks))]
+    del qa, ka, va, doa, out_k, lse_k, phase_inputs
+    torch.cuda.empty_cache()
+
+    # ---- one step of a 2-layer model: kernel path against plain and f32 paths ----
+    cfg2 = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS)
+    params0 = build_model(cfg2, device=dev).init(torch.Generator(dev).manual_seed(seed + 31))
+    cpipe = ShardedTokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=LM_CHECK_SEQ, global_batch=LM_CHECK_BATCH, seed=seed + 1))
+    cb = cpipe.batch_at(0)
+    cbatch = {"tokens": torch.from_numpy(cb["tokens"]).long().to(dev),
+              "labels": torch.from_numpy(cb["labels"]).long().to(dev)}
+
+    def plain_attention():
+        """The plain versions in place of the training attention's wrappers."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(
+            kattn, "flash_attention_fwd",
+            lambda q, k, v, *, causal=True, q_block=512, kv_block=1024:
+            ref.flash_attention_fwd_ref(q, k, v, causal, q_block, kv_block)))
+        stack.enter_context(mock.patch.object(
+            kattn, "flash_attention_bwd",
+            lambda q, k, v, out, lse, do, *, causal=True, q_block=512, kv_block=1024:
+            ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, q_block, kv_block)))
+        return stack
+
+    def one_step(c, plain: bool):
+        """Loss, grad_norm and the accumulated gradients (before the
+        optimizer) of one train step from ``params0``."""
+        p = copy.deepcopy(params0)
+        st = {"params": p, "opt": adamw_init(p)}
+        grads = {}
+
+        def keep(g, s):
+            grads.update({n: t.detach().clone() for n, t in g.items()})
+            return g, s
+
+        run = make_train_step(build_model(c, device=dev), opt_cfg, compress_grads=keep)
+        kattn.flash_launches = kattn.flash_bwd_launches = 0
+        ref.calls = 0
+        with plain_attention() if plain else contextlib.nullcontext():
+            _, m = run(st, cbatch)
+        torch.cuda.synchronize(dev)
+        counted = (kattn.flash_launches, kattn.flash_bwd_launches, ref.calls)
+        return float(m["loss"]), float(m["grad_norm"]), grads, counted
+
+    k_loss, k_norm, k_grads, k_counted = one_step(cfg2, False)
+    p_loss, p_norm, p_grads, p_counted = one_step(cfg2, True)
+    o_loss, o_norm, o_grads, _ = one_step(
+        dataclasses.replace(cfg2, q_block=256, kv_block=256), True)
+    compute = Policy.compute_dtype
+    try:
+        Policy.compute_dtype = torch.float32
+        f_loss, f_norm, f_grads, _ = one_step(cfg2, True)
+    finally:
+        Policy.compute_dtype = compute
+    kp, pp = _rel_leaves(k_grads, p_grads), _rel_leaves(o_grads, p_grads)
+    k32, p32 = _rel_leaves(k_grads, f_grads), _rel_leaves(p_grads, f_grads)
+    # lm_serve's rule: the spread is the two plain paths' largest difference
+    # over the whole gradient (there over all steps), not each leaf's own,
+    # which for the norms' leaves is a handful of bf16 flips
+    spread = max(pp.values())
+    over = sorted(n for n in kp if kp[n] > LM_E2E_FACTOR * spread)
+    e2e = {"loss": {"kernel": k_loss, "plain": p_loss, "plain_blocks": o_loss, "f32": f_loss},
+           "grad_norm": {"kernel": k_norm, "plain": p_norm, "plain_blocks": o_norm,
+                         "f32": f_norm},
+           "grad_rel_max": {"kernel_vs_plain": max(kp.values()),
+                            "plain_blocks_vs_plain": max(pp.values()),
+                            "kernel_vs_f32": max(k32.values()), "plain_vs_f32": max(p32.values())},
+           "leaves_over_spread": over, "leaves": len(kp),
+           "leaves_over_own_spread": sorted(n for n in kp if kp[n] > LM_E2E_FACTOR * pp[n]),
+           "per_leaf": {n: {"kernel_vs_plain": kp[n], "plain_blocks_vs_plain": pp[n],
+                            "kernel_vs_f32": k32[n], "plain_vs_f32": p32[n]} for n in kp},
+           "counted": {"kernel": k_counted, "plain": p_counted}}
+    _log("lm_train_checks", layers=LM_CHECK_LAYERS, batch=LM_CHECK_BATCH, seq=LM_CHECK_SEQ,
+         **e2e)
+    del params0, k_grads, p_grads, o_grads, f_grads
+    torch.cuda.empty_cache()
+    if k_counted != (recompute * LM_CHECK_LAYERS, LM_CHECK_LAYERS, 0) or p_counted[:2] != (0, 0):
+        failures.append(f"check paths' launches: kernel {k_counted}, plain {p_counted}")
+    for what, (k_v, p_v, o_v) in {"loss": (k_loss, p_loss, o_loss),
+                                  "grad_norm": (k_norm, p_norm, o_norm)}.items():
+        if abs(k_v - p_v) > LM_E2E_FACTOR * abs(o_v - p_v):
+            failures.append(f"{what}: kernel path {k_v} against plain {p_v}, more than "
+                            f"{LM_E2E_FACTOR} x the plain paths' spread {abs(o_v - p_v)}")
+    if over:
+        failures.append(f"gradient leaves beyond {LM_E2E_FACTOR} x the plain paths' spread "
+                        f"{spread}: {over}")
+    if max(k32.values()) > LM_E2E_FACTOR * max(p32.values()):
+        failures.append(f"kernel path's gradients against float32 {max(k32.values())} > "
+                        f"{LM_E2E_FACTOR} x the plain path's {max(p32.values())}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    src = "src/repro_torch/csrc/attention_bwd.cu"
+    bwd_bound, bwd_by = _flash_bwd_bound(B, S, Skv, K, Gs, D, causal)
+    fwd_bound, fwd_by = _flash_bound(B, S, K, Gs, D)
+    shape = {"B": B, "S": S, "K": K, "G": Gs, "D": D}
+    return [
+        {"name": "flash_bwd", "route": "cuda", "source": src,
+         "replaces": "src/repro/models/attention.py:223", "launches": totals["flash_bwd"],
+         "max_abs_err": max(phase_err[f"d{n}"]["kernel_vs_plain"] for n in "qkv"),
+         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound, "bound_by": bwd_by,
+         "library_ms": bwd_lib_ms, "shape": shape},
+        {"name": "flash_fwd_lse", "route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
+         "replaces": "src/repro/models/attention.py:147", "launches": totals["flash_fwd"],
+         "max_abs_err": phase_err["out"]["kernel_vs_plain"], "ms": fwd_ms,
+         "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
+         "library_ms": fwd_lib_ms, "shape": shape},
     ]
 
 

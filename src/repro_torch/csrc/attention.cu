@@ -23,6 +23,14 @@
 //           (every slot, all masked, where pos[b] < 0, as JAX's softmax
 //           then gives their plain mean).
 // The softmax runs in base 2: exp(x - m) as exp2(x log2 e - m log2 e).
+// Where flash_fwd is given an lse pointer (training: the forward of
+// flash_attention_fused, src/repro/models/attention.py:147-220), both
+// kernels also write each row's log-sum-exp of the scaled scores, in
+// natural log units, m + log(max(l, 1e-30)) as _flash_fwd_loop gives it,
+// into lse [B, K, G, S] f32 (row (b, i, k, g) at ((b K + k) G + g) S + i):
+// the wgmma kernel's running max is in base-2 units, so it writes
+// (m + log2(max(l, 1e-30))) ln 2.  The backward (attention_bwd.cu) turns it
+// back into base 2 and recomputes P as exp2(s scale log2 e - lse log2 e).
 //
 // flash_fwd.  What bounds it: operations (4 B H D S^2 / 2 with the
 // causal half, against 989 TFLOP/s of bf16 tensor cores; its bytes, q, k,
@@ -91,6 +99,7 @@ namespace {
 
 constexpr float kNeg = -1e30f;  // the JAX package's _NEG
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // cudaFuncSetAttribute for a kernel's dynamic shared memory, once per
 // kernel and device (a host call of about a microsecond).
@@ -139,8 +148,8 @@ constexpr int kFaKeys = 64;           // keys of a tile
 template <int NK>  // D = 16 * NK
 __global__ void __launch_bounds__(kFaThreads) flash_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int S, int Skv,
-    int K, int G, int bq, int causal, float scale) {
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int S, int Skv, int K, int G, int bq, int causal, float scale) {
   constexpr int D = 16 * NK;
   constexpr int LD = D + 8;  // padded row: the fragment loads hit 32 banks
   constexpr int CH = D / 8;  // 16-byte chunks of a row
@@ -301,6 +310,9 @@ __global__ void __launch_bounds__(kFaThreads) flash_fwd_mma_kernel(
     if (r >= rows) continue;
     const float inv = half ? inv1 : inv0;
     const int s_pos = q0 + r / G, g = r % G;
+    if (lse != nullptr && tig == 0)  // m in natural units of the scaled scores
+      lse[(((size_t)b * K + kh) * G + g) * S + s_pos] =
+          (half ? m1 : m0) + logf(fmaxf(half ? l1 : l0, 1e-30f));
     __nv_bfloat16* dst = out + ((((size_t)b * S + s_pos) * K + kh) * G + g) * D + tig * 2;
 #pragma unroll
     for (int nd = 0; nd < 2 * NK; ++nd) {
@@ -313,16 +325,16 @@ __global__ void __launch_bounds__(kFaThreads) flash_fwd_mma_kernel(
 
 template <int NK>
 cudaError_t launch_flash_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                         __nv_bfloat16* out, int B, int S, int Skv, int K, int G, int causal,
-                         float scale, cudaStream_t stream) {
+                         __nv_bfloat16* out, float* lse, int B, int S, int Skv, int K, int G,
+                         int causal, float scale, cudaStream_t stream) {
   constexpr int D = 16 * NK;
   const size_t smem = (size_t)(kFaRows + 2 * kFaKeys) * (D + 8) * sizeof(__nv_bfloat16);
   const cudaError_t err = smem_limit_once<flash_fwd_mma_kernel<NK>>(smem);
   if (err != cudaSuccess) return err;
   const int bq = kFaRows / G;
   const dim3 grid((unsigned)((S + bq - 1) / bq), (unsigned)K, (unsigned)B);
-  flash_fwd_mma_kernel<NK><<<grid, kFaThreads, smem, stream>>>(q, k, v, out, S, Skv, K, G, bq,
-                                                           causal, scale);
+  flash_fwd_mma_kernel<NK><<<grid, kFaThreads, smem, stream>>>(q, k, v, out, lse, S, Skv, K, G,
+                                                               bq, causal, scale);
   return cudaGetLastError();
 }
 
@@ -517,8 +529,9 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 template <int D>
 __global__ void __launch_bounds__(kFwThreads, 1) flash_fwd_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out, int S, int Skv,
-    int K, int G, int npos, int n_qblocks, int n_pairs, int causal, float scale_log2) {
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int S, int Skv, int K, int G, int npos, int n_qblocks, int n_pairs,
+    int causal, float scale_log2) {
   using L = FwSmem<D>;
   constexpr int kHalfBytes = L::kHalfRows * 128;
   extern __shared__ __align__(1024) unsigned char fw_smem[];
@@ -780,6 +793,9 @@ __global__ void __launch_bounds__(kFwThreads, 1) flash_fwd_wgmma_kernel(
         if (r >= rows) continue;
         const float inv = half ? inv1 : inv0;
         const int s_pos = q0 + r / G, g = r % G;
+        if (lse != nullptr && col == 0)  // m in base-2 units of the scaled scores
+          lse[(((size_t)w.b * K + w.kh) * G + g) * S + s_pos] =
+              ((half ? m1 : m0) + log2f(fmaxf(half ? l1 : l0, 1e-30f))) * kLn2;
         __nv_bfloat16* dst =
             out + ((((size_t)w.b * S + s_pos) * K + w.kh) * G + g) * D + col;
 #pragma unroll
@@ -830,8 +846,9 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, const cuuint64_t (&dims)
 
 template <int D>
 cudaError_t launch_flash_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                               const __nv_bfloat16* v, __nv_bfloat16* out, int B, int S, int Skv,
-                               int K, int G, int causal, float scale, cudaStream_t stream) {
+                               const __nv_bfloat16* v, __nv_bfloat16* out, float* lse, int B,
+                               int S, int Skv, int K, int G, int causal, float scale,
+                               cudaStream_t stream) {
   const int npos = kFwRows / G;
   const cuuint64_t e = sizeof(__nv_bfloat16);
   CUtensorMap tq, tk, tv;
@@ -857,7 +874,7 @@ cudaError_t launch_flash_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   // persistent: one CTA an SM, each walking the work items a grid's stride apart
   const unsigned blocks = (unsigned)(items < sms ? items : sms);
   flash_fwd_wgmma_kernel<D><<<blocks, kFwThreads, FwSmem<D>::kBytes, stream>>>(
-      tq, tk, tv, out, S, Skv, K, G, npos, n_qblocks, B * K, causal, scale * kLog2e);
+      tq, tk, tv, out, lse, S, Skv, K, G, npos, n_qblocks, B * K, causal, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -1198,26 +1215,29 @@ extern "C" {
 
 // Launches flash_fwd on `stream`.  D = 16 * nk with 1 <= nk <= 8, G <= 128;
 // all pointers 16-byte aligned (the wrapper checks).  D = 64 and 128 run the
-// wgmma kernel, the other head dims the mma.sync one.  Returns a cudaError_t.
-int flash_fwd(const void* q, const void* k, const void* v, void* out, int B, int S, int Skv,
-              int K, int G, int D, int causal, float scale, void* stream) {
+// wgmma kernel, the other head dims the mma.sync one.  `lse` is null, or
+// [B, K, G, S] f32 that receives each row's log-sum-exp (natural log units).
+// Returns a cudaError_t.
+int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
+              int Skv, int K, int G, int D, int causal, float scale, void* stream) {
   if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || G <= 0 || G > kFaRows || D % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(out);
+  auto* lp = static_cast<float*>(lse);
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (D / 16) {
-    case 1: err = launch_flash_mma<1>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 2: err = launch_flash_mma<2>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 3: err = launch_flash_mma<3>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 4: err = launch_flash_wgmma<64>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 5: err = launch_flash_mma<5>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 6: err = launch_flash_mma<6>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 7: err = launch_flash_mma<7>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
-    case 8: err = launch_flash_wgmma<128>(qp, kp, vp, op, B, S, Skv, K, G, causal, scale, st); break;
+    case 1: err = launch_flash_mma<1>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
+    case 2: err = launch_flash_mma<2>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
+    case 3: err = launch_flash_mma<3>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
+    case 4: err = launch_flash_wgmma<64>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
+    case 5: err = launch_flash_mma<5>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
+    case 6: err = launch_flash_mma<6>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
+    case 7: err = launch_flash_mma<7>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
+    case 8: err = launch_flash_wgmma<128>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

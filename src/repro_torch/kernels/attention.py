@@ -1,14 +1,19 @@
-"""Launch the LM attention kernels (``csrc/attention.cu``).
+"""Launch the LM attention kernels (``csrc/attention.cu``,
+``csrc/attention_bwd.cu``).
 
 :func:`flash_attention` (prefill and forward; row 7 of the kernel table,
 replacing the jnp ``lax.scan`` of ``repro/models/attention.py``
 ``flash_attention``) and :func:`decode_attention` (decode; row 8,
 replacing ``decode_attention`` there) take the JAX package's
-grouped-query layout.  A CPU tensor runs the plain version
-(:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the kernel on
-the current stream or raises: a failed build or launch is never caught.
-The kernels take contiguous bf16 tensors, 16-byte aligned; anything else
-on the card raises ``ValueError``.
+grouped-query layout.  Training takes :func:`flash_attention_fwd` (row 7
+that also writes each row's log-sum-exp, the forward of
+``flash_attention_fused``) and :func:`flash_attention_bwd` (row 9,
+replacing the jnp ``_flash_fused_bwd``).  A CPU tensor runs the plain
+version (:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the
+kernel on the current stream or raises: a failed build or launch is never
+caught.  The kernels take contiguous bf16 tensors, 16-byte aligned, and
+``lse`` contiguous float32; anything else on the card raises
+``ValueError``.
 
 The decode kernel cuts each (row, KV head) pair's cache slots into splits
 (:func:`decode_split_plan`: as many as fill the card in one wave) and
@@ -33,10 +38,14 @@ from repro_torch.kernels import ref as _ref
 
 __all__ = [
     "flash_attention",
+    "flash_attention_fwd",
+    "flash_attention_bwd",
     "decode_attention",
     "flash_attention_kernel_call",
+    "flash_attention_bwd_kernel_call",
     "decode_attention_kernel_call",
     "flash_launches",
+    "flash_bwd_launches",
     "decode_launches",
     "FLASH_MAX_HEAD_DIM",
     "FLASH_MAX_GROUP",
@@ -49,8 +58,10 @@ __all__ = [
 ]
 
 #: Launches by each wrapper since the last reset to 0 (one per launch,
-#: nowhere else; the decode kernel's merge pass belongs to its launch).
+#: nowhere else; the decode kernel's merge pass belongs to its launch, and
+#: the backward's three passes to its one).
 flash_launches = 0
+flash_bwd_launches = 0
 decode_launches = 0
 
 #: What the kernels take: head dim a multiple of 16 up to 128 and at most
@@ -67,6 +78,7 @@ DECODE_GROUP = 16
 DECODE_MAX_SPLITS = 128
 
 _LIB: ctypes.CDLL | None = None
+_BWD_LIB: ctypes.CDLL | None = None
 _decode_fill: dict[tuple[int, int], int] = {}  # (device, D) -> SMs x blocks an SM holds
 # (device, stream) -> int32 tickets, zero between launches; outgrown ones are
 # kept in _retired for the graphs that captured them
@@ -79,7 +91,7 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = build.load("attention")
-        lib.flash_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        lib.flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
         lib.flash_fwd.restype = ctypes.c_int
         lib.decode_attn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
@@ -91,6 +103,17 @@ def _lib() -> ctypes.CDLL:
         lib.attention_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = build.load("attention_bwd")
+        lib.flash_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p]
+        lib.flash_bwd.restype = ctypes.c_int
+        _BWD_LIB = lib
+    return _BWD_LIB
 
 
 def decode_split_plan(B: int, K: int, Smax: int, resident_blocks: int) -> tuple[int, int]:
@@ -155,6 +178,27 @@ def flash_attention(q, k, v, *, causal: bool = True, q_block: int = 512,
     return flash_attention_kernel_call(q, k, v, causal=causal)
 
 
+def flash_attention_fwd(q, k, v, *, causal: bool = True, q_block: int = 512,
+                        kv_block: int = 1024):
+    """:func:`flash_attention` and each row's log-sum-exp: ``(out, lse)``,
+    ``lse [B, K, G, S]`` float32 in natural log units (the forward of
+    ``flash_attention_fused``).  On the CPU the plain version."""
+    if q.device.type == "cpu":
+        return _ref.flash_attention_fwd_ref(q, k, v, causal, q_block, kv_block)
+    return flash_attention_kernel_call(q, k, v, causal=causal, want_lse=True)
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True, q_block: int = 512,
+                        kv_block: int = 1024):
+    """``(dq, dk, dv)`` of the attention whose forward gave ``out`` and
+    ``lse`` (:func:`flash_attention_fwd`), for the output's gradient ``do``,
+    in the inputs' dtypes.  On the CPU the plain version, whose blocks
+    ``q_block``/``kv_block`` pick; the kernel tiles by itself."""
+    if q.device.type == "cpu":
+        return _ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, q_block, kv_block)
+    return flash_attention_bwd_kernel_call(q, k, v, out, lse, do, causal=causal)
+
+
 def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
     """One token per row, ``q [B, 1, K, G, D]``, against the caches
     ``[B, Smax, K, D]`` up to slot ``pos [B]`` (int32) inclusive.  On the
@@ -164,13 +208,7 @@ def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
     return decode_attention_kernel_call(q, k_cache, v_cache, pos)
 
 
-def flash_attention_kernel_call(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """Row 7 on the card: ``[B, S, K, G, D]`` bf16.  Does not synchronize."""
-    global flash_launches
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"the flash attention kernel needs CUDA tensors, got {dev}")
-    _check_bf16(dev, q=q, k=k, v=v)
+def _check_flash_shapes(q, k, v) -> None:
     if q.ndim != 5 or k.ndim != 4:
         raise ValueError(f"q must be [B, S, K, G, D] and k, v [B, Skv, K, D], "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}")
@@ -182,19 +220,67 @@ def flash_attention_kernel_call(q, k, v, *, causal: bool = True) -> torch.Tensor
     if D % 16 or not 16 <= D <= FLASH_MAX_HEAD_DIM or G > FLASH_MAX_GROUP:
         raise ValueError(f"the flash kernel takes D a multiple of 16 up to "
                          f"{FLASH_MAX_HEAD_DIM} and G <= {FLASH_MAX_GROUP}, got D={D}, G={G}")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    if Skv == 0:
+    if Skv == 0 and q.numel():
         raise ValueError("the flash kernel needs at least one key")
-    lib = _lib()
+
+
+def flash_attention_kernel_call(q, k, v, *, causal: bool = True, want_lse: bool = False):
+    """Row 7 on the card: ``[B, S, K, G, D]`` bf16, and with ``want_lse``
+    also ``lse [B, K, G, S]`` float32 (``(out, lse)``).  Does not
+    synchronize."""
+    global flash_launches
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the flash attention kernel needs CUDA tensors, got {dev}")
+    _check_bf16(dev, q=q, k=k, v=v)
+    _check_flash_shapes(q, k, v)
+    B, S, K, G, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, K, G, S), dtype=torch.float32, device=dev) if want_lse else None
+    if out.numel():
+        lib = _lib()
+        with torch.cuda.device(dev):
+            rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               0 if lse is None else lse.data_ptr(), B, S, k.shape[1], K, G, D,
+                               int(causal), D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, rc, "flash_fwd")
+        flash_launches += 1
+    return (out, lse) if want_lse else out
+
+
+def flash_attention_bwd_kernel_call(q, k, v, out, lse, do, *, causal: bool = True):
+    """Row 9 on the card: ``(dq [B, S, K, G, D], dk, dv [B, Skv, K, D])``
+    bf16 from the forward's ``out`` (bf16, like ``q``) and ``lse [B, K, G,
+    S]`` (float32) and the output's gradient ``do`` (bf16, like ``q``).
+    Three passes in one call (``delta``, then dK and dV, then dQ), which
+    counts one launch.  Deterministic: no atomics.  Does not synchronize."""
+    global flash_bwd_launches
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the flash attention backward kernel needs CUDA tensors, got {dev}")
+    _check_bf16(dev, q=q, k=k, v=v, out=out, do=do)
+    _check_flash_shapes(q, k, v)
+    B, S, K, G, D = q.shape
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out and do must be {tuple(q.shape)}, got {tuple(out.shape)}, "
+                         f"{tuple(do.shape)}")
+    if (lse.device != dev or lse.dtype != torch.float32 or lse.shape != (B, K, G, S)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous float32 [{B}, {K}, {G}, {S}] on {dev}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, K, G, S), dtype=torch.float32, device=dev)  # rowsum(dO * O)
+    lib = _bwd_lib()
     with torch.cuda.device(dev):
-        rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, Skv,
-                           K, G, D, int(causal), D ** -0.5,
-                           torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, rc, "flash_fwd")
-    flash_launches += 1
-    return out
+        rc = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), B, S, k.shape[1], K, G, D, int(causal),
+                           D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(_lib(), rc, "flash_bwd")
+    flash_bwd_launches += 1
+    return dq, dk, dv
 
 
 def decode_attention_kernel_call(q, k_cache, v_cache, pos) -> torch.Tensor:

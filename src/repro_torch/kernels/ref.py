@@ -32,6 +32,11 @@ inputs, scaled by ``D ** -0.5``, masked at ``-1e30``; the flash version
 is its running ``(max, sum, acc)`` over ``_pick_block`` blocks, every key
 block scanned masked, and ``acc / max(sum, 1e-30)``; the decode version
 a softmax over the whole cache.  Both cast the output to ``q``'s dtype.
+:func:`flash_attention_fwd_ref` is the flash version that also returns
+the log-sum-exp ``lse [B, K, G, S]`` (``_flash_fwd_loop``), and
+:func:`flash_attention_bwd_ref` the fused backward (``_flash_fused_bwd``,
+block for block): the plain versions of row 7 with its ``lse`` and of
+row 9 (``csrc/attention_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ __all__ = [
     "grid_cells_count_batch_ref",
     "bvh_hit_counts_ref",
     "flash_attention_ref",
+    "flash_attention_fwd_ref",
+    "flash_attention_bwd_ref",
     "decode_attention_ref",
 ]
 
@@ -337,17 +344,14 @@ def _pick_block(S: int, pref: int) -> int:
     return max(b, 1)
 
 
-def flash_attention_ref(q, k, v, causal: bool = True, q_block: int = 512,
-                        kv_block: int = 1024):
-    """Blockwise attention: ``q [B, S, K, G, D]``, ``k``/``v [B, Skv, K, D]``
-    -> ``[B, S, K, G, D]`` in ``q``'s dtype (``repro.models.attention``
-    ``flash_attention`` without ``causal_skip``)."""
-    _count()
+def _flash_fwd(q, k, v, causal: bool, q_block: int, kv_block: int):
+    """``(out [B, S, K, G, D] in q's dtype, lse [B, K, G, S] f32)``."""
     B, S, K, G, D = q.shape
     Skv = k.shape[1]
     bq, bk = _pick_block(S, q_block), _pick_block(Skv, kv_block)
     scale = D ** -0.5
     out = torch.empty_like(q)
+    lse = torch.empty((B, K, G, S), dtype=torch.float32, device=q.device)
     for q0 in range(0, S, bq):
         q_blk = q[:, q0:q0 + bq].float()
         m = torch.full((B, K, G, bq), _NEG, dtype=torch.float32, device=q.device)
@@ -368,7 +372,65 @@ def flash_attention_ref(q, k, v, causal: bool = True, q_block: int = 512,
             m = m_new
         o = acc / torch.clamp(l[..., None], min=1e-30)
         out[:, q0:q0 + bq] = o.permute(0, 3, 1, 2, 4).to(q.dtype)
-    return out
+        lse[..., q0:q0 + bq] = m + torch.log(torch.clamp(l, min=1e-30))
+    return out, lse
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, q_block: int = 512,
+                        kv_block: int = 1024):
+    """Blockwise attention: ``q [B, S, K, G, D]``, ``k``/``v [B, Skv, K, D]``
+    -> ``[B, S, K, G, D]`` in ``q``'s dtype (``repro.models.attention``
+    ``flash_attention`` without ``causal_skip``)."""
+    _count()
+    return _flash_fwd(q, k, v, causal, q_block, kv_block)[0]
+
+
+def flash_attention_fwd_ref(q, k, v, causal: bool = True, q_block: int = 512,
+                            kv_block: int = 1024):
+    """:func:`flash_attention_ref` and its log-sum-exp: ``(out, lse)``,
+    ``lse [B, K, G, S]`` float32, ``m + log(max(l, 1e-30))`` in natural
+    units (``repro.models.attention`` ``_flash_fwd_loop``, its output cast
+    to ``q``'s dtype as ``flash_attention_fused`` returns it)."""
+    _count()
+    return _flash_fwd(q, k, v, causal, q_block, kv_block)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = True, q_block: int = 512,
+                            kv_block: int = 1024):
+    """The fused backward (``repro.models.attention`` ``_flash_fused_bwd``,
+    block for block): ``delta = rowsum(dO * O)`` from ``out`` as given (the
+    forward's output in its dtype), ``p = exp(s - lse)`` under the causal
+    mask, ``ds = p * (dp - delta)``, every sum in float32, and ``(dq, dk,
+    dv)`` returned in the inputs' dtypes."""
+    _count()
+    B, S, K, G, D = q.shape
+    Skv = k.shape[1]
+    bq, bk = _pick_block(S, q_block), _pick_block(Skv, kv_block)
+    scale = D ** -0.5
+    qf, dof = q.float(), do.float()
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", dof, out.float())  # [B, K, G, S]
+    dq = torch.empty((B, S, K, G, D), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((B, Skv, K, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, Skv, K, D), dtype=torch.float32, device=q.device)
+    for q0 in range(0, S, bq):
+        q_blk, do_blk = qf[:, q0:q0 + bq], dof[:, q0:q0 + bq]
+        lse_blk, delta_blk = lse[..., q0:q0 + bq], delta[..., q0:q0 + bq]
+        dq_blk = torch.zeros((B, bq, K, G, D), dtype=torch.float32, device=q.device)
+        for k0 in range(0, Skv, bk):
+            k_blk, v_blk = k[:, k0:k0 + bk].float(), v[:, k0:k0 + bk].float()
+            s = torch.einsum("bqkgd,bskd->bkgqs", q_blk, k_blk) * scale
+            if causal:
+                qpos = torch.arange(q0, q0 + bq, device=q.device)
+                kpos = torch.arange(k0, k0 + bk, device=q.device)
+                s = torch.where((qpos[:, None] >= kpos[None, :])[None, None, None], s, _NEG)
+            p = torch.exp(s - lse_blk[..., None])  # [B, K, G, bq, bk]
+            dv[:, k0:k0 + bk] += torch.einsum("bkgqs,bqkgd->bskd", p, do_blk)
+            dp = torch.einsum("bqkgd,bskd->bkgqs", do_blk, v_blk)
+            ds = p * (dp - delta_blk[..., None])
+            dq_blk += torch.einsum("bkgqs,bskd->bqkgd", ds, k_blk) * scale
+            dk[:, k0:k0 + bk] += torch.einsum("bkgqs,bqkgd->bskd", ds, q_blk) * scale
+        dq[:, q0:q0 + bq] = dq_blk
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q, k_cache, v_cache, pos):

@@ -16,9 +16,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 __all__ = [
     "Policy",
+    "param",
     "dense_init",
     "rmsnorm",
     "layernorm",
@@ -40,6 +42,13 @@ class Policy:
 
     param_dtype = torch.float32
     compute_dtype = torch.bfloat16
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    """``t`` as a parameter: trainable when it is held in
+    ``Policy.param_dtype`` (float32 master parameters), frozen otherwise
+    (serving weights in the compute dtype)."""
+    return nn.Parameter(t, requires_grad=t.dtype == Policy.param_dtype)
 
 
 def dense_init(shape, generator: torch.Generator, scale: float | None = None,

@@ -11,6 +11,18 @@ group's ``repeat`` layers where the JAX tree stacks them on a leading
 * :func:`decoder_prefill` — the last position's logits and the cache;
 * :func:`decoder_decode` — one token against the cache (``serve_step``).
 
+Parameters held in ``Policy.param_dtype`` (float32 master parameters, what
+``init_decoder`` draws by default) are trainable; serving weights in the
+compute dtype are frozen.  Under grad mode with trainable parameters the
+forward builds the graph of training: its attention is
+``flash_attention_fused`` (row 7 with its log-sum-exp, and row 9 for the
+backward) whatever ``cfg.flash_vjp`` says, since JAX's two branches give
+the same gradient up to rounding, and ``cfg.remat`` maps to each layer:
+``"full"`` recomputes the layer in the backward
+(``torch.utils.checkpoint``), ``"dots"`` recomputes all but the matrix
+products' outputs (a selective checkpoint), ``"none"`` keeps everything.
+Prefill and decode run without grad.
+
 What the JAX package does and this repeats: the head packing
 ``h = k * G + g``; biases added in the compute dtype; every weight cast
 to the activations' dtype at use (free for serving weights already held
@@ -27,15 +39,24 @@ raise ``NotImplementedError``: they are later slices of the port.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import attention as kattn
+from repro_torch.models import attention as mattn
 from repro_torch.models.common import (
     Policy,
     dense_init,
     norm_apply,
+    param,
     rope_tables,
     rotate,
     take_embedding,
@@ -76,17 +97,13 @@ def check_supported(cfg: ArchConfig) -> None:
                 raise NotImplementedError(f"{cfg.name}: layer {spec} is not ported")
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class Norm(nn.Module):
     """``scale`` (and ``bias`` for layernorm); applied as ``1 + scale``."""
 
     def __init__(self, scale: torch.Tensor, bias: torch.Tensor | None = None):
         super().__init__()
-        self.scale = _param(scale)
-        self.bias = None if bias is None else _param(bias)
+        self.scale = param(scale)
+        self.bias = None if bias is None else param(bias)
 
 
 class Attention(nn.Module):
@@ -95,10 +112,10 @@ class Attention(nn.Module):
 
     def __init__(self, wq, wk, wv, wo, bq=None, bk=None, bv=None):
         super().__init__()
-        self.wq, self.wk, self.wv, self.wo = _param(wq), _param(wk), _param(wv), _param(wo)
-        self.bq = None if bq is None else _param(bq)
-        self.bk = None if bk is None else _param(bk)
-        self.bv = None if bv is None else _param(bv)
+        self.wq, self.wk, self.wv, self.wo = param(wq), param(wk), param(wv), param(wo)
+        self.bq = None if bq is None else param(bq)
+        self.bk = None if bk is None else param(bk)
+        self.bv = None if bv is None else param(bv)
 
 
 class DecoderLayer(nn.Module):
@@ -116,9 +133,9 @@ class Decoder(nn.Module):
     def __init__(self, embed, final_norm: Norm, groups: list[dict[str, list[DecoderLayer]]],
                  unembed=None):
         super().__init__()
-        self.embed = _param(embed)
+        self.embed = param(embed)
         self.final_norm = final_norm
-        self.unembed = None if unembed is None else _param(unembed)
+        self.unembed = None if unembed is None else param(unembed)
         self.groups = nn.ModuleList(
             nn.ModuleDict({key: nn.ModuleList(layers) for key, layers in g.items()})
             for g in groups)
@@ -216,9 +233,39 @@ def _ffn_residual(layer: DecoderLayer, x: torch.Tensor, cfg: ArchConfig) -> torc
 def _layer_forward(layer: DecoderLayer, x, rope, cfg: ArchConfig):
     """Returns ``(x, k, v)``: the layer's output and its cache entries."""
     q, k, v = _qkv(layer.attn, _norm(cfg, x, layer.norm1), rope, cfg)
-    o = kattn.flash_attention(q, k, v, causal=True, q_block=cfg.q_block, kv_block=cfg.kv_block)
+    if torch.is_grad_enabled() and layer.attn.wq.requires_grad:
+        o = mattn.flash_attention_fused(q, k, v, True, cfg.q_block, cfg.kv_block, cfg.q_parallel)
+    else:
+        o = kattn.flash_attention(q, k, v, causal=True, q_block=cfg.q_block,
+                                  kv_block=cfg.kv_block)
     x = x + _attn_out(layer.attn, o, cfg)
     return _ffn_residual(layer, x, cfg), k, v
+
+
+#: The outputs a ``"dots"`` checkpoint keeps (JAX's ``dots_saveable``):
+#: matrix products, as ``x @ w`` and the plain attention's einsums reach
+#: the dispatcher.
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer_train(layer: DecoderLayer, x, rope, cfg: ArchConfig):
+    """The layer's output under ``cfg.remat`` (the JAX scan body's
+    ``jax.checkpoint``, taken per layer)."""
+    def run(x_):
+        return _layer_forward(layer, x_, rope, cfg)[0]
+
+    if cfg.remat == "none":
+        return run(x)
+    if cfg.remat == "dots":
+        return checkpoint(run, x, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _dots_policy))
+    return checkpoint(run, x, use_reentrant=False)
 
 
 def _layers(params: Decoder, cfg: ArchConfig):
@@ -242,6 +289,9 @@ def _run(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig, cache_len: int 
         caches = init_cache(cfg, B, cache_len, dtype=x.dtype, device=x.device)["groups"]
         keep = min(S, cache_len)  # JAX keeps the last slots of a longer prefill
     for gi, key, r, layer in _layers(params, cfg):
+        if caches is None and torch.is_grad_enabled() and layer.attn.wq.requires_grad:
+            x = _layer_train(layer, x, rope, cfg)
+            continue
         x, k, v = _layer_forward(layer, x, rope, cfg)
         if caches is not None:
             caches[gi][key]["k"][r, :, :keep] = k[:, S - keep:]
@@ -256,6 +306,7 @@ def decoder_forward(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig):
     return logits, {"aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
 
 
+@torch.no_grad()
 def decoder_prefill(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig,
                     pad_cache_to: int | None = None):
     """Prefill: ``(last-position logits [B, V] f32, cache)``; the cache's
@@ -301,6 +352,7 @@ def _scatter_time(cache_kv: torch.Tensor, new_kv: torch.Tensor, rows: torch.Tens
     cache_kv[rows, at] = new
 
 
+@torch.no_grad()
 def decoder_decode(params: Decoder, token: torch.Tensor, cache: dict, cfg: ArchConfig):
     """``serve_step``: one new token ``[B, 1]`` -> ``(logits [B, V] f32,
     cache)``; the cache's keys and values are written in place and its

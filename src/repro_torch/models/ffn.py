@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import activation, dense_init
+from repro_torch.models.common import activation, dense_init, param
 
 __all__ = ["DenseFFN", "init_dense_ffn", "dense_ffn", "init_moe", "moe_ffn"]
 
@@ -26,9 +26,9 @@ class DenseFFN(nn.Module):
     def __init__(self, w_in: torch.Tensor, w_out: torch.Tensor,
                  w_gate: torch.Tensor | None = None):
         super().__init__()
-        self.w_in = nn.Parameter(w_in, requires_grad=False)
-        self.w_out = nn.Parameter(w_out, requires_grad=False)
-        self.w_gate = None if w_gate is None else nn.Parameter(w_gate, requires_grad=False)
+        self.w_in = param(w_in)
+        self.w_out = param(w_out)
+        self.w_gate = None if w_gate is None else param(w_gate)
 
 
 def init_dense_ffn(generator: torch.Generator, d_model: int, d_ff: int, act: str,

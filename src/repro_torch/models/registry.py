@@ -9,9 +9,11 @@ tests pass ``device="cpu"``.  ``forward``, ``prefill`` and ``decode`` raise
 ``ValueError`` when the parameters, tokens or cache lie on another device
 than the model's.
 
-Serving weights: ``init(seed, dtype=Policy.compute_dtype)`` draws each
-weight in float32 and casts it once to the compute dtype, which is what
-the JAX package's ``_w`` casts at every use.  Only the ``attn``/``dense``
+``init(seed)`` gives trainable float32 master parameters (``forward``
+then builds the graph of training under grad mode).  Serving weights:
+``init(seed, dtype=Policy.compute_dtype)`` draws each weight in float32
+and casts it once to the compute dtype, which is what the JAX package's
+``_w`` casts at every use; they are frozen.  Only the ``attn``/``dense``
 layer stacks are ported; the encoder-decoder, MoE, SSM and hybrid
 families raise ``NotImplementedError``.
 """

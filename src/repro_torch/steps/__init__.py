@@ -1,1 +1,2 @@
-"""Step functions of the LM substrate (``repro.steps``): the serving halves."""
+"""Step functions of the LM substrate (``repro.steps``): the training step
+and its loss, and the serving halves."""

@@ -294,6 +294,49 @@ def attention64(q, k, v, causal=True):
     return out
 
 
+def attention64_grads(q, k, v, do, causal=True):
+    """Float64 exact attention and its backward, one row ``b`` at a time:
+    ``(out, lse [B, K, G, S], dq, dk, dv)``, the gradients by autograd for
+    the output's gradient ``do``: the yardstick of row 9 and of row 7's
+    ``lse``."""
+    B, S, K, G, D = q.shape
+    Skv = k.shape[1]
+    f64 = dict(dtype=torch.float64, device=q.device)
+    out, dq = torch.empty(q.shape, **f64), torch.empty(q.shape, **f64)
+    dk, dv = torch.empty(k.shape, **f64), torch.empty(k.shape, **f64)
+    lse = torch.empty((B, K, G, S), **f64)
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = torch.arange(S, device=q.device)[:, None] >= torch.arange(Skv, device=q.device)
+    for b in range(B):
+        qb, kb, vb = (t[b].double().requires_grad_(True) for t in (q, k, v))
+        s = (torch.einsum("qkgd,skd->kgqs", qb, kb) * D ** -0.5).masked_fill(~mask, float("-inf"))
+        lse[b] = torch.logsumexp(s.detach(), dim=-1)
+        o = torch.einsum("kgqs,skd->qkgd", torch.softmax(s, dim=-1), vb)
+        out[b] = o.detach()
+        dq[b], dk[b], dv[b] = torch.autograd.grad(o, (qb, kb, vb), do[b].double())
+    return out, lse, dq, dk, dv
+
+
+#: Row 9's gradients against float64 also get 2^-18 of the tensor's largest
+#: value (32 f32 ulps there): a query that sees one key has an exact zero
+#: dq (dS = P (dP - delta) cancels), which f32 sums of dP and delta in
+#: another order than the plain version's miss by a few ulps of dP
+BWD_FLOOR = 2.0 ** -18
+
+#: lse against float64: the kernel's error at most twice the plain
+#: version's plus 2^-17 of max(|lse|, 1) (64 f32 ulps: sums of ex2 terms)
+LSE_ABS = 2.0 ** -17
+
+
+def lse_within_yardstick(kernel, plain, want64):
+    """``(ok, err_kernel, err_plain)`` of each row's log-sum-exp."""
+    err_k = (kernel.double() - want64).abs()
+    err_p = (plain.double() - want64).abs()
+    ok = bool((err_k <= 2 * err_p + LSE_ABS * want64.abs().clamp_min(1.0)).all())
+    return ok, float(err_k.max()), float(err_p.max())
+
+
 def decode_attention64(q, k_cache, v_cache, pos):
     """Float64 one-token attention: slots ``s <= pos[b]`` of each row
     (``pos >= 0``)."""
@@ -310,18 +353,19 @@ def bf16_ulp(scale):
     return 2.0 ** (np.floor(np.log2(max(float(scale), 1e-30))) - 7)
 
 
-def kernel_within_yardstick(kernel, plain, want64):
+def kernel_within_yardstick(kernel, plain, want64, floor=0.0):
     """``(ok, err_kernel, err_plain, worst)``, row by row: each output row
     (every index but the last, head dimension) holds the kernel's max abs
     error against the float64 yardstick to at most twice the plain
     version's error on that row plus one bf16 ulp at the row's own
-    max |out|.  ``err_kernel``/``err_plain`` are the largest errors over
-    all rows; ``worst`` is the row nearest to (or furthest past) its
+    max |out| (plus ``floor`` times the tensor's largest |out|, where a
+    caller states one).  ``err_kernel``/``err_plain`` are the largest errors
+    over all rows; ``worst`` is the row nearest to (or furthest past) its
     limit."""
     err_k = (kernel.double() - want64).abs().amax(-1)
     err_p = (plain.double() - want64).abs().amax(-1)
     ulp = torch.exp2(torch.floor(torch.log2(want64.abs().amax(-1).clamp_min(1e-30))) - 7)
-    excess = err_k - (2 * err_p + ulp)
+    excess = err_k - (2 * err_p + ulp + floor * float(want64.abs().max()))
     i = int(excess.argmax())
     worst = {"row": tuple(int(j) for j in np.unravel_index(i, tuple(err_k.shape))),
              "err_kernel": float(err_k.flatten()[i]), "err_plain": float(err_p.flatten()[i]),

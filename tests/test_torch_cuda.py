@@ -1042,3 +1042,149 @@ def test_attention_kernels_refuse_bad_inputs_on_card(cuda_device):
     with pytest.raises(ValueError, match="multiple of 16"):
         kattn.flash_attention(q[..., :40].contiguous(), k[..., :40].contiguous(),
                               v[..., :40].contiguous())
+
+
+# ---- LM training attention (row 7 with lse, row 9: csrc/attention_bwd.cu) ----
+
+@pytest.mark.parametrize("B,S,Skv,K,G,D,causal", [
+    (1, 1, 1, 1, 1, 16, True),
+    (2, 65, 65, 2, 7, 128, True),  # rows not a multiple of the 64-row tile
+    (1, 130, 130, 1, 8, 64, True),
+    (1, 129, 129, 3, 1, 128, True),
+    (1, 200, 200, 2, 12, 128, True),  # starcoder2-3b's group
+    (1, 77, 77, 2, 7, 80, True),  # a head dim of the mma.sync forward
+    (2, 100, 100, 2, 3, 48, True),
+    (1, 300, 300, 4, 6, 112, True),
+    (1, 64, 64, 1, 128, 128, True),  # a whole row tile of one position's heads
+    (1, 40, 150, 2, 4, 64, False),  # Skv != S
+    (1, 33, 33, 1, 16, 32, False),
+    (1, 150, 40, 2, 4, 128, False),
+])
+def test_flash_bwd_kernel_matches_plain_and_float64_on_card(cuda_device, B, S, Skv, K, G, D,
+                                                            causal):
+    """Row 7's ``lse`` and row 9's gradients against their plain versions
+    and float64 (``kernel_within_yardstick`` per output row,
+    ``lse_within_yardstick`` per row); two row-9 launches bit for bit."""
+    from repro_torch.kernels import attention as kattn
+    from _torch_parity import (
+        BWD_FLOOR,
+        attention64_grads,
+        kernel_within_yardstick,
+        lse_within_yardstick,
+    )
+
+    rng = np.random.default_rng(S * 17 + Skv + G)
+    q, do = _bf16(rng, (B, S, K, G, D), cuda_device), _bf16(rng, (B, S, K, G, D), cuda_device)
+    k, v = _bf16(rng, (B, Skv, K, D), cuda_device), _bf16(rng, (B, Skv, K, D), cuda_device)
+    kattn.flash_launches = kattn.flash_bwd_launches = 0
+    out, lse = kattn.flash_attention_fwd(q, k, v, causal=causal)
+    out_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, causal, 64, 64)
+    out64, lse64, *grads64 = attention64_grads(q, k, v, do, causal)
+    assert kattn.flash_launches == 1 and lse.shape == (B, K, G, S)
+    assert torch.equal(out, kattn.flash_attention(q, k, v, causal=causal))  # lse changes no out
+    ok, *errs = lse_within_yardstick(lse, lse_p, lse64)
+    assert ok, ("lse", errs)
+    ok, *errs = kernel_within_yardstick(out, out_p, out64)
+    assert ok, ("out", errs)
+    got = kattn.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    again = kattn.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert kattn.flash_bwd_launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, 64, 64)
+    for name, g, p, w, x in zip("qkv", got, plain, grads64, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == x.shape
+        ok, *errs = kernel_within_yardstick(g, p, w, BWD_FLOOR)
+        assert ok, (f"d{name}", errs)
+
+
+def test_flash_bwd_kernel_refuses_bad_inputs_on_card(cuda_device):
+    from repro_torch.kernels import attention as kattn
+
+    rng = np.random.default_rng(13)
+    q, do = _bf16(rng, (1, 8, 1, 2, 64), cuda_device), _bf16(rng, (1, 8, 1, 2, 64), cuda_device)
+    k, v = _bf16(rng, (1, 8, 1, 64), cuda_device), _bf16(rng, (1, 8, 1, 64), cuda_device)
+    out, lse = kattn.flash_attention_fwd(q, k, v)
+    kattn.flash_bwd_launches = 0
+    with pytest.raises(ValueError, match="lse must be"):
+        kattn.flash_attention_bwd(q, k, v, out, lse.double(), do)
+    with pytest.raises(ValueError, match="lse must be"):
+        kattn.flash_attention_bwd(q, k, v, out, lse.transpose(2, 3).contiguous().transpose(2, 3),
+                                  do)
+    with pytest.raises(ValueError, match="lse must be"):
+        kattn.flash_attention_bwd(q, k, v, out, lse[..., :4], do)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kattn.flash_attention_bwd(q, k, v, out, lse, do.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        kattn.flash_attention_bwd(q, k, v, out, lse, do.transpose(1, 3).contiguous().transpose(1, 3))
+    with pytest.raises(ValueError, match="out and do"):
+        kattn.flash_attention_bwd(q, k, v, out[:, :4].contiguous(), lse, do)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kattn.flash_attention_bwd(*(t[..., :40].contiguous() for t in (q, k, v, out)), lse,
+                                  do[..., :40].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        kattn.flash_attention_bwd_kernel_call(*(t.cpu() for t in (q, k, v, out, lse, do)))
+    assert kattn.flash_bwd_launches == 0
+
+
+def test_decoder_kernel_gradients_stay_within_the_plain_spread_on_card(cuda_device):
+    """A 4-layer reduced starcoder2-3b at bf16 compute, one loss and
+    backward through rows 7 and 9, against the plain path (the plain
+    versions in place of the wrappers) with the config's blocks and with
+    other blocks, and a float32 plain path: each gradient leaf's distance
+    to the plain path at most twice the plain paths' spread (their largest
+    difference over the leaves), and the kernel path's distance to float32
+    at most twice the plain path's (``chip_smoke.py``'s ``lm_train_checks``
+    rule)."""
+    import contextlib
+    import copy
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.models.common import Policy
+    from repro_torch.models.registry import build_model
+    from repro_torch.steps.loss import softmax_xent
+
+    cfg = get_reduced("starcoder2_3b")
+    params0 = build_model(cfg, device=cuda_device).init(
+        torch.Generator(cuda_device).manual_seed(0))
+    rng = np.random.default_rng(14)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 256))).to(cuda_device)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 256))).to(cuda_device)
+
+    def grads(c, plain):
+        p = copy.deepcopy(params0)
+        stack = contextlib.ExitStack()
+        if plain:
+            stack.enter_context(mock.patch.object(
+                kattn, "flash_attention_fwd", lambda q, k, v, *, causal, q_block, kv_block:
+                ref.flash_attention_fwd_ref(q, k, v, causal, q_block, kv_block)))
+            stack.enter_context(mock.patch.object(
+                kattn, "flash_attention_bwd", lambda q, k, v, o, l, d, *, causal, q_block, kv_block:
+                ref.flash_attention_bwd_ref(q, k, v, o, l, d, causal, q_block, kv_block)))
+        kattn.flash_bwd_launches = 0
+        with stack:
+            logits, _ = build_model(c, device=cuda_device).forward(p, tokens, {})
+            softmax_xent(logits, labels)[0].backward()
+        torch.cuda.synchronize()
+        assert kattn.flash_bwd_launches == (0 if plain else cfg.n_layers)
+        return {n: t.grad for n, t in p.named_parameters()}
+
+    def rel(a, b):
+        return {n: float((a[n] - b[n]).abs().max()) / float(b[n].abs().max()) for n in b}
+
+    kernel, plain = grads(cfg, False), grads(cfg, True)
+    other = grads(dataclasses.replace(cfg, q_block=32, kv_block=128), True)
+    compute = Policy.compute_dtype
+    try:
+        Policy.compute_dtype = torch.float32
+        f32 = grads(cfg, True)
+    finally:
+        Policy.compute_dtype = compute
+    kp, pp = rel(kernel, plain), rel(other, plain)
+    k32, p32 = rel(kernel, f32), rel(plain, f32)
+    spread = max(pp.values())
+    assert 0 < spread and max(kp.values()) <= 2 * spread, (kp, pp)
+    assert max(k32.values()) <= 2 * max(p32.values()), (k32, p32)

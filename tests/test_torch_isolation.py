@@ -56,5 +56,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
             "repro_torch.models", "repro_torch.models.common", "repro_torch.models.attention",
             "repro_torch.models.ffn", "repro_torch.models.decoder", "repro_torch.models.convert",
             "repro_torch.models.registry", "repro_torch.steps", "repro_torch.steps.train",
-            "repro_torch.kernels.attention"} <= set(report["modules"])
+            "repro_torch.kernels.attention", "repro_torch.steps.loss", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.runtime",
+            "repro_torch.runtime.compression"} <= set(report["modules"])
     assert report["leaked"] == []

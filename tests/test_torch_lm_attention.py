@@ -135,14 +135,15 @@ def test_kernel_calls_refuse_cpu_tensors():
 
 def test_backend_ref_and_unported_attention():
     """The model's attention is the kernels' wrappers (on the CPU, the
-    plain versions bit for bit); the unported functions raise."""
+    plain versions bit for bit; ``flash_attention_fused``'s forward too);
+    the unported functions raise."""
     arrays = [torch.from_numpy(a) for a in _qkv(6, 1, 8, 1, 2, 16)]
     assert tattn.flash_attention is kattn.flash_attention
     assert tattn.decode_attention is kattn.decode_attention
     torch.testing.assert_close(ref.flash_attention_ref(*arrays),
                                tattn.flash_attention(*arrays), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.flash_attention_fused(*arrays)
+    torch.testing.assert_close(ref.flash_attention_ref(*arrays),
+                               tattn.flash_attention_fused(*arrays), rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tattn.local_attention(*arrays, window=4)
 

@@ -49,8 +49,9 @@ from repro_torch.data.tokens import ShardedTokenPipeline, TokenPipelineConfig
 from repro_torch.models import common as tcommon
 from repro_torch.models import ffn as tffn
 from repro_torch.models.convert import params_from_jax
+from repro_torch.models.decoder import init_decoder
 from repro_torch.models.registry import build_model
-from repro_torch.steps.train import make_decode_step, make_prefill_step, make_train_step
+from repro_torch.steps.train import make_decode_step, make_prefill_step
 
 DENSE_ARCHS = ("chameleon_34b", "llama3_405b", "nemotron4_15b", "qwen2_7b", "starcoder2_3b")
 B, S, N_DECODE = 2, 32, 4
@@ -59,7 +60,7 @@ BF16_REL = 0.05
 
 
 def _np(x):
-    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor) else
+    return np.asarray(x.detach().float().numpy() if isinstance(x, torch.Tensor) else
                       np.asarray(x, dtype=np.float32))
 
 
@@ -321,8 +322,8 @@ def test_model_init_draws_serving_weights_and_matches_param_count():
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(treg.get_reduced(arch), device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_train_step()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_decoder(torch.Generator().manual_seed(0), treg.get_reduced(arch))
 
 
 def test_build_model_without_device_needs_a_card():
