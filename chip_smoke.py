@@ -78,11 +78,15 @@ read just after:
   port's ``init``, bf16 compute with per-layer remat, 4 AdamW steps of
   8 x 2,048 tokens in 2 microbatches through ``make_train_step`` (120
   launches of the flash kernel with its log-sum-exp and 60 of the
-  backward kernel a step), a profiled step by kind of kernel; the backward
-  kernel and the log-sum-exp held against their plain versions and
-  float64, and one step of a 2-layer model through the kernels against
-  plain and float32 paths (``lm_train_kernels``, ``lm_train_checks``; see
-  :func:`_lm_train`).
+  backward kernel a step), a profiled step by kind of kernel; the same
+  four steps from the same seed and batches with the backward's partials
+  summed in another order, and with the plain versions of both kernels at
+  two blocks, the loss curves side by side (``lm_train_curves``); the
+  backward kernel and the log-sum-exp held
+  against their plain versions and float64, the backward's device time by
+  pass, its plan and its kernels' registers (``lm_train_kernels``), and
+  one step of a 2-layer model through the kernels against plain and
+  float32 paths (``lm_train_checks``; see :func:`_lm_train`).
 
 Wherever the grid and dense paths both count, their counts must be equal
 on every user: the port evaluates every edge with one rounding order.
@@ -164,6 +168,8 @@ PEAK_FP32_OPS_S = 132 * 128 * 1.98e9
 BVH_OPS_PER_LEAF = 12
 BVH_OPS_PER_INNER = 8
 SCENARIO_MAX_USERS = 60_000
+# nvcc's output for each library built by this run (``-Xptxas -v``)
+BUILD_LOGS: dict = {}
 
 
 def _log(phase: str, **fields) -> None:
@@ -638,6 +644,18 @@ def _bvh_warps(pops, steps, perm) -> dict:
             "steps_over_most": taken / max(busiest, 1)}
 
 
+def build_kernels() -> tuple[dict, float]:
+    """Every kernel library built from the checkout's sources (one ``nvcc``
+    a source, all at once), nvcc's output kept in ``BUILD_LOGS``; the build's
+    result and seconds.  A script that runs one phase alone calls it first."""
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    built = build.build()
+    BUILD_LOGS.update({name: info["log"] for name, info in built.items()})
+    return built, time.perf_counter() - t0
+
+
 def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_points: int,
         seed: int):
     """All phases on the card ``dev``; returns the kernels' record.  Each
@@ -650,14 +668,12 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     from repro_torch.core.scene import pad_scene_arrays
     from repro_torch.data.spatial import facility_user_split, road_network_points
     from repro_torch.core.bvh import build_bvh, stack_bvhs
-    from repro_torch.kernels import build, bvh, grid_raycast, ops, rank_count, raycast, ref
+    from repro_torch.kernels import bvh, grid_raycast, ops, rank_count, raycast, ref
     from repro_torch.kernels.grid_raycast import order_cell_runs, prepare_cell_buckets
     from repro_torch.kernels.user_order import TILE_USERS, build_user_order
 
     # ---- setup ------------------------------------------------------------
-    t0 = time.perf_counter()
-    built = build.build()
-    t_build = time.perf_counter() - t0
+    built, t_build = build_kernels()
     ptxas = {
         name: [ln.strip() for ln in info["log"].splitlines() if "Used" in ln]
         for name, info in built.items()
@@ -2393,7 +2409,8 @@ def _kernel_device_ms(prof) -> dict:
         name = evt.key
         # csrc/attention.cu: flash_fwd_wgmma_kernel (D = 64, 128) and
         # flash_fwd_mma_kernel (other head dims); decode_attn_kernel;
-        # csrc/attention_bwd.cu: flash_bwd_{delta,dkdv,dq}_kernel
+        # csrc/attention_bwd.cu: flash_bwd_{delta,dkdv,reduce,dq}_kernel
+        # (D = 64, 128) and flash_bwd_mma_{delta,dkdv,dq}_kernel
         if "flash_fwd" in name:
             kinds["flash_fwd"] += us / 1e3
         elif "flash_bwd" in name:
@@ -2409,8 +2426,8 @@ def _kernel_device_ms(prof) -> dict:
 
 def _device_kernels_ms(prof, top: int = 12) -> dict:
     """The ``top`` kernels of a profiled window by device milliseconds,
-    their names cut to 60 characters (row 9's three passes are
-    ``flash_bwd_{delta,dkdv,dq}_kernel``)."""
+    their names cut to 60 characters (row 9's four passes are
+    ``flash_bwd_{delta,dkdv,reduce,dq}_kernel``)."""
     import torch
 
     out = {}
@@ -2872,6 +2889,69 @@ def _flash_bwd_bound(B, S, Skv, K, G, D, causal: bool) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _ptxas_by_kernel(log: str, pattern: str) -> dict:
+    """Registers and spill bytes of each kernel whose mangled name holds
+    ``pattern``, from nvcc's ``-Xptxas -v`` output, and whether ptxas
+    serialised its wgmmas (``C7512``); keys like ``flash_bwd_dkdv_kernel<128>``."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = None
+            if pattern in m.group(1):
+                n = re.search(r"(\w+?_kernel)I(?:Li(\d+)E)?", m.group(1)[m.group(1).find(pattern):])
+                cur = f"{n.group(1)}<{n.group(2)}>" if n and n.group(2) else m.group(1)[-60:]
+                out[cur] = {"registers": None, "spill_stores": None, "spill_loads": None,
+                            "wgmma_serialized": False}
+            continue
+        if "C7512" in ln:
+            for name in out:
+                if name.split("<")[0] in ln:
+                    out[name]["wgmma_serialized"] = True
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[cur]["spill_stores"], out[cur]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def _flash_bwd_passes_ms(fn, reps: int) -> dict | None:
+    """Device milliseconds of each of row 9's kernels a call, from a
+    profiled window of ``reps`` calls (None where the profiler cannot
+    start)."""
+    import re
+
+    import torch
+
+    notes = {}
+    fn()
+    torch.cuda.synchronize()
+    prof = _start_profiler(notes)
+    if prof is None:
+        return None
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    prof.stop()
+    out = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        m = re.search(r"flash_bwd_(\w+?)_kernel", evt.key)
+        if m and us:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + us / 1e3 / reps
+    return out
+
+
 def _rel_leaves(a: dict, b: dict) -> dict:
     """Per leaf, max |a - b| over max |b|."""
     return {n: float((a[n] - b[n]).abs().max()) / max(float(b[n].abs().max()), 1e-30)
@@ -2886,7 +2966,13 @@ def _lm_train(dev, seed: int) -> list:
     tokens from the token pipeline in 2 microbatches, each step 120
     launches of row 7 (with ``lse``: forward and remat recompute) and 60 of
     row 9 with no plain call, a finite loss and parameters that move; a
-    profiled step by kind of kernel.  Checks: rows 9 and 7's ``lse``
+    profiled step by kind of kernel.  The same steps from the same seed
+    and batches again three times: row 9 over a plan for half the SMs (its
+    partials summed in another order), and rows 7 and 9 patched to their
+    plain versions at the config's blocks and at 256/256; the kernel
+    path's loss and grad-norm curves must stay within twice the larger
+    spread of the two pairs that differ only in their order of sums.
+    Checks: rows 9 and 7's ``lse``
     against their plain versions and float64 at the phase's shape and
     awkward ones, two row-9 launches bit for bit; one step of a 2-layer
     model at the published widths through the kernels against two plain
@@ -3019,6 +3105,92 @@ def _lm_train(dev, seed: int) -> list:
     del state, params, watched, step, model, batch
     torch.cuda.empty_cache()
 
+    # ---- the same steps through the plain rows 7 and 9 (loss curves) ------------
+    def plain_attention():
+        """The plain versions in place of the training attention's wrappers."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(
+            kattn, "flash_attention_fwd",
+            lambda q, k, v, *, causal=True, q_block=512, kv_block=1024:
+            ref.flash_attention_fwd_ref(q, k, v, causal, q_block, kv_block)))
+        stack.enter_context(mock.patch.object(
+            kattn, "flash_attention_bwd",
+            lambda q, k, v, out, lse, do, *, causal=True, q_block=512, kv_block=1024:
+            ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, q_block, kv_block)))
+        return stack
+
+    def other_order():
+        """Row 9 with its dK/dV partials summed in another order: the same
+        kernels over a plan made for half the card's SMs, whose runs are
+        cut at other places."""
+        plan = kattn.flash_bwd_plan
+        kattn._bwd_plans.clear()
+        return mock.patch.object(kattn, "flash_bwd_plan",
+                                 lambda *a: plan(*a[:-1], max(1, a[-1] // 2)))
+
+    def curve(c, patch) -> dict:
+        """Loss and grad norm of each of the ``LM_TRAIN_STEPS`` steps of a
+        model built and initialised from the same seed, on the same
+        batches, under ``patch()``."""
+        m = build_model(c, device=dev)
+        st = init_train_state(m, torch.Generator(dev).manual_seed(seed), opt_cfg)
+        run_step = make_train_step(m, opt_cfg, n_microbatches=LM_TRAIN_MICRO)
+        kattn.flash_launches = kattn.flash_bwd_launches = 0
+        ref.calls = 0
+        losses, norms = [], []
+        t0 = time.perf_counter()
+        with patch():
+            for i in range(LM_TRAIN_STEPS):
+                st, mets = run_step(st, batch_at(i))
+                losses.append(float(mets["loss"]))
+                norms.append(float(mets["grad_norm"]))
+        torch.cuda.synchronize(dev)
+        kattn._bwd_plans.clear()  # no plan made under the patch outlives it
+        out = {"loss": losses, "grad_norm": norms, "wall_s": time.perf_counter() - t0,
+               "kernel_launches": kattn.flash_launches + kattn.flash_bwd_launches,
+               "plain_calls": ref.calls}
+        del st, m, run_step
+        torch.cuda.empty_cache()
+        return out
+
+    curves = {"kernel": {"loss": [r["loss"] for r in steps],
+                         "grad_norm": [r["grad_norm"] for r in steps]},
+              "kernel_other_order": curve(cfg, other_order),
+              "plain": curve(cfg, plain_attention),
+              "plain_blocks": curve(dataclasses.replace(cfg, q_block=256, kv_block=256),
+                                    plain_attention)}
+    # lm_train_checks' rule over the whole curve: the kernel path within
+    # twice the rounding noise at any step.  The noise is the larger of two
+    # pairs that differ only in the order of their sums: the two plain paths
+    # (their blocks) and the two kernel paths (row 9's partials).  Each step
+    # amplifies the rounding of the steps before it, which the plain paths'
+    # blocks alone understate.
+    verdict = {}
+    for what in ("loss", "grad_norm"):
+        k_c, k2_c, p_c, o_c = (curves[n][what]
+                               for n in ("kernel", "kernel_other_order", "plain", "plain_blocks"))
+        gap = max(abs(a - b) for a, b in zip(k_c, p_c))
+        spread_plain = max(abs(a - b) for a, b in zip(o_c, p_c))
+        spread_kernel = max(abs(a - b) for a, b in zip(k2_c, k_c))
+        spread = max(spread_plain, spread_kernel)
+        verdict[what] = {"kernel_vs_plain": gap, "plain_blocks_vs_plain": spread_plain,
+                         "kernel_other_order_vs_kernel": spread_kernel,
+                         "within": gap <= LM_E2E_FACTOR * spread}
+    _log("lm_train_curves", steps=LM_TRAIN_STEPS, curves=curves, verdict=verdict,
+         kernels_cleared=all(v["within"] for v in verdict.values()))
+    launches = (want["flash_fwd"] + want["flash_bwd"]) * LM_TRAIN_STEPS
+    for n, want_kernel, want_plain in (("kernel_other_order", launches, 0),
+                                       ("plain", 0, launches), ("plain_blocks", 0, launches)):
+        if (curves[n]["kernel_launches"], curves[n]["plain_calls"]) != (want_kernel, want_plain):
+            failures.append(f"{n} curve: {curves[n]['kernel_launches']} kernel launches, "
+                            f"{curves[n]['plain_calls']} plain calls")
+    for what, v in verdict.items():
+        if not v["within"]:
+            noise = max(v["plain_blocks_vs_plain"], v["kernel_other_order_vs_kernel"])
+            failures.append(f"{what} curve: the kernel path parts from the plain path by "
+                            f"{v['kernel_vs_plain']}, more than {LM_E2E_FACTOR} x the rounding "
+                            f"noise {noise}")
+
     # ---- rows 9 and 7 (lse) against their plain versions and float64 -----------
     gen_rng = torch.Generator(dev).manual_seed(seed + 29)
 
@@ -3072,8 +3244,24 @@ def _lm_train(dev, seed: int) -> list:
     bwd_lib_ms = _sync_ms(lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), dos,
                                                       retain_graph=True), 10, dev)
     del qs, ks, vs, dos, o_sdpa
+    passes = _flash_bwd_passes_ms(
+        lambda: kattn.flash_attention_bwd(qa, ka, va, out_k, lse_k, doa), 10)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = kattn.flash_bwd_plan(B, S, Skv, K, Gs, causal, sms)
+    loads = plan.loads
     _log("lm_train_kernels", checks=checks,
-         times={"flash_bwd_device_ms": bwd_device_ms, "flash_fwd_lse_device_ms": fwd_device_ms},
+         times={"flash_bwd_device_ms": bwd_device_ms, "flash_fwd_lse_device_ms": fwd_device_ms,
+                "flash_bwd_ms": bwd_ms, "flash_bwd_sdpa_ms": bwd_lib_ms,
+                "flash_bwd_bound_ms": _flash_bwd_bound(B, S, Skv, K, Gs, D, causal)[0],
+                "flash_bwd_passes_device_ms": passes},
+         plan={"sms": sms, "ctas": plan.n_cta, "items": plan.n_items, "row_tiles": plan.n_rt,
+               "key_tiles": plan.n_kt, "pairs": plan.n_pairs,
+               "chunks_most": max(len(c) for c in plan.chunks),
+               "runs_cut": sum(len(c) > 1 for c in plan.chunks), "cap": plan.cap,
+               "longest_item_row_tiles": plan.longest, "cta_cost_max": max(loads),
+               "cta_cost_mean": sum(loads) / len(loads), "partial_slots": plan.n_slots,
+               "workspace_mb": plan.workspace_floats(D) * 4 / 1e6},
+         ptxas=_ptxas_by_kernel(BUILD_LOGS.get("attention_bwd", ""), "flash_bwd"),
          shape={"B": B, "S": S, "K": K, "G": Gs, "D": D})
     phase_err = checks[next(iter(checks))]
     del qa, ka, va, doa, out_k, lse_k, phase_inputs
@@ -3087,19 +3275,6 @@ def _lm_train(dev, seed: int) -> list:
     cb = cpipe.batch_at(0)
     cbatch = {"tokens": torch.from_numpy(cb["tokens"]).long().to(dev),
               "labels": torch.from_numpy(cb["labels"]).long().to(dev)}
-
-    def plain_attention():
-        """The plain versions in place of the training attention's wrappers."""
-        stack = contextlib.ExitStack()
-        stack.enter_context(mock.patch.object(
-            kattn, "flash_attention_fwd",
-            lambda q, k, v, *, causal=True, q_block=512, kv_block=1024:
-            ref.flash_attention_fwd_ref(q, k, v, causal, q_block, kv_block)))
-        stack.enter_context(mock.patch.object(
-            kattn, "flash_attention_bwd",
-            lambda q, k, v, out, lse, do, *, causal=True, q_block=512, kv_block=1024:
-            ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, q_block, kv_block)))
-        return stack
 
     def one_step(c, plain: bool):
         """Loss, grad_norm and the accumulated gradients (before the

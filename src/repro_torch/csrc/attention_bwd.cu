@@ -11,91 +11,77 @@
 //   dV_j    = sum_i P_ij dO_i
 //   dP_ij   = dO_i . v_j,   dS_ij = P_ij (dP_ij - delta_i)
 //   dQ_i    = scale sum_j dS_ij k_j,   dK_j = scale sum_i dS_ij q_i
-// Rows i are the (position, query head) pairs of one KV head, row
-// r = s G + g at position s, head g, as in the forward kernels; a key j is
-// masked where j >= Skv or, causal, j > s.  P is recomputed in base 2 as
-// the forward's wgmma kernel makes it: exp2(s_ij scale log2 e - lse_i
-// log2 e), by ex2.approx.
+// Rows i are the (position, query head) pairs of one KV head (a "pair" is
+// one (b, KV head)); a key j is masked where j >= Skv or, causal, j > the
+// row's position.  P is recomputed in base 2 as the forward's wgmma kernel
+// makes it, exp2(s_ij scale log2 e - lse_i log2 e) by ex2.approx, and meets
+// its second operand once in bf16 (P^T and dS^T as the A operand).
 //
 // What bounds it: operations.  The function needs five products of
-// 2 B H D S^2 / 2 FLOPs each under the causal mask (S^2 without it) on
-// the bf16 tensor cores at 989 TFLOP/s; its bytes (q, k, v, out, dO, dq,
-// dk, dv and lse once) take a small fraction of that time at S = 2,048.
+// 2 B H D S^2 / 2 FLOPs each under the causal mask (S^2 without it) on the
+// bf16 tensor cores at 989 TFLOP/s; its bytes (q, k, v, out, dO, dq, dk, dv
+// and lse once) take a small fraction of that time at S = 2,048.  This
+// design does seven (S and dP in both passes): its own bound is 7/5 of it.
 //
-// Design: simple, right and deterministic (no atomics: every output element
-// is written by one block, so two launches on the same inputs agree bit for
-// bit).  Three kernels on one stream in one call:
-//   1. flash_bwd_delta_kernel: delta [B, K, G, S] f32, 16 threads a row.
-//   2. flash_bwd_dkdv_kernel: one block per (64-key tile, KV head, row b).
-//      K and V tiles stay in shared memory; the block walks every 64-row
-//      tile of (position, head) rows that can see a key of its tile (all
-//      G heads of the group), staging Q, dO, lse and delta of each, and each
-//      of its 4 warps owns 16 keys: S^T = K Q^T, P^T, dV += P^T dO,
-//      dP^T = V dO^T, dS^T, dK += dS^T Q, the accumulators in registers.
-//   3. flash_bwd_dq_kernel: one block per (64-row tile, KV head, row b),
-//      Q and dO in shared memory, each warp owning 16 rows; it walks the
-//      64-key tiles up to the diagonal: S = Q K^T, P, dP = dO V^T, dS,
-//      dQ += dS K.
-// So the backward does seven products where a one-pass one would do five
-// (S and dP twice); the later redesign (wgmma, TMA, one pass with a dQ
-// reduction) is to be judged against this kernel.  Every product is
-// mma.sync m16n8k16 bf16 -> f32, fragments as flash_fwd_mma_kernel in
-// attention.cu loads them: 32-bit loads of A and of B whose k runs along a
-// row, ldmatrix.trans where B's k runs down the rows.  P and dS meet their
-// second operand once in bf16, as P meets V in the forward.  Tiles in
-// shared memory are rows of D + 8 bf16 (the fragment loads hit 32 banks).
+// D = 64 and 128 (every config of the repo) run four kernels on one stream,
+// shaped as flash_fwd_wgmma_kernel (attention.cu): persistent CTAs of a
+// producer warpgroup that issues TMA loads into mbarrier rings and gives
+// its registers away (setmaxnreg 24/240), and two consumer warpgroups that
+// run every product by wgmma from 128-byte-swizzled shared memory.
+//   1. flash_bwd_delta_kernel: lse in base 2 and delta = rowsum(dO O), by
+//      row tile: slot (pair, t, c) of the 64-column row tile t, so that a
+//      tile's lse and delta are one contiguous run of 64 floats each (one
+//      bulk copy), +inf and 0 where a slot has no row.  A row tile is npos
+//      positions by gsub heads (gsub = min(G, 64), npos = 64 / gsub): one
+//      5-d TMA box of q or dO.
+//   2. flash_bwd_dkdv_kernel: a work item is one tile of 128 keys of one
+//      pair against a run of its row tiles; its K and V stay in shared
+//      memory and each consumer owns 64 keys.  Per row tile, S^T = K Q^T and
+//      dP^T = V dO^T (both operands K-major), then in registers P^T and
+//      dS^T = P^T (dP^T - delta), then dV += P^T dO and dK += dS^T Q, P^T and
+//      dS^T as the register A operand and dO and Q read MN-major: no
+//      transpose anywhere.  The two consumers take turns to issue their
+//      products (ping-pong), so one's run while the other computes.  Under
+//      the causal mask key tile j meets fewer row tiles the larger j is, so
+//      the wrapper's plan (kernels/attention.py flash_bwd_plan) lays the
+//      (key tile, pair) runs end to end and cuts them into two segments a
+//      CTA of equal cost (row tiles plus two for each item's K and V load
+//      and epilogue): no item is longer than about half a CTA's share and
+//      the CTAs finish together.  A run cut at a segment's end becomes
+//      chunks; an item that is its run's only chunk writes dK and dV, the
+//      others write f32 partials to their own slot of the workspace.
+//   3. flash_bwd_reduce_kernel: for each (key tile, pair) of several chunks,
+//      dK = scale sum_c part_c and dV = sum_c part_c, from chunk 0 up, 16
+//      keys a block.
+//   4. flash_bwd_dq_kernel: a work item is 128 rows (two consumers of 64),
+//      Q and dO resident, K and V tiles of 128 keys through the ring:
+//      S = Q K^T, dP = dO V^T, dS, dQ += dS K (K read MN-major); items with
+//      the most key tiles first, in rounds that zigzag across the CTAs.
+// Deterministic: every output element and every partial is written by one
+// thread of one CTA, whose sums run in a fixed order (the row tiles of an
+// item in order, the wgmma k-steps in order); the partials are summed in
+// chunk order by one thread; no atomics.  Which CTA takes an item changes
+// nothing of its value.  So two launches on the same inputs agree bit for
+// bit, under CUDA graph capture too (the plan lives in device memory the
+// wrapper keeps; no counter needs resetting).
+//
+// Other head dims (16 to 112 but 64) keep the first kernels, mma.sync
+// m16n8k16 on tiles staged by plain loads: flash_bwd_mma_delta_kernel
+// (delta [B, K, G, S]), flash_bwd_mma_dkdv_kernel (a block per 64-key tile,
+// pair, walking every row tile that sees it) and flash_bwd_mma_dq_kernel (a
+// block per 64-row tile).  Tiles in shared memory are rows of D + 8 bf16
+// (the fragment loads hit 32 banks).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"  // mbarriers, TMA, wgmma, mma.sync, ex2
 
-#include <atomic>
 #include <cmath>
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kTile = 64;  // keys of a key tile and rows of a row tile
 constexpr int kWarps = kTile / 16;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kDeltaRows = 16;  // rows of a delta block: 16 threads a row
-
-// cudaFuncSetAttribute for a kernel's dynamic shared memory, once per
-// kernel and device.
-template <auto Kernel>
-cudaError_t smem_limit_once(size_t bytes) {
-  static std::atomic<uint32_t> done{0};  // one bit per device
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint32_t bit = 1u << (dev & 31);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x in one MUFU instruction, as the forward's wgmma kernel takes it
-// (2^-inf = 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&b);
-}
 
 // A fragment (16 x 16, row-major) of tile rows row0 .. row0 + 15, columns
 // c0 .. c0 + 15.
@@ -183,10 +169,10 @@ __device__ __forceinline__ void stage_keys(__nv_bfloat16* tile, const __nv_bfloa
   }
 }
 
-// ---- 1. delta = rowsum(dO * O) ----------------------------------------------
+// ---- mma.sync 1. delta = rowsum(dO * O) [B, K, G, S] ----------------------
 
 template <int NK>  // D = 16 * NK: 2 NK chunks of 8 a row, at most 16
-__global__ void __launch_bounds__(32 * kDeltaRows / 2) flash_bwd_delta_kernel(
+__global__ void __launch_bounds__(32 * kDeltaRows / 2) flash_bwd_mma_delta_kernel(
     const __nv_bfloat16* __restrict__ out, const __nv_bfloat16* __restrict__ dout,
     float* __restrict__ delta, long long n_rows, int S, int K, int G) {
   constexpr int D = 16 * NK;
@@ -221,10 +207,10 @@ __global__ void __launch_bounds__(32 * kDeltaRows / 2) flash_bwd_delta_kernel(
   }
 }
 
-// ---- 2. dK and dV: one block per (key tile, KV head, row b) ------------------
+// ---- mma.sync 2. dK and dV: one block per (key tile, KV head, row b) ---------
 
 template <int NK>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
+__global__ void __launch_bounds__(kThreads) flash_bwd_mma_dkdv_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -367,10 +353,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   }
 }
 
-// ---- 3. dQ: one block per (row tile, KV head, row b) -------------------------
+// ---- mma.sync 3. dQ: one block per (row tile, KV head, row b) ----------------
 
 template <int NK>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(kThreads) flash_bwd_mma_dq_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -490,7 +476,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 }
 
 template <int NK>
-cudaError_t launch_bwd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+cudaError_t launch_bwd_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                        const __nv_bfloat16* out, const __nv_bfloat16* dout, const float* lse,
                        float* delta, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
                        int B, int S, int Skv, int K, int G, int causal, float scale,
@@ -498,25 +484,698 @@ cudaError_t launch_bwd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __n
   constexpr int D = 16 * NK;
   constexpr size_t tiles = (size_t)4 * kTile * (D + 8) * sizeof(__nv_bfloat16);
   constexpr size_t smem_dkdv = tiles + 3 * kTile * sizeof(float);
-  cudaError_t err = smem_limit_once<flash_bwd_dkdv_kernel<NK>>(smem_dkdv);
+  cudaError_t err = smem_limit_once<flash_bwd_mma_dkdv_kernel<NK>>(smem_dkdv);
   if (err != cudaSuccess) return err;
-  if ((err = smem_limit_once<flash_bwd_dq_kernel<NK>>(tiles)) != cudaSuccess) return err;
+  if ((err = smem_limit_once<flash_bwd_mma_dq_kernel<NK>>(tiles)) != cudaSuccess) return err;
 
   const long long n_rows = (long long)B * S * K * G;
   const long long delta_blocks = (n_rows + kDeltaRows - 1) / kDeltaRows;
   const long long row_tiles = ((long long)S * G + kTile - 1) / kTile;
   if (delta_blocks > 0x7fffffffLL || row_tiles > 0x7fffffffLL || K > 65535 || B > 65535)
     return cudaErrorInvalidConfiguration;
-  flash_bwd_delta_kernel<NK><<<(unsigned)delta_blocks, 32 * kDeltaRows / 2, 0, stream>>>(
+  flash_bwd_mma_delta_kernel<NK><<<(unsigned)delta_blocks, 32 * kDeltaRows / 2, 0, stream>>>(
       out, dout, delta, n_rows, S, K, G);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid_kv((unsigned)((Skv + kTile - 1) / kTile), (unsigned)K, (unsigned)B);
-  flash_bwd_dkdv_kernel<NK><<<grid_kv, kThreads, smem_dkdv, stream>>>(
+  flash_bwd_mma_dkdv_kernel<NK><<<grid_kv, kThreads, smem_dkdv, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, S, Skv, K, G, causal, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid_q((unsigned)row_tiles, (unsigned)K, (unsigned)B);
-  flash_bwd_dq_kernel<NK><<<grid_q, kThreads, tiles, stream>>>(q, k, v, dout, lse, delta, dq, S,
+  flash_bwd_mma_dq_kernel<NK><<<grid_q, kThreads, tiles, stream>>>(q, k, v, dout, lse, delta, dq, S,
                                                                Skv, K, G, causal, scale);
+  return cudaGetLastError();
+}
+// ---- wgmma (D = 64, 128): a planned persistent dK/dV pass and a dQ pass ------
+
+constexpr int kBwKeys = 128;     // keys of a dK/dV work item: two consumers of 64
+constexpr int kBwRows = 64;      // rows of a row tile of the dK/dV pass
+constexpr int kBwStages = 4;     // the dK/dV pass's ring of row tiles
+constexpr int kDqRows = 128;     // rows of a dQ work item: two consumers of 64
+constexpr int kDqKeys = 128;     // keys of a K and V tile of the dQ pass
+constexpr int kDqStages = 2;     // the dQ pass's ring of K and V tiles
+constexpr int kItemInts = 5;     // a planned item: key tile, pair, first and end row tile, slot
+constexpr int kNoPos = 0x3fffffff;  // the position of a row past the real ones: never masked
+// two consumer warpgroups, then the producer warpgroup, which gives its
+// registers to the consumers (setmaxnreg), as in flash_fwd_wgmma_kernel
+constexpr int kBwThreads = 384;
+constexpr int kBwProducerRegs = 24;  // 128 x 24 + 256 x 240 <= 65,536
+constexpr int kBwConsumerRegs = 240;
+constexpr int kBwDeltaSlots = 16;    // tile slots of a delta block: 16 threads a slot
+constexpr int kReduceKeys = 16;      // keys of a block of the partials' sum
+
+// The dK/dV pass's shared memory, in bytes.  Every tile is stored as 64-wide
+// column halves of 128-byte rows, each half 1024-byte aligned, as TMA's
+// 128-byte swizzle writes them.  K and V stay for a work item; a stage of the
+// ring holds one row tile's Q and dO, then its lse (base 2) and delta.
+template <int D>
+struct BkSmem {
+  static constexpr int kHalves = D / 64;
+  static constexpr int kKvHalf = kBwKeys * 128;
+  static constexpr int kRowHalf = kBwRows * 128;
+  static constexpr int kK = 0;
+  static constexpr int kV = kHalves * kKvHalf;
+  static constexpr int kRing = 2 * kHalves * kKvHalf;
+  static constexpr int kStQ = 0;
+  static constexpr int kStO = kHalves * kRowHalf;
+  static constexpr int kStLse = 2 * kHalves * kRowHalf;
+  static constexpr int kStDelta = kStLse + kBwRows * 4;
+  static constexpr int kStage = (kStDelta + kBwRows * 4 + 1023) / 1024 * 1024;
+  static constexpr int kColPos = kRing + kBwStages * kStage;  // int[64]: a column's position
+  static constexpr int kBar = kColPos + kBwRows * 4;  // kv_full, kv_empty, full[], empty[]
+  static constexpr int kBytes = kBar + 16 + 16 * kBwStages + 1024;  // and room to align
+};
+
+// The dQ pass's: Q and dO stay for a work item, K and V tiles go through the ring.
+template <int D>
+struct DqSmem {
+  static constexpr int kHalves = D / 64;
+  static constexpr int kRowHalf = kDqRows * 128;
+  static constexpr int kKeyHalf = kDqKeys * 128;
+  static constexpr int kTile = kHalves * kKeyHalf;
+  static constexpr int kQ = 0;
+  static constexpr int kO = kHalves * kRowHalf;
+  static constexpr int kK = 2 * kHalves * kRowHalf;
+  static constexpr int kV = kK + kDqStages * kTile;
+  static constexpr int kBar = kV + kDqStages * kTile;  // q_full, q_empty, full[], empty[]
+  static constexpr int kBytes = kBar + 16 + 16 * kDqStages + 1024;
+};
+
+// D[64 x D] += A[64 x 16] . B[16 x D]; A in registers, B MN-major (its
+// 64-wide halves `lbo` bytes apart)
+template <int D>
+__device__ __forceinline__ void wgmma_rs_d(float (&d)[D / 2], const uint32_t (&a)[4],
+                                           uint32_t b_addr, uint32_t lbo) {
+  if constexpr (D == 128) {
+    wgmma_rs_n128(d, a, sw128_desc(b_addr, lbo));
+  } else {
+    wgmma_rs_n64(d, a, sw128_desc(b_addr, lbo));
+  }
+}
+
+// A 64 x 16 KS accumulator in bf16 as the A operand of KS 16-deep steps:
+// its columns 16 kk .. 16 kk + 15 are the A fragment of step kk
+template <int KS>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[KS][4], const float (&c)[8 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = pack_bf16x2(c[8 * kk], c[8 * kk + 1]);
+    a[kk][1] = pack_bf16x2(c[8 * kk + 2], c[8 * kk + 3]);
+    a[kk][2] = pack_bf16x2(c[8 * kk + 4], c[8 * kk + 5]);
+    a[kk][3] = pack_bf16x2(c[8 * kk + 6], c[8 * kk + 7]);
+  }
+}
+
+// The row tiles of the dK/dV pass: a tile is `npos` positions by `gsub`
+// heads of one (b, KV head) pair, gsub = min(G, 64) and npos = 64 / gsub
+// (G > 64: one position's heads in ceil(G / 64) tiles), so that one 5-d TMA
+// box of q or dO loads it; tile t holds positions (t / n_gblk) npos + c / gsub
+// and heads (t % n_gblk) gsub + c % gsub at its column c < gsub npos.
+struct RowTiles {
+  int gsub, npos, n_gblk, n_rt;
+};
+
+__host__ __device__ inline RowTiles row_tiles(int S, int G) {
+  RowTiles r;
+  r.gsub = G < kBwRows ? G : kBwRows;
+  r.npos = kBwRows / r.gsub;
+  r.n_gblk = (G + r.gsub - 1) / r.gsub;
+  r.n_rt = (S + r.npos - 1) / r.npos * r.n_gblk;
+  return r;
+}
+
+// ---- wgmma 1. lse in base 2 and delta = rowsum(dO * O), by row tile ----------
+
+// lse2 and delta [B K, n_rt, 64] f32: slot (pair, t, c) of row tile t's
+// column c; a slot with no row holds lse2 = +inf (P = exp2(-inf) = 0 there)
+// and delta = 0.
+template <int D>
+__global__ void __launch_bounds__(32 * kBwDeltaSlots / 2) flash_bwd_delta_kernel(
+    const __nv_bfloat16* __restrict__ out, const __nv_bfloat16* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ lse2, float* __restrict__ delta,
+    long long n_slots, int S, int K, int G, RowTiles rt) {
+  const long long slot = (long long)blockIdx.x * kBwDeltaSlots + threadIdx.x / 16;
+  const int part = threadIdx.x % 16;
+  const int c = (int)(slot % kBwRows);
+  const long long tile = slot / kBwRows;
+  const int t = (int)(tile % rt.n_rt);
+  const long long pair = tile / rt.n_rt;
+  const int pb = t / rt.n_gblk, hb = t - pb * rt.n_gblk;
+  const int pos = pb * rt.npos + c / rt.gsub, g = hb * rt.gsub + c % rt.gsub;
+  const bool real = slot < n_slots && c < rt.gsub * rt.npos && g < G && pos < S;
+  const long long b = pair / K;
+  const int kh = (int)(pair % K);
+  float acc = 0.f;
+  if (real && part < D / 8) {
+    const size_t row = ((((size_t)b * S + pos) * K + kh) * G + g) * D + part * 8;
+    const uint4 o = *reinterpret_cast<const uint4*>(out + row);
+    const uint4 d = *reinterpret_cast<const uint4*>(dout + row);
+    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(op[i]), df = __bfloat1622float2(dp[i]);
+      acc += df.x * of.x + df.y * of.y;
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 8);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  if (slot < n_slots && part == 0) {
+    lse2[slot] = real ? lse[(((size_t)b * K + kh) * G + g) * S + pos] * kLog2e : INFINITY;
+    delta[slot] = real ? acc : 0.f;
+  }
+}
+
+// ---- wgmma 2. dK and dV: planned items, persistent -------------------------
+
+// CTA c walks the plan's items plan[c] .. plan[c + 1] - 1 (the plan's first
+// n_cta + 1 ints; then the items, kItemInts each: key tile j, pair b K + kh,
+// row tiles [t0, t1), and its partials' slot, or -1 where the item is the
+// only chunk of its (key tile, pair) and writes dK and dV itself).  Warpgroup 2 is the
+// producer: one thread loads each item's K and V (128 keys) behind a full /
+// empty barrier pair, then its row tiles' Q, dO, lse2 and delta into the
+// ring.  Warpgroups 0 and 1 each own 64 keys: per row tile S^T = K Q^T and
+// dP^T = V dO^T from shared memory, P^T and dS^T in registers, then
+// dV += P^T dO and dK += dS^T Q with dO and Q read MN-major.
+template <int D>
+__global__ void __launch_bounds__(kBwThreads, 1) flash_bwd_dkdv_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+    const float* __restrict__ lse2, const float* __restrict__ delta, const int* __restrict__ plan,
+    int n_cta, float* __restrict__ part, __nv_bfloat16* __restrict__ dk_out,
+    __nv_bfloat16* __restrict__ dv_out, int Skv, int K, RowTiles rt, int causal, float scale) {
+  using L = BkSmem<D>;
+  extern __shared__ __align__(1024) unsigned char bk_smem[];
+  const uint32_t raw = smem_u32(bk_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = bk_smem + (base - raw);
+  const uint32_t sK = base + L::kK, sV = base + L::kV, sRing = base + L::kRing;
+  const uint32_t bar_kv_full = base + L::kBar, bar_kv_empty = bar_kv_full + 8;
+  const uint32_t bar_full = bar_kv_full + 16, bar_empty = bar_full + 8 * kBwStages;
+  int* const colpos = reinterpret_cast<int*>(gbase + L::kColPos);
+  const int* const items = plan + n_cta + 1;
+  const int it0 = plan[blockIdx.x], it1 = plan[blockIdx.x + 1];
+  const int tile_rows = rt.gsub * rt.npos;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv_full, 1);
+    mbar_init(bar_kv_empty, 2 * 128);  // every consumer thread arrives
+    for (int s = 0; s < kBwStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer warpgroup: one thread issues every load ---------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kBwProducerRegs));
+    if (threadIdx.x == 256) {
+      const uint32_t tile_bytes = 2 * L::kHalves * 128 * tile_rows + 2 * kBwRows * 4;
+      int tile = 0;  // row tiles loaded so far: the ring's stage and phase
+      for (int i = it0; i < it1; ++i) {
+        const int* w = items + kItemInts * i;
+        const int j = w[0], pair = w[1], t0 = w[2], t1 = w[3];
+        const int b = pair / K, kh = pair - b * K;
+        mbar_wait(bar_kv_empty, ((i - it0) & 1) ^ 1);  // the last item's products are done
+        mbar_expect_tx(bar_kv_full, 2 * L::kHalves * L::kKvHalf);
+#pragma unroll
+        for (int h = 0; h < L::kHalves; ++h) {
+          tma_load_4d(sK + h * L::kKvHalf, &tm_k, bar_kv_full, 64 * h, kh, j * kBwKeys, b);
+          tma_load_4d(sV + h * L::kKvHalf, &tm_v, bar_kv_full, 64 * h, kh, j * kBwKeys, b);
+        }
+        for (int t = t0; t < t1; ++t, ++tile) {
+          const int st = tile % kBwStages;
+          const uint32_t stage = sRing + st * L::kStage, full = bar_full + 8 * st;
+          mbar_wait(bar_empty + 8 * st, ((tile / kBwStages) & 1) ^ 1);
+          mbar_expect_tx(full, tile_bytes);
+          const int pb = t / rt.n_gblk, hb = t - pb * rt.n_gblk;
+#pragma unroll
+          for (int h = 0; h < L::kHalves; ++h) {
+            tma_load_5d(stage + L::kStQ + h * L::kRowHalf, &tm_q, full, 64 * h, hb * rt.gsub, kh,
+                        pb * rt.npos, b);
+            tma_load_5d(stage + L::kStO + h * L::kRowHalf, &tm_do, full, 64 * h, hb * rt.gsub, kh,
+                        pb * rt.npos, b);
+          }
+          const size_t slot0 = ((size_t)pair * rt.n_rt + t) * kBwRows;
+          bulk_load(stage + L::kStLse, lse2 + slot0, kBwRows * 4, full);
+          bulk_load(stage + L::kStDelta, delta + slot0, kBwRows * 4, full);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns keys 64 wg .. 64 wg + 63 of an item ------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kBwConsumerRegs));
+    // rows past a tile's box (gsub npos of the 64) are never loaded: zero
+    // them in every stage, once; and each column's position in its tile
+    const int pad = (kBwRows - tile_rows) * 8;  // 16-byte chunks of a half
+    for (int i = threadIdx.x; i < kBwStages * 2 * L::kHalves * pad; i += 256) {
+      const int half = i / pad, rem = i - half * pad;  // half: stage, then Q / dO half
+      const int st = half / (2 * L::kHalves), which = half - st * 2 * L::kHalves;
+      *reinterpret_cast<uint4*>(gbase + L::kRing + st * L::kStage + which * L::kRowHalf +
+                                (tile_rows + rem / 8) * 128 + (rem % 8) * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    for (int c = threadIdx.x; c < kBwRows; c += 256)
+      colpos[c] = c < tile_rows ? c / rt.gsub : kNoPos;
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+
+    const int tw = threadIdx.x - 128 * wg, wi = tw >> 5, lane = tw & 31;
+    const int kr = 64 * wg + 16 * wi + (lane >> 2);  // the thread's keys kr, kr + 8 of an item
+    // Ping-pong: the warpgroups take turns to issue their products (named
+    // barriers 3 and 4), as flash_fwd_wgmma_kernel's do, so that one's run
+    // while the other computes P^T and dS^T.  Warpgroup 1 opens with an
+    // arrive, warpgroup 0 closes with a sync: every arrive meets one sync.
+    auto my_turn = [&] { asm volatile("bar.sync %0, 256;\n" ::"r"(3 + wg) : "memory"); };
+    auto your_turn = [&] { asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - wg) : "memory"); };
+    if (wg == 1) asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+    const int col = 2 * (lane & 3);
+    const float scale_log2 = scale * kLog2e;
+    float dk[D / 2], dv[D / 2];
+    int tile = 0;  // row tiles consumed so far
+    for (int i = it0; i < it1; ++i) {
+      const int* w = items + kItemInts * i;
+      const int j = w[0], pair = w[1], t0 = w[2], t1 = w[3], slot = w[4];
+      const int k0 = j * kBwKeys;
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
+      mbar_wait(bar_kv_full, (i - it0) & 1);
+      for (int t = t0; t < t1; ++t, ++tile) {
+        const int st = tile % kBwStages;
+        const uint32_t stage = sRing + st * L::kStage;
+        const float* ls = reinterpret_cast<const float*>(gbase + L::kRing + st * L::kStage +
+                                                         L::kStLse);
+        const float* dl = ls + kBwRows;  // kStDelta follows kStLse
+        mbar_wait(bar_full + 8 * st, (tile / kBwStages) & 1);
+
+        // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys x the 64 rows
+        float s[32], dp[32];
+        my_turn();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t h = (kk / 4), step = (kk % 4) * 32;
+          wgmma_ss_n64(s, sw128_desc(sK + h * L::kKvHalf + wg * 64 * 128 + step, 0),
+                       sw128_desc(stage + L::kStQ + h * L::kRowHalf + step, 0), kk);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t h = (kk / 4), step = (kk % 4) * 32;
+          wgmma_ss_n64(dp, sw128_desc(sV + h * L::kKvHalf + wg * 64 * 128 + step, 0),
+                       sw128_desc(stage + L::kStO + h * L::kRowHalf + step, 0), kk);
+        }
+        wgmma_commit();
+        your_turn();
+        wgmma_wait<1>();
+        fence_regs(s);
+        // P^T = exp2(S^T scale log2 e - lse2), 0 above the diagonal (only a
+        // tile whose first position is below the item's last key has any)
+        const int p0 = (t / rt.n_gblk) * rt.npos;
+        const bool diag = causal && p0 < k0 + kBwKeys - 1;
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * x + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2(fmaf(s[4 * x + e], scale_log2, (e & 1) ? -l2.y : -l2.x));
+            if (diag && k0 + kr + 8 * (e >> 1) > p0 + colpos[8 * x + col + (e & 1)]) p = 0.f;
+            s[4 * x + e] = p;
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+        // dS^T = P^T (dP^T - delta)
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * x + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * x + e] = s[4 * x + e] * (dp[4 * x + e] - ((e & 1) ? d2.y : d2.x));
+        }
+        uint32_t pa[4][4], da[4][4];
+        acc_to_a<4>(pa, s);
+        acc_to_a<4>(da, dp);
+        // dV += P^T dO and dK += dS^T Q (scaled once at the end), 16 rows a step
+        fence_regs(dv);
+        fence_regs(dk);
+        fence_regs(pa);
+        fence_regs(da);
+        my_turn();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_d<D>(dv, pa[kk], stage + L::kStO + kk * 16 * 128, L::kRowHalf);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_d<D>(dk, da[kk], stage + L::kStQ + kk * 16 * 128, L::kRowHalf);
+        wgmma_commit();
+        your_turn();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+        mbar_arrive(bar_empty + 8 * st);  // the stage may take the next row tile
+      }
+      mbar_arrive(bar_kv_empty);  // K and V may take the next item's
+
+      const int b = pair / K, kh = pair - b * K;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int key = k0 + kr + 8 * half;
+        if (key >= Skv) continue;
+        if (slot < 0) {
+          const size_t off = (((size_t)b * Skv + key) * K + kh) * D + col;
+#pragma unroll
+          for (int x = 0; x < D / 8; ++x) {
+            *reinterpret_cast<__nv_bfloat162*>(dk_out + off + 8 * x) = __floats2bfloat162_rn(
+                dk[4 * x + 2 * half] * scale, dk[4 * x + 2 * half + 1] * scale);
+            *reinterpret_cast<__nv_bfloat162*>(dv_out + off + 8 * x) =
+                __floats2bfloat162_rn(dv[4 * x + 2 * half], dv[4 * x + 2 * half + 1]);
+          }
+        } else {
+          float* pk = part + ((size_t)slot * 2 * kBwKeys + kr + 8 * half) * D + col;
+          float* pv = pk + (size_t)kBwKeys * D;
+#pragma unroll
+          for (int x = 0; x < D / 8; ++x) {
+            *reinterpret_cast<float2*>(pk + 8 * x) =
+                make_float2(dk[4 * x + 2 * half], dk[4 * x + 2 * half + 1]);
+            *reinterpret_cast<float2*>(pv + 8 * x) =
+                make_float2(dv[4 * x + 2 * half], dv[4 * x + 2 * half + 1]);
+          }
+        }
+      }
+    }
+    if (wg == 0) my_turn();  // warpgroup 1's last arrive
+  }
+}
+
+// ---- wgmma 3. the partials of split key tiles, summed in chunk order ----------
+
+// Block (j, pair, slice) sums kReduceKeys keys of key tile j of a pair that
+// the plan cut into n_ch > 1 chunks: dK = scale (part_0 + part_1 + ...) and
+// dV = part_0 + part_1 + ..., chunk 0 first, the order fixed by the chunk
+// index.  kt: (n_ch, first slot) per (key tile, pair), the pair fastest;
+// chunk c's partials are slot first + c.
+template <int D>
+__global__ void __launch_bounds__(256) flash_bwd_reduce_kernel(
+    const float* __restrict__ part, const int* __restrict__ kt, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int Skv, int K, int n_pairs, float scale) {
+  constexpr int kSlices = kBwKeys / kReduceKeys;
+  const int jp = blockIdx.x / kSlices, r0 = (blockIdx.x % kSlices) * kReduceKeys;
+  const int n_ch = kt[2 * jp], first = kt[2 * jp + 1];
+  if (n_ch < 2) return;
+  const int j = jp / n_pairs, pair = jp - j * n_pairs;
+  const int b = pair / K, kh = pair - b * K;
+  for (int i = threadIdx.x; i < kReduceKeys * D / 4; i += 256) {
+    const int r = r0 + i / (D / 4), d = (i % (D / 4)) * 4;
+    const int key = j * kBwKeys + r;
+    if (key >= Skv) continue;
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int c = 0; c < n_ch; ++c) {
+      const float* p = part + ((size_t)(first + c) * 2 * kBwKeys + r) * D + d;
+      const float4 a = *reinterpret_cast<const float4*>(p);
+      const float4 e = *reinterpret_cast<const float4*>(p + kBwKeys * D);
+      sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+      sv.x += e.x; sv.y += e.y; sv.z += e.z; sv.w += e.w;
+    }
+    const size_t off = (((size_t)b * Skv + key) * K + kh) * D + d;
+    __nv_bfloat162* ok = reinterpret_cast<__nv_bfloat162*>(dk + off);
+    __nv_bfloat162* ov = reinterpret_cast<__nv_bfloat162*>(dv + off);
+    ok[0] = __floats2bfloat162_rn(sk.x * scale, sk.y * scale);
+    ok[1] = __floats2bfloat162_rn(sk.z * scale, sk.w * scale);
+    ov[0] = __floats2bfloat162_rn(sv.x, sv.y);
+    ov[1] = __floats2bfloat162_rn(sv.z, sv.w);
+  }
+}
+
+// ---- wgmma 4. dQ: items of 128 rows, persistent ----------------------------
+
+// A work item is 128 rows (npos_q = 128 / G positions by all G heads of one
+// pair), the items with the most key tiles under the causal mask first, in
+// rounds that zigzag across the CTAs, as flash_fwd_wgmma_kernel walks them.
+// The producer loads the item's Q and dO (behind a full / empty pair), then
+// its K and V tiles of 128 keys into the ring; warpgroups 0 and 1 each own 64
+// rows: S = Q K^T, dP = dO V^T, P and dS in registers, dQ += dS K with K read
+// MN-major.
+template <int D>
+__global__ void __launch_bounds__(kBwThreads, 1) flash_bwd_dq_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+    const float* __restrict__ lse2, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq_out, int S, int Skv, int K, int G, int npos, int n_qblocks,
+    int n_pairs, RowTiles rt, int causal, float scale) {
+  using L = DqSmem<D>;
+  extern __shared__ __align__(1024) unsigned char dq_smem[];
+  const uint32_t raw = smem_u32(dq_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = dq_smem + (base - raw);
+  const uint32_t sQ = base + L::kQ, sO = base + L::kO, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t bar_q_full = base + L::kBar, bar_q_empty = bar_q_full + 8;
+  const uint32_t bar_full = bar_q_full + 16, bar_empty = bar_full + 8 * kDqStages;
+  const int n_items = n_qblocks * n_pairs;
+  const int grid = gridDim.x, c = blockIdx.x;
+  auto item_of = [&](int r) { return r * grid + ((r & 1) ? grid - 1 - c : c); };
+  struct Item {
+    int pair, q0, nq, n_tiles;
+  };
+  auto item = [&](int i) {
+    Item it;
+    it.pair = i % n_pairs;
+    it.q0 = (n_qblocks - 1 - i / n_pairs) * npos;
+    it.nq = min(npos, S - it.q0);
+    const int kv_end = causal ? min(Skv, it.q0 + it.nq) : Skv;
+    it.n_tiles = (kv_end + kDqKeys - 1) / kDqKeys;
+    return it;
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q_full, 1);
+    mbar_init(bar_q_empty, 2 * 128);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kBwProducerRegs));
+    if (threadIdx.x == 256) {
+      int tile = 0;
+      for (int j = 0; item_of(j) < n_items; ++j) {
+        const Item w = item(item_of(j));
+        const int b = w.pair / K, kh = w.pair - b * K;
+        mbar_wait(bar_q_empty, (j & 1) ^ 1);  // the last item's S and dP products are done
+        mbar_expect_tx(bar_q_full, (uint32_t)(2 * L::kHalves * 128 * G * npos));
+#pragma unroll
+        for (int h = 0; h < L::kHalves; ++h) {
+          tma_load_5d(sQ + h * L::kRowHalf, &tm_q, bar_q_full, 64 * h, 0, kh, w.q0, b);
+          tma_load_5d(sO + h * L::kRowHalf, &tm_do, bar_q_full, 64 * h, 0, kh, w.q0, b);
+        }
+        for (int t = 0; t < w.n_tiles; ++t, ++tile) {
+          const int st = tile % kDqStages;
+          mbar_wait(bar_empty + 8 * st, ((tile / kDqStages) & 1) ^ 1);
+          mbar_expect_tx(bar_full + 8 * st, 2 * L::kTile);
+#pragma unroll
+          for (int h = 0; h < L::kHalves; ++h) {
+            const uint32_t off = st * L::kTile + h * L::kKeyHalf;
+            tma_load_4d(sK + off, &tm_k, bar_full + 8 * st, 64 * h, kh, t * kDqKeys, b);
+            tma_load_4d(sV + off, &tm_v, bar_full + 8 * st, 64 * h, kh, t * kDqKeys, b);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kBwConsumerRegs));
+    const int tw = threadIdx.x - 128 * wg, wi = tw >> 5, lane = tw & 31;
+    // rows past the box (npos G of the 128) are never loaded: zero this
+    // warpgroup's in Q and dO, once
+    const int boxed = npos * G;
+    for (int i = tw; i < 2 * L::kHalves * 64 * 8; i += 128) {
+      const int h = i / 512, r = 64 * wg + (i / 8) % 64, ch = i % 8;
+      if (r >= boxed)
+        *reinterpret_cast<uint4*>(gbase + L::kQ + h * L::kRowHalf + r * 128 + ch * 16) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+
+    const int r0 = 64 * wg + 16 * wi + (lane >> 2), r1 = r0 + 8;
+    const int col = 2 * (lane & 3);
+    const float scale_log2 = scale * kLog2e;
+    float dq[D / 2];
+    int tile = 0;
+    for (int j = 0; item_of(j) < n_items; ++j) {
+      const Item w = item(item_of(j));
+      const int rows = w.nq * G;
+      // each row's position, lse2 and delta (the delta pass's slot of (pos, g))
+      int pos[2];
+      float lrow[2], drow[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? r1 : r0;
+        pos[half] = kNoPos;
+        lrow[half] = INFINITY;
+        drow[half] = 0.f;
+        if (r < rows) {
+          const int p = w.q0 + r / G, g = r % G;
+          const int t = (p / rt.npos) * rt.n_gblk + g / rt.gsub;
+          const size_t slot = ((size_t)w.pair * rt.n_rt + t) * kBwRows +
+                              (p % rt.npos) * rt.gsub + g % rt.gsub;
+          pos[half] = p;
+          lrow[half] = lse2[slot];
+          drow[half] = delta[slot];
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+      mbar_wait(bar_q_full, j & 1);
+      for (int t = 0; t < w.n_tiles; ++t, ++tile) {
+        const int st = tile % kDqStages;
+        const uint32_t kt = sK + st * L::kTile, vt = sV + st * L::kTile;
+        mbar_wait(bar_full + 8 * st, (tile / kDqStages) & 1);
+        float s[kDqKeys / 2], dp[kDqKeys / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t h = (kk / 4), step = (kk % 4) * 32;
+          wgmma_ss_n128(s, sw128_desc(sQ + h * L::kRowHalf + wg * 64 * 128 + step, 0),
+                        sw128_desc(kt + h * L::kKeyHalf + step, 0), kk);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t h = (kk / 4), step = (kk % 4) * 32;
+          wgmma_ss_n128(dp, sw128_desc(sO + h * L::kRowHalf + wg * 64 * 128 + step, 0),
+                        sw128_desc(vt + h * L::kKeyHalf + step, 0), kk);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        // P = exp2(S scale log2 e - lse2), 0 where masked (only the tiles that
+        // cross the diagonal or Skv have any)
+        const int kt0 = t * kDqKeys;
+        const bool edge = kt0 + kDqKeys > Skv || (causal && kt0 + kDqKeys - 1 > w.q0);
+#pragma unroll
+        for (int x = 0; x < kDqKeys / 8; ++x)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2(fmaf(s[4 * x + e], scale_log2, -lrow[e >> 1]));
+            if (edge) {
+              const int key = kt0 + 8 * x + col + (e & 1);
+              if (key >= Skv || (causal && key > pos[e >> 1])) p = 0.f;
+            }
+            s[4 * x + e] = p;
+          }
+        wgmma_wait<0>();
+        fence_regs(dp);
+        if (t == w.n_tiles - 1) mbar_arrive(bar_q_empty);  // Q and dO may take the next item
+        // dS = P (dP - delta)
+#pragma unroll
+        for (int x = 0; x < kDqKeys / 8; ++x)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[4 * x + e] = s[4 * x + e] * (dp[4 * x + e] - drow[e >> 1]);
+        uint32_t da[kDqKeys / 16][4];
+        acc_to_a<kDqKeys / 16>(da, dp);
+        // dQ += dS K (scaled once at the end), 16 keys a step
+        fence_regs(dq);
+        fence_regs(da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDqKeys / 16; ++kk)
+          wgmma_rs_d<D>(dq, da[kk], kt + kk * 16 * 128, L::kKeyHalf);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        mbar_arrive(bar_empty + 8 * st);
+      }
+
+      const int b = w.pair / K, kh = w.pair - b * K;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? r1 : r0;
+        if (r >= rows) continue;
+        const int p = w.q0 + r / G, g = r % G;
+        __nv_bfloat16* dst = dq_out + ((((size_t)b * S + p) * K + kh) * G + g) * D + col;
+#pragma unroll
+        for (int x = 0; x < D / 8; ++x)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * x) = __floats2bfloat162_rn(
+              dq[4 * x + 2 * half] * scale, dq[4 * x + 2 * half + 1] * scale);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_bwd_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                             const __nv_bfloat16* v, const __nv_bfloat16* out,
+                             const __nv_bfloat16* dout, const float* lse, float* work,
+                             const int* plan, int n_cta, int n_items, __nv_bfloat16* dq,
+                             __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int S, int Skv, int K,
+                             int G, int causal, float scale, cudaStream_t stream) {
+  const RowTiles rt = row_tiles(S, G);
+  const int n_pairs = B * K, n_kt = (Skv + kBwKeys - 1) / kBwKeys;
+  const long long n_slots = (long long)n_pairs * rt.n_rt * kBwRows;
+  const int npos = kDqRows / G, n_qblocks = (S + npos - 1) / npos;
+  const long long reduce_blocks = (long long)n_kt * n_pairs * (kBwKeys / kReduceKeys);
+  if (n_slots / kBwDeltaSlots + 1 > 0x7fffffffLL || reduce_blocks > 0x7fffffffLL ||
+      (long long)n_qblocks * n_pairs > 0x7fffffffLL || n_cta <= 0)
+    return cudaErrorInvalidConfiguration;
+  float* const lse2 = work;
+  float* const delta = work + n_slots;
+  float* const part = delta + n_slots;
+
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  const cuuint64_t q_dims[5] = {(cuuint64_t)D, (cuuint64_t)G, (cuuint64_t)K, (cuuint64_t)S,
+                                (cuuint64_t)B};
+  const cuuint64_t q_strides[4] = {D * e, (cuuint64_t)G * D * e, (cuuint64_t)K * G * D * e,
+                                   (cuuint64_t)S * K * G * D * e};
+  const cuuint32_t tile_box[5] = {64u, (cuuint32_t)rt.gsub, 1u, (cuuint32_t)rt.npos, 1u};
+  const cuuint32_t item_box[5] = {64u, (cuuint32_t)G, 1u, (cuuint32_t)npos, 1u};
+  const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)K, (cuuint64_t)Skv, (cuuint64_t)B};
+  const cuuint64_t kv_strides[3] = {D * e, (cuuint64_t)K * D * e, (cuuint64_t)Skv * K * D * e};
+  const cuuint32_t kv_box[4] = {64u, 1u, (cuuint32_t)kBwKeys, 1u};
+  const cuuint32_t dq_kv_box[4] = {64u, 1u, (cuuint32_t)kDqKeys, 1u};
+  CUtensorMap bq, bdo, bk, bv, cq, cdo, ck, cv;
+  cudaError_t err;
+  if ((err = make_map<5>(&bq, q, q_dims, q_strides, tile_box)) != cudaSuccess ||
+      (err = make_map<5>(&bdo, dout, q_dims, q_strides, tile_box)) != cudaSuccess ||
+      (err = make_map<4>(&bk, k, kv_dims, kv_strides, kv_box)) != cudaSuccess ||
+      (err = make_map<4>(&bv, v, kv_dims, kv_strides, kv_box)) != cudaSuccess ||
+      (err = make_map<5>(&cq, q, q_dims, q_strides, item_box)) != cudaSuccess ||
+      (err = make_map<5>(&cdo, dout, q_dims, q_strides, item_box)) != cudaSuccess ||
+      (err = make_map<4>(&ck, k, kv_dims, kv_strides, dq_kv_box)) != cudaSuccess ||
+      (err = make_map<4>(&cv, v, kv_dims, kv_strides, dq_kv_box)) != cudaSuccess)
+    return err;
+  if ((err = smem_limit_once<flash_bwd_dkdv_kernel<D>>(BkSmem<D>::kBytes)) != cudaSuccess ||
+      (err = smem_limit_once<flash_bwd_dq_kernel<D>>(DqSmem<D>::kBytes)) != cudaSuccess)
+    return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+
+  flash_bwd_delta_kernel<D><<<(unsigned)((n_slots + kBwDeltaSlots - 1) / kBwDeltaSlots),
+                              32 * kBwDeltaSlots / 2, 0, stream>>>(out, dout, lse, lse2, delta,
+                                                                   n_slots, S, K, G, rt);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_bwd_dkdv_kernel<D><<<(unsigned)n_cta, kBwThreads, BkSmem<D>::kBytes, stream>>>(
+      bq, bdo, bk, bv, lse2, delta, plan, n_cta, part, dk, dv, Skv, K, rt, causal, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  flash_bwd_reduce_kernel<D><<<(unsigned)reduce_blocks, 256, 0, stream>>>(
+      part, plan + n_cta + 1 + kItemInts * n_items, dk, dv, Skv, K, n_pairs, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long dq_items = (long long)n_qblocks * n_pairs;
+  const unsigned dq_blocks = (unsigned)(dq_items < sms ? dq_items : sms);
+  flash_bwd_dq_kernel<D><<<dq_blocks, kBwThreads, DqSmem<D>::kBytes, stream>>>(
+      cq, cdo, ck, cv, lse2, delta, dq, S, Skv, K, G, npos, n_qblocks, n_pairs, rt, causal,
+      scale);
   return cudaGetLastError();
 }
 
@@ -524,14 +1183,30 @@ cudaError_t launch_bwd(const __nv_bfloat16* q, const __nv_bfloat16* k, const __n
 
 extern "C" {
 
-// Launches flash_bwd on `stream`: the delta pass, then dK and dV, then dQ.
-// D = 16 * nk with 1 <= nk <= 8, G <= 128; q, out, dout, dq [B, S, K, G, D]
-// and k, v, dk, dv [B, Skv, K, D] bf16, lse [B, K, G, S] f32 (natural log
-// units), delta [B, K, G, S] f32 workspace; all pointers 16-byte aligned
-// (the wrapper checks).  Returns a cudaError_t.
+// The kernels' geometry for head dim D, which the wrapper plans with and
+// checks: keys of a dK/dV work item, rows of a row tile, ints of a planned
+// item, and whether D goes to the wgmma kernels (1) or the mma.sync ones (0).
+int flash_bwd_geometry(int D, int* key_tile, int* row_tile, int* item_ints, int* wgmma) {
+  *key_tile = kBwKeys;
+  *row_tile = kBwRows;
+  *item_ints = kItemInts;
+  *wgmma = (D == 64 || D == 128) ? 1 : 0;
+  return 0;
+}
+
+// Launches flash_bwd on `stream`.  D = 16 * nk with 1 <= nk <= 8, G <= 128;
+// q, out, dout, dq [B, S, K, G, D] and k, v, dk, dv [B, Skv, K, D] bf16, lse
+// [B, K, G, S] f32 (natural log units); all pointers 16-byte aligned (the
+// wrapper checks).  D = 64 and 128: `work` holds lse2 and delta by row tile
+// (2 B K n_rt 64 f32) then the partials (2 x 128 x D f32 a slot), and `plan`
+// (device int32, n_cta + 1 offsets, n_items items, 2 ints a key tile) is the
+// wrapper's flash_bwd_plan; the delta pass, dK and dV, the partials' sum, dQ.
+// Other D: `work` is delta [B, K, G, S] f32 and `plan` unused; the delta
+// pass, dK and dV, dQ by mma.sync.  Returns a cudaError_t.
 int flash_bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
-              const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int S, int Skv,
-              int K, int G, int D, int causal, float scale, void* stream) {
+              const void* lse, void* work, const void* plan, int n_cta, int n_items, void* dq,
+              void* dk, void* dv, int B, int S, int Skv, int K, int G, int D, int causal,
+              float scale, void* stream) {
   if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || G <= 0 || G > 128 || D % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -540,18 +1215,26 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* out, cons
   const auto* op = static_cast<const __nv_bfloat16*>(out);
   const auto* dop = static_cast<const __nv_bfloat16*>(dout);
   const auto* lp = static_cast<const float*>(lse);
-  auto* dl = static_cast<float*>(delta);
+  auto* wp = static_cast<float*>(work);
   auto* dqp = static_cast<__nv_bfloat16*>(dq);
   auto* dkp = static_cast<__nv_bfloat16*>(dk);
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
+  const auto* pl = static_cast<const int*>(plan);
   const auto st = static_cast<cudaStream_t>(stream);
+  if (D == 64 || D == 128) {
+    if (pl == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        D == 64 ? launch_bwd_wgmma<64>(qp, kp, vp, op, dop, lp, wp, pl, n_cta, n_items, dqp, dkp,
+                                       dvp, B, S, Skv, K, G, causal, scale, st)
+                : launch_bwd_wgmma<128>(qp, kp, vp, op, dop, lp, wp, pl, n_cta, n_items, dqp, dkp,
+                                        dvp, B, S, Skv, K, G, causal, scale, st));
+  }
   switch (D / 16) {
-#define BWD_CASE(n)                                                                        \
-  case n:                                                                                  \
-    return static_cast<int>(launch_bwd<n>(qp, kp, vp, op, dop, lp, dl, dqp, dkp, dvp, B, S, \
-                                          Skv, K, G, causal, scale, st));
-    BWD_CASE(1) BWD_CASE(2) BWD_CASE(3) BWD_CASE(4) BWD_CASE(5) BWD_CASE(6) BWD_CASE(7)
-    BWD_CASE(8)
+#define BWD_CASE(n)                                                                             \
+  case n:                                                                                       \
+    return static_cast<int>(launch_bwd_mma<n>(qp, kp, vp, op, dop, lp, wp, dqp, dkp, dvp, B, S, \
+                                              Skv, K, G, causal, scale, st));
+    BWD_CASE(1) BWD_CASE(2) BWD_CASE(3) BWD_CASE(5) BWD_CASE(6) BWD_CASE(7)
 #undef BWD_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);

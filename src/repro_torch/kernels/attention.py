@@ -25,12 +25,22 @@ CUDA graph that captured a launch goes on using it.  A capture must follow
 an uncaptured launch on its stream at least as large (the buffer is zeroed
 outside the capture), else it raises.  A graph replays with its capture
 stream's tickets: do not replay it while a launch on that stream runs.
+
+The backward for head dims 64 and 128 runs its dK/dV pass over a plan
+(:func:`flash_bwd_plan`): the row tiles each (key tile, pair) meets, laid
+end to end and cut into two segments of equal cost for each of the card's
+SMs, so that the causal mask's uneven runs finish together.
+The plan is made on the host once per shape and device and kept on the
+device (never freed, as a CUDA graph that captured a launch reads it), so
+a capture must follow an uncaptured launch of its shape, else it raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -55,6 +65,16 @@ __all__ = [
     "DECODE_MAX_SPLITS",
     "decode_plan",
     "decode_split_plan",
+    "BWD_KEY_TILE",
+    "BWD_ROW_TILE",
+    "BWD_ITEM_INTS",
+    "BWD_WGMMA_HEAD_DIMS",
+    "BWD_MIN_CHUNK",
+    "BWD_ITEM_COST",
+    "FlashBwdPlan",
+    "flash_bwd_row_tiles",
+    "flash_bwd_plan",
+    "flash_bwd_plan_table",
 ]
 
 #: Launches by each wrapper since the last reset to 0 (one per launch,
@@ -76,6 +96,22 @@ DECODE_MAX_GROUP = 16
 #: checked against the library's own when it first plans on a device.
 DECODE_GROUP = 16
 DECODE_MAX_SPLITS = 128
+#: The backward's wgmma geometry (``csrc/attention_bwd.cu``: ``kBwKeys``,
+#: ``kBwRows``, ``kItemInts``), checked against the library's own when it
+#: first plans: keys of a dK/dV work item, rows of a row tile, and the ints
+#: of a planned item in the device table.
+BWD_KEY_TILE = 128
+BWD_ROW_TILE = 64
+BWD_ITEM_INTS = 5
+#: Head dims whose backward runs the wgmma kernels over a plan; the others
+#: run the mma.sync kernels, which need none.
+BWD_WGMMA_HEAD_DIMS = (64, 128)
+#: What an item of the dK/dV pass costs besides its row tiles, in row tiles:
+#: loading its K and V and writing its dK and dV, about two row tiles'
+#: products on the H100.
+BWD_ITEM_COST = 2
+#: The fewest row tiles of a segment of the plan: below, fewer CTAs.
+BWD_MIN_CHUNK = 8
 
 _LIB: ctypes.CDLL | None = None
 _BWD_LIB: ctypes.CDLL | None = None
@@ -84,6 +120,10 @@ _decode_fill: dict[tuple[int, int], int] = {}  # (device, D) -> SMs x blocks an 
 # kept in _retired for the graphs that captured them
 _tickets: dict[tuple[int, int], torch.Tensor] = {}
 _retired: list[torch.Tensor] = []
+# D -> the backward library's geometry, once checked
+_bwd_checked: set[int] = set()
+# (device, B, S, Skv, K, G, causal) -> the dK/dV plan and its int32 table on the device
+_bwd_plans: dict[tuple, tuple["FlashBwdPlan", torch.Tensor]] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -109,9 +149,12 @@ def _bwd_lib() -> ctypes.CDLL:
     global _BWD_LIB
     if _BWD_LIB is None:
         lib = build.load("attention_bwd")
-        lib.flash_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_void_p]
+        lib.flash_bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+                                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                                  + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_bwd.restype = ctypes.c_int
+        lib.flash_bwd_geometry.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.flash_bwd_geometry.restype = ctypes.c_int
         _BWD_LIB = lib
     return _BWD_LIB
 
@@ -150,6 +193,184 @@ def decode_plan(device, B: int, K: int, Smax: int, D: int) -> tuple[int, int]:
         fill = _decode_fill[(idx, D)] = (
             torch.cuda.get_device_properties(idx).multi_processor_count * max(per_sm.value, 1))
     return decode_split_plan(B, K, Smax, fill)
+
+
+class FlashBwdPlan(NamedTuple):
+    """The dK/dV pass's work for one shape (:func:`flash_bwd_plan`).
+
+    Row tiles are ``npos`` positions by ``gsub`` heads of one pair (``b``,
+    KV head), ``n_rt`` a pair; key tile ``j`` is keys ``128 j`` on, ``n_kt``
+    of them.  ``chunks[j * n_pairs + pair]`` are the ``[t0, t1)`` runs of
+    row tiles that key tile ``j`` of ``pair`` is cut into, in row order
+    (the order their partials are summed in), and ``first_slot`` at the
+    same index its first partial slot, or -1 where it is one chunk (whose
+    item writes dK and dV itself).  ``cta_items[c]`` are CTA ``c``'s items
+    in the order it walks them, each ``(j, pair, t0, t1, slot)``, ``slot =
+    first_slot + chunk`` or -1.  ``cap`` bounds every item's row tiles."""
+
+    gsub: int
+    npos: int
+    n_gblk: int
+    n_rt: int
+    n_kt: int
+    n_pairs: int
+    cap: int
+    chunks: tuple
+    first_slot: tuple
+    n_slots: int
+    cta_items: tuple
+
+    @property
+    def n_cta(self) -> int:
+        return len(self.cta_items)
+
+    @property
+    def n_items(self) -> int:
+        return sum(len(c) for c in self.cta_items)
+
+    @property
+    def longest(self) -> int:
+        """Row tiles of the longest item."""
+        return max(t1 - t0 for c in self.cta_items for _, _, t0, t1, _ in c)
+
+    @property
+    def loads(self) -> list[int]:
+        """Each CTA's cost: its row tiles plus :data:`BWD_ITEM_COST` an item."""
+        return [sum(t1 - t0 + BWD_ITEM_COST for _, _, t0, t1, _ in c) for c in self.cta_items]
+
+    def workspace_floats(self, D: int) -> int:
+        """Float32s of the kernel's workspace: lse2 and delta by row tile,
+        then the partial dK and dV of every slot."""
+        return 2 * self.n_pairs * self.n_rt * BWD_ROW_TILE + self.n_slots * 2 * BWD_KEY_TILE * D
+
+
+def flash_bwd_row_tiles(S: int, G: int) -> tuple[int, int, int, int]:
+    """``(gsub, npos, n_gblk, n_rt)``: the backward's row tiles of ``S``
+    positions with ``G`` query heads a KV head, ``gsub = min(G, 64)`` heads
+    by ``npos = 64 // gsub`` positions each (one TMA box), ``n_gblk`` tiles
+    across the heads of a position block, ``n_rt`` tiles a pair."""
+    gsub = min(G, BWD_ROW_TILE)
+    npos = BWD_ROW_TILE // gsub
+    n_gblk = -(-G // gsub)
+    return gsub, npos, n_gblk, -(-S // npos) * n_gblk
+
+
+def flash_bwd_plan(B: int, S: int, Skv: int, K: int, G: int, causal: bool,
+                   n_sm: int) -> FlashBwdPlan:
+    """The dK/dV pass's plan on a card of ``n_sm`` SMs.
+
+    Key tile ``j`` of each pair meets the row tiles from the first that
+    holds a position ``>= 128 j`` (causal; all of them otherwise) to the
+    last, so under the causal mask the runs shrink with ``j``.  The runs
+    of every (key tile, pair), one after another, are cut into two
+    segments a CTA of equal cost (row tiles, plus :data:`BWD_ITEM_COST` for
+    each piece, which loads its K and V and writes its dK and dV): a run
+    cut at a segment's end becomes two chunks.  So no item is longer than
+    about half a CTA's share (``cap``), and every CTA gets the same cost to
+    within a row tile or two.  CTA ``c`` takes segments ``c`` and ``c +
+    n_cta`` and walks their items longest first.  The CTAs are at most
+    ``n_sm`` and as many as give each segment :data:`BWD_MIN_CHUNK` row
+    tiles."""
+    gsub, npos, n_gblk, n_rt = flash_bwd_row_tiles(S, G)
+    n_kt = -(-Skv // BWD_KEY_TILE)
+    n_pairs = B * K
+
+    def first(j):
+        k0 = j * BWD_KEY_TILE
+        return n_rt if k0 >= S else (k0 // npos) * n_gblk
+
+    runs = [(j, pair, first(j) if causal else 0) for j in range(n_kt) for pair in range(n_pairs)]
+    work = sum(n_rt - lo + BWD_ITEM_COST for _, _, lo in runs)
+    n_cta = max(1, min(n_sm, work // (2 * (BWD_MIN_CHUNK + BWD_ITEM_COST))))
+    n_seg = 2 * n_cta
+    total = work + BWD_ITEM_COST * (n_seg - 1)  # a cut at each segment's end adds one item
+    cap = -(-total // n_seg) + BWD_ITEM_COST + 1
+    segs = [[] for _ in range(n_seg)]
+    s, cum = 0, 0  # the segment being filled; the cost so far
+    for j, pair, lo in runs:
+        t = lo
+        while True:
+            # cost left in segment s before its end (s + 1) total / n_seg, in
+            # units of 1 / n_seg, after this piece's own
+            room = (s + 1) * total - (cum + BWD_ITEM_COST) * n_seg
+            if segs[s] and room < n_seg and s < n_seg - 1:
+                s += 1
+                continue
+            take = n_rt - t  # the last segment takes what is left
+            if s < n_seg - 1:  # else the room, rounded, at least one tile
+                take = min(take, max(1, (2 * room + n_seg) // (2 * n_seg)))
+            segs[s].append((j, pair, t, t + take))
+            cum += take + BWD_ITEM_COST
+            t += take
+            if t >= n_rt:
+                break
+    pieces: dict[tuple[int, int], list] = {}
+    for seg in segs:
+        for j, pair, t0, t1 in seg:
+            pieces.setdefault((j, pair), []).append((t0, t1))
+    chunks, first_slot, n_slots = [], [], 0
+    for j in range(n_kt):
+        for pair in range(n_pairs):
+            runs_jp = tuple(pieces[(j, pair)])
+            chunks.append(runs_jp)
+            first_slot.append(n_slots if len(runs_jp) > 1 else -1)
+            n_slots += len(runs_jp) if len(runs_jp) > 1 else 0
+    cta_items = [[] for _ in range(n_cta)]
+    for i, seg in enumerate(segs):
+        for j, pair, t0, t1 in seg:
+            fs = first_slot[j * n_pairs + pair]
+            slot = -1 if fs < 0 else fs + chunks[j * n_pairs + pair].index((t0, t1))
+            cta_items[i % n_cta].append((j, pair, t0, t1, slot))
+    # longest first; a CTA left without items (the cuts' cost was estimated
+    # high) is not launched
+    cta_items = [sorted(c, key=lambda it: it[2] - it[3]) for c in cta_items if c]
+    if max(t1 - t0 for c in cta_items for _, _, t0, t1, _ in c) > cap:
+        raise AssertionError("flash_bwd_plan cut an item past its cap")
+    return FlashBwdPlan(gsub, npos, n_gblk, n_rt, n_kt, n_pairs, cap, tuple(chunks),
+                        tuple(first_slot), n_slots, tuple(tuple(c) for c in cta_items))
+
+
+def flash_bwd_plan_table(plan: FlashBwdPlan) -> np.ndarray:
+    """The plan as the kernel reads it, int32: ``n_cta + 1`` offsets of
+    each CTA's first item, the items (:data:`BWD_ITEM_INTS` each), then
+    ``(n_chunks, first_slot)`` of each (key tile, pair), pair fastest."""
+    offsets = np.cumsum([0] + [len(c) for c in plan.cta_items])
+    items = np.array([it for c in plan.cta_items for it in c], dtype=np.int64).reshape(-1)
+    kt = np.array([(len(ch), fs) for ch, fs in zip(plan.chunks, plan.first_slot)],
+                  dtype=np.int64).reshape(-1)
+    table = np.concatenate([offsets, items, kt])
+    if table.size and (table.max() > np.iinfo(np.int32).max or table.min() < -1):
+        raise ValueError("the backward's plan does not fit int32")
+    return table.astype(np.int32)
+
+
+def _bwd_plan(dev: torch.device, B: int, S: int, Skv: int, K: int, G: int, D: int,
+              causal: bool) -> tuple[FlashBwdPlan, torch.Tensor]:
+    """The plan of this shape on ``dev`` and its table there, made once
+    (the library's geometry checked once per head dim first)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if D not in _bwd_checked:
+        lib = _bwd_lib()
+        got = [ctypes.c_int(0) for _ in range(4)]
+        _raise_on(_lib(), lib.flash_bwd_geometry(D, *(ctypes.byref(g) for g in got)),
+                  "flash_bwd")
+        want = (BWD_KEY_TILE, BWD_ROW_TILE, BWD_ITEM_INTS, int(D in BWD_WGMMA_HEAD_DIMS))
+        if tuple(g.value for g in got) != want:
+            raise RuntimeError(f"the backward kernel's key tile, row tile, item ints and "
+                               f"wgmma flag are {tuple(g.value for g in got)}; the wrapper "
+                               f"plans with {want}")
+        _bwd_checked.add(D)
+    key = (idx, B, S, Skv, K, G, bool(causal))
+    found = _bwd_plans.get(key)
+    if found is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a captured flash_bwd launch needs an uncaptured one of the same "
+                               f"shape before it on this device, got {key[1:]}")
+        plan = flash_bwd_plan(B, S, Skv, K, G, causal,
+                              torch.cuda.get_device_properties(idx).multi_processor_count)
+        table = torch.from_numpy(flash_bwd_plan_table(plan)).to(torch.device("cuda", idx))
+        found = _bwd_plans[key] = (plan, table)
+    return found
 
 
 def _check_bf16(dev: torch.device, **tensors) -> None:
@@ -252,8 +473,22 @@ def flash_attention_bwd_kernel_call(q, k, v, out, lse, do, *, causal: bool = Tru
     """Row 9 on the card: ``(dq [B, S, K, G, D], dk, dv [B, Skv, K, D])``
     bf16 from the forward's ``out`` (bf16, like ``q``) and ``lse [B, K, G,
     S]`` (float32) and the output's gradient ``do`` (bf16, like ``q``).
-    Three passes in one call (``delta``, then dK and dV, then dQ), which
-    counts one launch.  Deterministic: no atomics.  Does not synchronize."""
+    One call counts one launch; it does not synchronize.
+
+    Head dims 64 and 128 run four wgmma/TMA kernels
+    (``csrc/attention_bwd.cu``): lse in base 2 and ``delta = rowsum(dO *
+    O)`` by row tile; dK and dV on persistent CTAs over
+    :func:`flash_bwd_plan` (128 keys of one (b, KV head) pair against a run
+    of its row tiles an item, every CTA the same cost), whose cut runs
+    write f32 partials; their sum in chunk order; dQ on persistent CTAs,
+    128 rows an item.  The dK/dV pass is bound by its four products on the
+    tensor cores, the dQ pass by its three.  Other head dims run the three
+    ``mma.sync`` kernels.  One ``torch.empty`` holds the workspace.
+    Deterministic: every output and partial is summed by one thread in a
+    fixed order and the partials in chunk order, with no atomics, so two
+    launches agree bit for bit (a CUDA graph too: a capture must follow an
+    uncaptured launch of its shape, as the plan is made then).  A failed
+    build or launch raises."""
     global flash_bwd_launches
     dev = q.device
     if dev.type != "cuda":
@@ -271,13 +506,20 @@ def flash_attention_bwd_kernel_call(q, k, v, out, lse, do, *, causal: bool = Tru
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, K, G, S), dtype=torch.float32, device=dev)  # rowsum(dO * O)
+    Skv = k.shape[1]
     lib = _bwd_lib()
     with torch.cuda.device(dev):
+        if D in BWD_WGMMA_HEAD_DIMS:
+            plan, table = _bwd_plan(dev, B, S, Skv, K, G, D, causal)
+            work = torch.empty(plan.workspace_floats(D), dtype=torch.float32, device=dev)
+            plan_ptr, n_cta, n_items = table.data_ptr(), plan.n_cta, plan.n_items
+        else:  # delta [B, K, G, S] = rowsum(dO * O)
+            work = torch.empty((B, K, G, S), dtype=torch.float32, device=dev)
+            plan_ptr, n_cta, n_items = 0, 0, 0
         rc = lib.flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                           dk.data_ptr(), dv.data_ptr(), B, S, k.shape[1], K, G, D, int(causal),
-                           D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+                           do.data_ptr(), lse.data_ptr(), work.data_ptr(), plan_ptr, n_cta,
+                           n_items, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, Skv, K, G,
+                           D, int(causal), D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(_lib(), rc, "flash_bwd")
     flash_bwd_launches += 1
     return dq, dk, dv

@@ -1059,12 +1059,31 @@ def test_attention_kernels_refuse_bad_inputs_on_card(cuda_device):
     (1, 40, 150, 2, 4, 64, False),  # Skv != S
     (1, 33, 33, 1, 16, 32, False),
     (1, 150, 40, 2, 4, 128, False),
+    # the wgmma kernels (D = 64, 128): S and Skv at the 128-key tile's edges
+    # and a multiple of 128 plus 1, G in {1, 7, 12, 128} (128: two row tiles
+    # a position), B > 1 with K > 1, chunked key tiles and their partials
+    # (S = 1,000 and up), Skv != S on both sides without the mask, and the
+    # lm_train microbatch
+    (1, 127, 127, 2, 7, 128, True),
+    (1, 128, 128, 2, 7, 128, True),
+    (1, 129, 129, 2, 7, 128, True),
+    (1, 257, 257, 1, 1, 64, True),
+    (2, 129, 129, 3, 12, 64, True),
+    (1, 257, 257, 1, 128, 128, True),
+    (2, 300, 300, 2, 1, 128, True),
+    (3, 385, 385, 2, 7, 64, True),
+    (2, 1000, 1000, 4, 7, 64, True),
+    (2, 127, 257, 2, 12, 128, False),
+    (2, 257, 129, 2, 7, 64, False),
+    (1, 129, 128, 3, 128, 64, False),
+    (4, 2048, 2048, 2, 12, 128, True),
 ])
 def test_flash_bwd_kernel_matches_plain_and_float64_on_card(cuda_device, B, S, Skv, K, G, D,
                                                             causal):
     """Row 7's ``lse`` and row 9's gradients against their plain versions
     and float64 (``kernel_within_yardstick`` per output row,
-    ``lse_within_yardstick`` per row); two row-9 launches bit for bit."""
+    ``lse_within_yardstick`` per row); two row-9 launches bit for bit; D =
+    64 and 128 through the planned wgmma kernels, other head dims not."""
     from repro_torch.kernels import attention as kattn
     from _torch_parity import (
         BWD_FLOOR,
@@ -1077,8 +1096,9 @@ def test_flash_bwd_kernel_matches_plain_and_float64_on_card(cuda_device, B, S, S
     q, do = _bf16(rng, (B, S, K, G, D), cuda_device), _bf16(rng, (B, S, K, G, D), cuda_device)
     k, v = _bf16(rng, (B, Skv, K, D), cuda_device), _bf16(rng, (B, Skv, K, D), cuda_device)
     kattn.flash_launches = kattn.flash_bwd_launches = 0
+    blocks = (64, 64) if S < 1024 else (512, 1024)  # the plain version's, the configs' at length
     out, lse = kattn.flash_attention_fwd(q, k, v, causal=causal)
-    out_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, causal, 64, 64)
+    out_p, lse_p = ref.flash_attention_fwd_ref(q, k, v, causal, *blocks)
     out64, lse64, *grads64 = attention64_grads(q, k, v, do, causal)
     assert kattn.flash_launches == 1 and lse.shape == (B, K, G, S)
     assert torch.equal(out, kattn.flash_attention(q, k, v, causal=causal))  # lse changes no out
@@ -1091,11 +1111,46 @@ def test_flash_bwd_kernel_matches_plain_and_float64_on_card(cuda_device, B, S, S
     torch.cuda.synchronize()
     assert kattn.flash_bwd_launches == 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, 64, 64)
+    planned = (cuda_device.index, B, S, Skv, K, G, causal) in kattn._bwd_plans
+    assert planned == (D in kattn.BWD_WGMMA_HEAD_DIMS)
+    plain = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, *blocks)
     for name, g, p, w, x in zip("qkv", got, plain, grads64, (q, k, v)):
         assert g.dtype == torch.bfloat16 and g.shape == x.shape
         ok, *errs = kernel_within_yardstick(g, p, w, BWD_FLOOR)
         assert ok, (f"d{name}", errs)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_kernel_replays_bit_identically_in_a_cuda_graph_on_card(cuda_device, D):
+    """Row 9 captured in a CUDA graph after an uncaptured launch of its
+    shape (which makes the plan) replays bit for bit what the launches
+    give; a capture of a shape with no plan yet raises."""
+    from repro_torch.kernels import attention as kattn
+
+    rng = np.random.default_rng(14 + D)
+    B, S, K, G = 2, 700, 2, 12
+    q, do = _bf16(rng, (B, S, K, G, D), cuda_device), _bf16(rng, (B, S, K, G, D), cuda_device)
+    k, v = _bf16(rng, (B, S, K, D), cuda_device), _bf16(rng, (B, S, K, D), cuda_device)
+    out, lse = kattn.flash_attention_fwd(q, k, v)
+    want = kattn.flash_attention_bwd(q, k, v, out, lse, do)
+    assert kattn._bwd_plans[(cuda_device.index, B, S, S, K, G, True)][0].n_slots > 0
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        kattn.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = kattn.flash_attention_bwd(q, k, v, out, lse, do)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    short = [t[:, :333].contiguous() for t in (q, out, do)]
+    lse_short = lse[..., :333].contiguous()
+    with pytest.raises(RuntimeError, match="uncaptured"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=side):
+            kattn.flash_attention_bwd(short[0], k, v, short[1], lse_short, short[2])
 
 
 def test_flash_bwd_kernel_refuses_bad_inputs_on_card(cuda_device):
