@@ -77,16 +77,28 @@ read just after:
   published widths and full depth, float32 master parameters from the
   port's ``init``, bf16 compute with per-layer remat, 4 AdamW steps of
   8 x 2,048 tokens in 2 microbatches through ``make_train_step`` (120
-  launches of the flash kernel with its log-sum-exp and 60 of the
-  backward kernel a step), a profiled step by kind of kernel; the same
-  four steps from the same seed and batches with the backward's partials
-  summed in another order, and with the plain versions of both kernels at
-  two blocks, the loss curves side by side (``lm_train_curves``); the
+  launches of the flash kernel with its log-sum-exp, 60 of the backward
+  kernel and one of the AdamW kernel a step), a profiled step by kind of
+  kernel, and the AdamW kernel alone over every leaf beside its plain
+  version and ``torch.optim.AdamW(fused=True)``; the same four steps from
+  the same seed and batches with the backward's partials summed in
+  another order, and with the plain versions of the three kernels at two
+  blocks, the loss curves side by side (``lm_train_curves``); the
   backward kernel and the log-sum-exp held
   against their plain versions and float64, the backward's device time by
   pass, its plan and its kernels' registers (``lm_train_kernels``), and
   one step of a 2-layer model through the kernels against plain and
-  float32 paths (``lm_train_checks``; see :func:`_lm_train`).
+  float32 paths (``lm_train_checks``; see :func:`_lm_train`);
+* ``lm_driver`` — the training launcher: starcoder2-3b at the published
+  widths, 2 layers deep, 200 steps through ``train_main`` with two
+  checkpoints in a temporary directory (the free disk logged first), the
+  loss finite and falling; the same run with a transient failure and a
+  device loss injected between the checkpoints, whose restarted steps
+  repeat the first run's losses bit for bit (both under
+  ``torch.use_deterministic_algorithms(True)``); the AdamW kernels with
+  float32 and 8-bit moments bit-identical to their plain versions over 3
+  updates of the model's real gradients, and the 8-bit one timed at the
+  full model's leaves (see :func:`_lm_driver`).
 
 Wherever the grid and dense paths both count, their counts must be equal
 on every user: the port evaluates every edge with one rounding order.
@@ -136,6 +148,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1247,6 +1260,10 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     del eng, mono_eng
     records += _lm_serve(dev, seed)
     records += _lm_train(dev, seed)
+    driver_records, driver_launches = _lm_driver(dev, seed)
+    for r in records:  # rows 7, 9 and 10 count lm_train's and lm_driver's windows
+        r["launches"] += driver_launches.get(r["name"], 0)
+    records += driver_records
     _log("kernels", bit_identical_raycast=True, bit_identical_grid=True, bit_identical_bvh=True,
          rank_checked_queries=len(rank_out), d2h_counts_ms=d2h_ms,
          d2h_counts_pinned_ms=d2h_pinned_ms, counts_mb=got.numel() * 4 / 1e6,
@@ -2389,13 +2406,13 @@ def _decode_bound(pos, B, K, G, D, Smax) -> tuple[float, str]:
 
 
 def _kernel_device_ms(prof) -> dict:
-    """Device milliseconds of a profiled window by kind of kernel: the two
-    attention kernels, matrix products (cuBLAS), and everything else
-    (elementwise, norms, RoPE, embedding, argmax, copies)."""
+    """Device milliseconds of a profiled window by kind of kernel: the
+    attention kernels, the AdamW kernels, matrix products (cuBLAS), and
+    everything else (elementwise, norms, RoPE, embedding, argmax, copies)."""
     import torch
 
-    kinds = {"flash_fwd": 0.0, "flash_bwd": 0.0, "decode_attn": 0.0, "matmul": 0.0,
-             "other": 0.0}
+    kinds = {"flash_fwd": 0.0, "flash_bwd": 0.0, "decode_attn": 0.0, "adamw": 0.0,
+             "matmul": 0.0, "other": 0.0}
     for evt in prof.key_averages():
         # the device's own events only: an operator's self device time
         # repeats the time of the kernels it launched
@@ -2417,6 +2434,8 @@ def _kernel_device_ms(prof) -> dict:
             kinds["flash_bwd"] += us / 1e3
         elif "decode_attn_kernel" in name:
             kinds["decode_attn"] += us / 1e3
+        elif "adamw_" in name:  # csrc/adamw.cu: adamw_f32_kernel, adamw_int8_kernel
+            kinds["adamw"] += us / 1e3
         elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
             kinds["matmul"] += us / 1e3
         else:
@@ -2819,6 +2838,14 @@ LM_TRAIN_BATCH = 8
 LM_TRAIN_SEQ = 2048
 LM_TRAIN_MICRO = 2
 LM_TRAIN_STEPS = 4  # the first is the warm-up: the kernels' and cuBLAS's first calls
+# Rows 10 and 11 (csrc/adamw.cu) per element: row 10 reads p, g, m, v and
+# writes p, m, v (float32); the law is 17 float operations (a division or
+# square root counted as one).  Row 11's bytes are counted per leaf from its
+# int8 blocks and scales (_adamw8bit_bytes); dequantizing and requantizing
+# add 13 operations.
+ADAMW_BYTES = 28
+ADAMW_OPS = 17
+ADAMW8_OPS = 30
 # lm_train_kernels, (B, S, Skv, K, G, D, causal): a microbatch of the phase,
 # the other wgmma head dim, a head dim of the mma.sync forward, and Skv != S
 # without the causal mask
@@ -2964,12 +2991,15 @@ def _lm_train(dev, seed: int) -> list:
     float32 master parameters from the port's ``init``, bf16 compute with
     the config's ``remat="full"``, ``AdamWConfig()``; 4 steps of 8 x 2,048
     tokens from the token pipeline in 2 microbatches, each step 120
-    launches of row 7 (with ``lse``: forward and remat recompute) and 60 of
-    row 9 with no plain call, a finite loss and parameters that move; a
-    profiled step by kind of kernel.  The same steps from the same seed
+    launches of row 7 (with ``lse``: forward and remat recompute), 60 of
+    row 9 and one of row 10 (AdamW) with no plain call, a finite loss and
+    parameters that move; a profiled step by kind of kernel; row 10 alone
+    over every leaf, bit-identical to its plain version on a few leaves'
+    copies, beside its plain version and ``torch.optim.AdamW(fused=True)``
+    on the same leaves and moments.  The same steps from the same seed
     and batches again three times: row 9 over a plan for half the SMs (its
-    partials summed in another order), and rows 7 and 9 patched to their
-    plain versions at the config's blocks and at 256/256; the kernel
+    partials summed in another order), and rows 7, 9 and 10 patched to
+    their plain versions at the config's blocks and at 256/256; the kernel
     path's loss and grad-norm curves must stay within twice the larger
     spread of the two pairs that differ only in their order of sums.
     Checks: rows 9 and 7's ``lse``
@@ -2979,8 +3009,8 @@ def _lm_train(dev, seed: int) -> list:
     paths that differ only in their blocks and a float32 path (``lm_serve``
     check 3's rule: the loss, ``grad_norm`` and each gradient leaf within
     twice the plain paths' spread, and within twice the plain path's
-    distance to float32).  Returns rows 9's and 7's (with ``lse``)
-    records."""
+    distance to float32).  Returns the records of rows 9, 7 (with
+    ``lse``) and 10."""
     import copy
     import math
 
@@ -2989,11 +3019,13 @@ def _lm_train(dev, seed: int) -> list:
 
     from repro_torch.configs.registry import get_config
     from repro_torch.data.tokens import ShardedTokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import adamw as kadamw
     from repro_torch.kernels import attention as kattn
     from repro_torch.kernels import ref
     from repro_torch.models.common import Policy
     from repro_torch.models.registry import build_model
-    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim import adamw as optim_adamw
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, step_scalars
     from repro_torch.steps.train import init_train_state, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3037,11 +3069,13 @@ def _lm_train(dev, seed: int) -> list:
     before = {n: p.detach()[:64].clone() for n, p in watched.items()}
     recompute = 1 if cfg.remat == "none" else 2  # remat runs each layer's forward again
     want = {"flash_fwd": recompute * cfg.n_layers * LM_TRAIN_MICRO,
-            "flash_bwd": cfg.n_layers * LM_TRAIN_MICRO, "decode_attn": 0, "plain_calls": 0}
+            "flash_bwd": cfg.n_layers * LM_TRAIN_MICRO, "decode_attn": 0, "adamw": 1,
+            "plain_calls": 0}
     steps, totals = [], dict.fromkeys(want, 0)
     for i in range(LM_TRAIN_STEPS):
         batch = batch_at(i)
         kattn.flash_launches = kattn.flash_bwd_launches = kattn.decode_launches = 0
+        kadamw.adamw_launches = 0
         ref.calls = 0
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -3049,7 +3083,8 @@ def _lm_train(dev, seed: int) -> list:
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
         counted = {"flash_fwd": kattn.flash_launches, "flash_bwd": kattn.flash_bwd_launches,
-                   "decode_attn": kattn.decode_launches, "plain_calls": ref.calls}
+                   "decode_attn": kattn.decode_launches, "adamw": kadamw.adamw_launches,
+                   "plain_calls": ref.calls}
         steps.append({"step": i + 1, "wall_s": wall, "counted": counted,
                       **{k: float(v) for k, v in metrics.items()}})
         totals = {k: totals[k] + counted[k] for k in want}
@@ -3063,8 +3098,8 @@ def _lm_train(dev, seed: int) -> list:
         raise AssertionError(f"parameters did not move: {moved}")
     wall_s = sum(r["wall_s"] for r in steps[1:]) / (LM_TRAIN_STEPS - 1)
 
-    # a profiled step, and the optimizer's update alone (its kernels are
-    # among the step's "other")
+    # a profiled step, and the optimizer's update alone (row 10 and the
+    # global norm's torch ops)
     notes = {}
     batch = batch_at(LM_TRAIN_STEPS)
     profile = None
@@ -3076,14 +3111,13 @@ def _lm_train(dev, seed: int) -> list:
         state, _ = step(state, batch)
         torch.cuda.synchronize(dev)
         prof.stop()
+    zeros = {n: torch.zeros_like(p) for n, p in params.named_parameters()}
     if prof is not None:
         kinds = _kernel_device_ms(prof)
-        zeros = {n: torch.zeros_like(p) for n, p in params.named_parameters()}
         torch.cuda.synchronize(dev)
         oprof = _start_profiler(notes)
         adamw_update(params, zeros, state["opt"], opt_cfg)
         torch.cuda.synchronize(dev)
-        del zeros
         opt_ms = None
         if oprof is not None:
             oprof.stop()
@@ -3091,24 +3125,71 @@ def _lm_train(dev, seed: int) -> list:
         busy = sum(kinds.values())
         profile = {"device_ms_step": {**{k: v for k, v in kinds.items() if k != "other"},
                                       "optimizer": opt_ms,
-                                      "rest": kinds["other"] - (opt_ms or 0.0)},
+                                      "rest": kinds["other"] - max((opt_ms or 0.0)
+                                                                   - kinds["adamw"], 0.0)},
                    "top_kernels_ms_step": _device_kernels_ms(prof),
                    "device_busy_ms_step": busy, "unprofiled_ms_step": wall_s * 1e3,
                    "idle_share": 1 - busy / (wall_s * 1e3)}
+
+    # row 10 alone over the model's every leaf (the state's moments, zero
+    # gradients), its plain version, and torch.optim.AdamW(fused=True) over
+    # the same leaves and moments (timed only)
+    names = list(zeros)
+    named = dict(params.named_parameters())
+    leaves = ([named[n].detach() for n in names], [zeros[n] for n in names],
+              [state["opt"]["m"][n] for n in names], [state["opt"]["v"][n] for n in names])
+    lr, bc1, bc2 = step_scalars({"step": state["opt"]["step"].clone()}, opt_cfg)
+    clip = torch.ones((), dtype=torch.float32, device=dev)
+    hyper = dict(b1=opt_cfg.b1, b2=opt_cfg.b2, eps=opt_cfg.eps, weight_decay=opt_cfg.weight_decay)
+    some = [0, 1, len(names) - 1]  # row 10 against plain on copies of a few leaves
+    kc, pc = ([[t[i].clone() for i in some] for t in leaves] for _ in range(2))
+    kadamw.adamw_fused(*kc, lr, bc1, bc2, clip, **hyper)
+    ref.adamw_ref(*pc, lr, bc1, bc2, clip, **hyper)
+    torch.cuda.synchronize(dev)
+    row10_err = max(float((a - b).abs().max()) for ka, pa in zip(kc, pc) for a, b in zip(ka, pa))
+    row10_equal = all(torch.equal(a, b) for ka, pa in zip(kc, pc) for a, b in zip(ka, pa))
+    del kc, pc
+    # ten launches back to back: the wrapper's host work (a few ms) hides
+    # behind each launch's device time, so this is the kernel's
+    row10_ms = _sync_ms(lambda: kadamw.adamw_fused(*leaves, lr, bc1, bc2, clip, **hyper), 10, dev)
+    row10_plain_ms = _sync_ms(lambda: ref.adamw_ref(*leaves, lr, bc1, bc2, clip, **hyper), 2,
+                              dev)
+    plist = [named[n] for n in names]
+    for p, g in zip(plist, leaves[1]):
+        p.grad = g
+    lib = torch.optim.AdamW(plist, lr=float(lr), betas=(opt_cfg.b1, opt_cfg.b2),
+                            eps=opt_cfg.eps, weight_decay=opt_cfg.weight_decay, fused=True)
+    for p, m, v in zip(plist, leaves[2], leaves[3]):  # its state is ours: no second copy
+        lib.state[p] = {"step": torch.ones((), dtype=torch.float32, device=dev),
+                        "exp_avg": m, "exp_avg_sq": v}
+    row10_lib_ms = _sync_ms(lib.step, 10, dev)
+    for p in plist:
+        p.grad = None
+    n_el = sum(p.numel() for p in plist)
+    row10_bound, row10_by = _bound_ms(ADAMW_BYTES * n_el, ADAMW_OPS * n_el)
+    row10 = {"ms": row10_ms, "plain_ms": row10_plain_ms,
+             "library_ms": row10_lib_ms, "bound_ms": row10_bound, "bound_by": row10_by,
+             "leaves": len(names), "elements": n_el, "max_abs_err_sample": row10_err,
+             "bit_identical_sample": row10_equal}
+    del lib, plist, leaves, zeros, named
+    if not row10_equal:
+        raise AssertionError(f"row 10 differs from its plain version: {row10_err}")
     _log("lm_train", arch=cfg.name, describe=cfg.describe(), params=n_params,
          state_gb_16_bytes_a_param=state_gb, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
          microbatches=LM_TRAIN_MICRO, remat=cfg.remat, init_s=init_s, steps=steps,
          wall_s_step=wall_s, tokens_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ / wall_s,
          max_memory_allocated_gb=peak_gb, memory_before_gb=mem_before / 1e9,
          launches_per_step=want, launches_total=totals, moved=moved, profile=profile,
-         profile_notes=notes)
+         profile_notes=notes, adamw=row10)
     del state, params, watched, step, model, batch
     torch.cuda.empty_cache()
 
     # ---- the same steps through the plain rows 7 and 9 (loss curves) ------------
     def plain_attention():
-        """The plain versions in place of the training attention's wrappers."""
+        """The plain versions in place of the training attention's wrappers
+        (rows 7 and 9) and of the optimizer's (row 10)."""
         stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(optim_adamw, "adamw_fused", ref.adamw_ref))
         stack.enter_context(mock.patch.object(
             kattn, "flash_attention_fwd",
             lambda q, k, v, *, causal=True, q_block=512, kv_block=1024:
@@ -3135,7 +3216,7 @@ def _lm_train(dev, seed: int) -> list:
         m = build_model(c, device=dev)
         st = init_train_state(m, torch.Generator(dev).manual_seed(seed), opt_cfg)
         run_step = make_train_step(m, opt_cfg, n_microbatches=LM_TRAIN_MICRO)
-        kattn.flash_launches = kattn.flash_bwd_launches = 0
+        kattn.flash_launches = kattn.flash_bwd_launches = kadamw.adamw_launches = 0
         ref.calls = 0
         losses, norms = [], []
         t0 = time.perf_counter()
@@ -3147,7 +3228,8 @@ def _lm_train(dev, seed: int) -> list:
         torch.cuda.synchronize(dev)
         kattn._bwd_plans.clear()  # no plan made under the patch outlives it
         out = {"loss": losses, "grad_norm": norms, "wall_s": time.perf_counter() - t0,
-               "kernel_launches": kattn.flash_launches + kattn.flash_bwd_launches,
+               "kernel_launches": (kattn.flash_launches + kattn.flash_bwd_launches
+                                   + kadamw.adamw_launches),
                "plain_calls": ref.calls}
         del st, m, run_step
         torch.cuda.empty_cache()
@@ -3178,7 +3260,7 @@ def _lm_train(dev, seed: int) -> list:
                          "within": gap <= LM_E2E_FACTOR * spread}
     _log("lm_train_curves", steps=LM_TRAIN_STEPS, curves=curves, verdict=verdict,
          kernels_cleared=all(v["within"] for v in verdict.values()))
-    launches = (want["flash_fwd"] + want["flash_bwd"]) * LM_TRAIN_STEPS
+    launches = (want["flash_fwd"] + want["flash_bwd"] + want["adamw"]) * LM_TRAIN_STEPS
     for n, want_kernel, want_plain in (("kernel_other_order", launches, 0),
                                        ("plain", 0, launches), ("plain_blocks", 0, launches)):
         if (curves[n]["kernel_launches"], curves[n]["plain_calls"]) != (want_kernel, want_plain):
@@ -3344,6 +3426,13 @@ def _lm_train(dev, seed: int) -> list:
     if failures:
         raise AssertionError("; ".join(failures))
 
+    adamw_rec = {
+        "name": "adamw_f32", "route": "cuda", "source": "src/repro_torch/csrc/adamw.cu",
+        "replaces": "src/repro/optim/adamw.py:82 (jnp adamw_update, not a Pallas site)",
+        "launches": totals["adamw"], "max_abs_err": row10["max_abs_err_sample"],
+        "ms": row10["ms"], "plain_ms": row10["plain_ms"], "bound_ms": row10["bound_ms"],
+        "bound_by": row10["bound_by"], "library_ms": row10["library_ms"],
+        "shape": {"leaves": row10["leaves"], "elements": row10["elements"]}}
     src = "src/repro_torch/csrc/attention_bwd.cu"
     bwd_bound, bwd_by = _flash_bwd_bound(B, S, Skv, K, Gs, D, causal)
     fwd_bound, fwd_by = _flash_bound(B, S, K, Gs, D)
@@ -3359,7 +3448,264 @@ def _lm_train(dev, seed: int) -> list:
          "max_abs_err": phase_err["out"]["kernel_vs_plain"], "ms": fwd_ms,
          "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
          "library_ms": fwd_lib_ms, "shape": shape},
+        adamw_rec,
     ]
+
+
+# ---- the training driver and launcher (lm_driver) ---------------------------
+
+LM_DRIVER_LAYERS = 2  # the depth cut: every width of the published config kept
+LM_DRIVER_STEPS = 200
+LM_DRIVER_SAVE_EVERY = 100  # two checkpoints a run
+# the restart run: a transient failure and a device loss between the saves
+LM_DRIVER_TRANSIENT = 110
+LM_DRIVER_DEVICE_LOSS = 120
+LM_DRIVER_CHECK_UPDATES = 3  # rows 10 and 11 against plain on real gradients
+LM_DRIVER_CHECK_BATCH = 2
+# the widths of the published config that reduced_config replaces
+LM_DRIVER_WIDTHS = ("d_model", "n_heads", "n_kv_heads", "d_ff", "vocab", "head_dim", "q_block",
+                    "kv_block", "remat")
+
+
+def _adamw8bit_bytes(numels) -> int:
+    """Row 11's bytes: p and g read, p written (float32), each 128-element
+    block's two int8 moments read and written and its two scales read and
+    written."""
+    nb = sum(-(-n // 128) for n in numels)
+    return 12 * sum(numels) + 4 * 128 * nb + 16 * nb
+
+
+def _lm_driver(dev, seed: int) -> tuple[list, dict]:
+    """starcoder2-3b at the published widths, cut to ``LM_DRIVER_LAYERS``
+    layers, trained through the launcher ``train_main`` on the card:
+    ``LM_DRIVER_STEPS`` steps of 8 x 2,048 tokens in 2 microbatches,
+    checkpoints every ``LM_DRIVER_SAVE_EVERY`` steps into a temporary
+    directory (removed), the loss finite and falling; then the same run with
+    a transient failure and a device loss on the one card (the re-mesh
+    planned and built) between the two saves, whose steps must repeat the
+    uninterrupted run's losses and gradient norms bit for bit.  Both runs
+    under ``torch.use_deterministic_algorithms(True)``; each step launches
+    rows 7, 9 and 10 and no plain version.  Then rows 10 and 11 against
+    their plain versions over ``LM_DRIVER_CHECK_UPDATES`` updates of this
+    model's real gradients, bit for bit, and row 11 timed at the full
+    model's leaves.  Returns row 11's record and the run's launches of rows
+    7, 9 and 10."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.data.tokens import ShardedTokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import ref
+    from repro_torch.launch.train import train_main
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw as optim_adamw
+    from repro_torch.optim import adamw8bit as optim_adamw8bit
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, step_scalars
+    from repro_torch.optim.adamw8bit import adamw8bit_init, adamw8bit_update
+    from repro_torch.runtime.driver import DeviceLoss
+    from repro_torch.runtime.elastic import build_remesh, plan_remesh
+    from repro_torch.steps.loss import softmax_xent
+
+    torch.cuda.empty_cache()
+    full = get_config(LM_TRAIN_ARCH)
+    overrides = {f: getattr(full, f) for f in LM_DRIVER_WIDTHS}
+    overrides["n_layers"] = LM_DRIVER_LAYERS
+    cfg = get_reduced(LM_TRAIN_ARCH, **overrides)
+    if cfg != dataclasses.replace(full, n_layers=LM_DRIVER_LAYERS):
+        raise AssertionError(f"the overrides do not restore the published widths: {cfg}")
+    run = dict(steps=LM_DRIVER_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+               reduced_overrides=overrides, save_every=LM_DRIVER_SAVE_EVERY,
+               n_microbatches=LM_TRAIN_MICRO, seed=seed, device=dev)
+    recompute = 1 if cfg.remat == "none" else 2
+    per_step = {"flash_fwd": recompute * cfg.n_layers * LM_TRAIN_MICRO,
+                "flash_bwd": cfg.n_layers * LM_TRAIN_MICRO, "adamw": 1}
+    root = tempfile.gettempdir()
+    # parameters, m and v in float32, twice (two checkpoints a run)
+    need_gb = 2 * 12 * cfg.param_count() / 1e9
+    free_gb = shutil.disk_usage(root).free / 1e9
+    _log("lm_driver_disk", dir=root, free_gb=free_gb, need_gb=need_gb)
+    if free_gb < need_gb:
+        raise AssertionError(f"{free_gb:.1f} GB free under {root}, two checkpoints need "
+                             f"{need_gb:.1f} GB")
+
+    def counted_run(**extra) -> tuple[dict, dict]:
+        with tempfile.TemporaryDirectory(prefix="lm_driver_", dir=root) as ckpt:
+            kattn.flash_launches = kattn.flash_bwd_launches = kadamw.adamw_launches = 0
+            ref.calls = 0
+            out = train_main(LM_TRAIN_ARCH, ckpt_dir=ckpt, **run, **extra)
+            counted = {"flash_fwd": kattn.flash_launches, "flash_bwd": kattn.flash_bwd_launches,
+                       "adamw": kadamw.adamw_launches, "plain_calls": ref.calls}
+            steps_on_disk = sorted(os.listdir(ckpt))
+            disk_gb = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(ckpt)
+                          for f in fs) / 1e9
+        out["checkpoints_on_disk"], out["checkpoint_disk_gb"] = steps_on_disk, disk_gb
+        out["removed"] = not os.path.exists(ckpt)
+        return out, counted
+
+    armed = {LM_DRIVER_TRANSIENT: RuntimeError("injected transient failure"),
+             LM_DRIVER_DEVICE_LOSS: DeviceLoss(n_alive=1)}
+    meshes = []
+
+    def inject(step):
+        if step in armed:
+            raise armed.pop(step)
+
+    def on_remesh(n_alive):
+        plan = plan_remesh(n_alive, prefer_model=1, global_batch=LM_TRAIN_BATCH)
+        meshes.append({"plan": dataclasses.asdict(plan),
+                       "devices": [str(d) for d in build_remesh(plan).devices.flat]})
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        first, first_counted = counted_run()
+        again, again_counted = counted_run(inject_failure=inject, on_remesh=on_remesh)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    failures = []
+    losses = [m["loss"] for m in first["metrics_log"]]
+    for name, out, counted in (("first", first, first_counted), ("restart", again, again_counted)):
+        n = len(out["metrics_log"])
+        want = {k: v * n for k, v in per_step.items()}
+        if {k: counted[k] for k in per_step} != want or counted["plain_calls"]:
+            failures.append(f"{name} run: launches {counted}, want {want} and 0 plain calls")
+        if not out["removed"] or len(out["checkpoints_on_disk"]) > 2:
+            failures.append(f"{name} run: checkpoints {out['checkpoints_on_disk']}")
+        if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                   for m in out["metrics_log"]):
+            failures.append(f"{name} run: a loss or grad norm is not finite")
+    if not first["last_loss"] < first["first_loss"]:
+        failures.append(f"the loss did not fall: {first['first_loss']} -> {first['last_loss']}")
+    want_events = ["init:fresh", f"save:step_{LM_DRIVER_SAVE_EVERY}",
+                   "retry1:RuntimeError", f"restore:step_{LM_DRIVER_SAVE_EVERY}",
+                   "device_loss:1", "remesh", f"restore:step_{LM_DRIVER_SAVE_EVERY}",
+                   f"save:step_{LM_DRIVER_STEPS}"]
+    # the watchdog's straggler flags depend on timing: not part of the check
+    events = [e for e in again["events"] if not e.startswith("straggler:")]
+    if events != want_events or len(meshes) != 1:
+        failures.append(f"restart events {again['events']}, meshes {meshes}")
+    by_step = {m["step"]: m for m in first["metrics_log"]}
+    apart = [m["step"] for m in again["metrics_log"] if m != by_step[m["step"]]]
+    if apart:
+        failures.append(f"restart steps {apart[:8]} differ from the uninterrupted run")
+    stride = max(LM_DRIVER_STEPS // 20, 1)
+    _log("lm_driver", arch=cfg.name, describe=cfg.describe(), cut={"n_layers": LM_DRIVER_LAYERS},
+         params=first["params"], batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+         microbatches=LM_TRAIN_MICRO, steps=first["steps"], wall_s=first["wall_s"],
+         step_s=first["step_s"], stragglers=first["stragglers"],
+         tokens_s=LM_TRAIN_BATCH * LM_TRAIN_SEQ / first["step_s"],
+         first_loss=first["first_loss"], last_loss=first["last_loss"],
+         min_loss=first["min_loss"], loss_every_10=losses[::stride],
+         events=first["events"], saves=first["saves"],
+         checkpoint_disk_gb=first["checkpoint_disk_gb"], launches=first_counted,
+         launches_per_step=per_step, deterministic=True)
+    _log("lm_driver_restart", events=again["events"], meshes=meshes,
+         steps_run=len(again["metrics_log"]), wall_s=again["wall_s"], step_s=again["step_s"],
+         saves=again["saves"], launches=again_counted, steps_apart=apart,
+         bit_identical=not apart)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+    # ---- rows 10 and 11 against their plain versions on real gradients ------
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=LM_DRIVER_STEPS)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(dev).manual_seed(seed + 41))
+    named = dict(params.named_parameters())
+    p10 = {n: p.detach().clone() for n, p in named.items()}
+    k8 = {n: p.detach().clone() for n, p in named.items()}
+    p8 = {n: p.detach().clone() for n, p in named.items()}
+    st10, pst10 = adamw_init(params), adamw_init(p10)
+    st8, pst8 = adamw8bit_init(k8), adamw8bit_init(p8)
+    pipe = ShardedTokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ, global_batch=LM_DRIVER_CHECK_BATCH,
+        seed=seed + 43))
+    checks = []
+    for i in range(LM_DRIVER_CHECK_UPDATES):
+        b = pipe.batch_at(i)
+        tokens = torch.from_numpy(b["tokens"]).to(dev, torch.long)
+        labels = torch.from_numpy(b["labels"]).to(dev, torch.long)
+        logits, _ = model.forward(params, tokens)
+        loss, _ = softmax_xent(logits, labels)
+        loss.backward()
+        del logits
+        grads = {n: p.grad for n, p in named.items()}
+        for p in named.values():
+            p.grad = None
+        kattn.flash_launches = kattn.flash_bwd_launches = 0
+        kadamw.adamw_launches = kadamw.adamw8bit_launches = 0
+        ref.calls = 0
+        adamw_update(params, grads, st10, opt_cfg)
+        adamw8bit_update(k8, grads, st8, opt_cfg)
+        counted = (kadamw.adamw_launches, kadamw.adamw8bit_launches, ref.calls)
+        with mock.patch.object(optim_adamw, "adamw_fused", ref.adamw_ref), \
+                mock.patch.object(optim_adamw8bit, "adamw8bit_fused", ref.adamw8bit_ref):
+            adamw_update(p10, grads, pst10, opt_cfg)
+            adamw8bit_update(p8, grads, pst8, opt_cfg)
+        torch.cuda.synchronize(dev)
+        row10 = all(torch.equal(named[n].detach(), p10[n]) and torch.equal(st10["m"][n], pst10["m"][n])
+                    and torch.equal(st10["v"][n], pst10["v"][n]) for n in named)
+        row11 = all(torch.equal(k8[n], p8[n]) and all(torch.equal(st8["m8"][n][k], pst8["m8"][n][k])
+                                                      for k in ("mq", "ms", "vq", "vs"))
+                    for n in named)
+        err10 = max(float((named[n].detach() - p10[n]).abs().max()) for n in named)
+        err11 = max(float((k8[n] - p8[n]).abs().max()) for n in named)
+        checks.append({"update": i + 1, "loss": float(loss.detach()), "counted": counted,
+                       "row10_bit_identical": row10, "row11_bit_identical": row11,
+                       "row10_max_abs_err": err10, "row11_max_abs_err": err11})
+        del grads, loss
+        if counted != (1, 1, 0) or not (row10 and row11):
+            raise AssertionError(f"rows 10 and 11 against plain, update {i + 1}: {checks[-1]}")
+    # the full model's leaves: these but for the layers, and one layer's
+    # leaves for each of the published depth's layers
+    shapes = ([tuple(p.shape) for n, p in named.items() if not n.startswith("groups.")]
+              + [tuple(p.shape) for n, p in named.items() if n.startswith("groups.0.p0.0.")]
+              * full.n_layers)
+    _log("lm_driver_adamw_checks", params=sum(p.numel() for p in named.values()), checks=checks)
+    del model, params, named, p10, k8, p8, st10, pst10, st8, pst8
+    torch.cuda.empty_cache()
+
+    # ---- row 11 at the full model's leaves --------------------------------------
+    numels = [math.prod(sh) for sh in shapes]
+    want_params = full.param_count() + (2 * full.n_layers + 1) * full.d_model  # layernorm biases
+    if sum(numels) != want_params:
+        raise AssertionError(f"{sum(numels)} elements in the full leaves, want {want_params}")
+    gen = torch.Generator(dev).manual_seed(seed + 47)
+    ps = [torch.randn(sh, generator=gen, device=dev) for sh in shapes]
+    gs = [torch.randn(sh, generator=gen, device=dev).mul_(1e-3) for sh in shapes]
+    m8 = adamw8bit_init({str(i): p for i, p in enumerate(ps)})["m8"]
+    states = [m8[str(i)] for i in range(len(ps))]
+    lr, bc1, bc2 = step_scalars({"step": torch.zeros((), dtype=torch.int32, device=dev)}, opt_cfg)
+    clip = torch.ones((), dtype=torch.float32, device=dev)
+    hyper = dict(b1=opt_cfg.b1, b2=opt_cfg.b2, eps=opt_cfg.eps, weight_decay=opt_cfg.weight_decay)
+
+    def kernel():
+        kadamw.adamw8bit_fused(ps, gs, states, lr, bc1, bc2, clip, **hyper)
+
+    row11_ms = _sync_ms(kernel, 10, dev)  # as row 10's: the device time
+    row11_plain_ms = _sync_ms(lambda: ref.adamw8bit_ref(ps, gs, states, lr, bc1, bc2, clip,
+                                                        **hyper), 1, dev)
+    bound, bound_by = _bound_ms(_adamw8bit_bytes(numels), ADAMW8_OPS * sum(numels))
+    state_gb = sum(t.numel() * t.element_size() for s8 in states for t in s8.values()) / 1e9
+    _log("lm_driver_adamw8bit", leaves=len(shapes), elements=sum(numels), ms=row11_ms,
+         plain_ms=row11_plain_ms, bound_ms=bound, bound_by=bound_by,
+         moments_gb=state_gb, moments_bytes_a_param=state_gb * 1e9 / sum(numels))
+    del ps, gs, m8, states
+    torch.cuda.empty_cache()
+    rec = {"name": "adamw_int8", "route": "cuda", "source": "src/repro_torch/csrc/adamw.cu",
+           "replaces": "src/repro/optim/adamw8bit.py:77 (jnp adamw8bit_update, not a Pallas site)",
+           "launches": sum(c["counted"][1] for c in checks),
+           "max_abs_err": max(c["row11_max_abs_err"] for c in checks), "ms": row11_ms,
+           "plain_ms": row11_plain_ms, "bound_ms": bound, "bound_by": bound_by,
+           "library_ms": None, "shape": {"leaves": len(shapes), "elements": sum(numels)}}
+    launches = {"flash_fwd_lse": first_counted["flash_fwd"] + again_counted["flash_fwd"],
+                "flash_bwd": first_counted["flash_bwd"] + again_counted["flash_bwd"],
+                "adamw_f32": first_counted["adamw"] + again_counted["adamw"]}
+    return [rec], launches
 
 
 def main(argv=None) -> int:
@@ -3367,6 +3713,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0, help="seed of the generated data")
     args = ap.parse_args(argv)
 
+    # lm_driver runs under torch.use_deterministic_algorithms(True), which
+    # takes cuBLAS only with a fixed workspace (set before its first handle)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():

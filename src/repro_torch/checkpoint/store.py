@@ -10,7 +10,10 @@ Layout:  ``<dir>/step_<N>/{manifest.json, <leaf-id>.npy...}``
   steps (one in-flight snapshot, joined before the next save — the
   standard double-buffer policy);
 * ``restore_checkpoint`` gives each leaf back as the template's leaf is:
-  a numpy array, or a tensor on that leaf's device.
+  a numpy array, or a tensor on that leaf's device; with ``into=True`` it
+  copies each leaf into the template's own leaf instead (``copy_``), one
+  leaf on the host at a time, so a state on the card is restored without
+  a second copy of it there.
 
 Trees are nested dicts, lists and tuples, flattened here with the leaf
 paths ``jax.tree_util`` gives the same trees (dict keys sorted, each
@@ -112,6 +115,18 @@ def _host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _snapshot(leaf) -> np.ndarray:
+    """A host copy of a leaf that shares no memory with it: a tensor on a
+    card is copied once, to the host; a host tensor or array is copied."""
+    if isinstance(leaf, torch.Tensor) and leaf.device.type != "cpu":
+        return leaf.detach().cpu().numpy()
+    if isinstance(leaf, (torch.Tensor, np.ndarray)):
+        return np.array(_host(leaf))
+    # any other leaf: a number, or a view such as
+    # repro_torch.models.convert.StackedLeaf, makes a new array
+    return np.asarray(leaf)
+
+
 def _write_arrays(folder: str, arrays: dict, *, prefix: str = "") -> dict:
     """Save ``{key: array}`` as ``.npy`` leaves; returns manifest entries."""
     entries = {}
@@ -196,12 +211,16 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, tree_like, step: int | None = None):
+def restore_checkpoint(directory: str, tree_like, step: int | None = None, *,
+                       into: bool = False):
     """Restore into the structure of ``tree_like`` (shapes must match).
 
     Each leaf comes back as ``tree_like``'s leaf is: a tensor leaf as a
     tensor of the stored dtype on that leaf's device, any other leaf as a
-    numpy array.
+    numpy array.  With ``into=True`` each stored leaf is copied into
+    ``tree_like``'s leaf in place instead (a numpy array by ``np.copyto``,
+    anything else, such as a tensor, by ``leaf.copy_(tensor)``), and
+    ``tree_like`` itself is returned.
 
     With ``step=None`` the newest *complete* step is used — incomplete
     ``.tmp`` leftovers and steps with missing leaf files are skipped.
@@ -235,10 +254,17 @@ def restore_checkpoint(directory: str, tree_like, step: int | None = None):
         arr = np.load(leaf_path)
         if tuple(arr.shape) != tuple(np.shape(leaf)):
             raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {np.shape(leaf)}")
-        if isinstance(leaf, torch.Tensor):
+        if into:
+            if isinstance(leaf, np.ndarray):
+                np.copyto(leaf, arr)
+            else:
+                leaf.copy_(torch.from_numpy(arr))
+        elif isinstance(leaf, torch.Tensor):
             out.append(torch.from_numpy(arr).to(leaf.device))
         else:
             out.append(arr)
+    if into:
+        return tree_like, manifest
     return _unflatten(tree_like, iter(out)), manifest
 
 
@@ -322,13 +348,14 @@ class AsyncCheckpointer:
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
-    def save(self, step: int, tree, extra: dict | None = None) -> None:
+    def save(self, step: int, tree, extra: dict | None = None) -> int:
+        """Copies ``tree`` to the host and writes it in the background;
+        returns the bytes copied."""
         self.wait()
         # snapshot before async: copies, so later in-place writes to the
         # caller's arrays or tensors cannot reach the background writer
-        host_tree = _unflatten(
-            tree, iter([np.array(_host(leaf)) for _path, leaf in _paths(tree)])
-        )
+        leaves = [_snapshot(leaf) for _path, leaf in _paths(tree)]
+        host_tree = _unflatten(tree, iter(leaves))
 
         def _run():
             try:
@@ -338,6 +365,7 @@ class AsyncCheckpointer:
 
         self._thread = threading.Thread(target=_run, daemon=True)
         self._thread.start()
+        return sum(a.nbytes for a in leaves)
 
     def wait(self) -> None:
         if self._thread is not None:

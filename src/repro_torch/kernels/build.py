@@ -30,7 +30,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 #: Every kernel source of the package, by library name.
-SOURCES = ("raycast", "rank_count", "grid_raycast", "bvh_traverse", "attention", "attention_bwd")
+SOURCES = ("raycast", "rank_count", "grid_raycast", "bvh_traverse", "attention", "attention_bwd",
+           "adamw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

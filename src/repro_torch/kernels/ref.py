@@ -37,6 +37,18 @@ the log-sum-exp ``lse [B, K, G, S]`` (``_flash_fwd_loop``), and
 :func:`flash_attention_bwd_ref` the fused backward (``_flash_fused_bwd``,
 block for block): the plain versions of row 7 with its ``lse`` and of
 row 9 (``csrc/attention_bwd.cu``).
+
+:func:`adamw_ref` and :func:`adamw8bit_ref` are the plain versions of the
+fused AdamW kernels (``csrc/adamw.cu``, rows 10 and 11): the bodies of
+``repro.optim.adamw.adamw_update`` and ``repro.optim.adamw8bit``'s
+``adamw8bit_update`` over a list of leaves, in place, with the global-norm
+clip's scale applied to each gradient.  Each torch op rounds once, and the
+kernels repeat them in order.  :func:`quantize_blockwise` and
+:func:`dequantize_blockwise` are the 8-bit moments' format (blocks of
+:data:`QUANT_BLOCK`); their divisions by 127 and 255 divide by a 0-d
+tensor on the input's device, which is a true division on the CPU and on
+the card alike (a Python number there would multiply by its reciprocal on
+the card).
 """
 
 from __future__ import annotations
@@ -61,6 +73,12 @@ __all__ = [
     "flash_attention_fwd_ref",
     "flash_attention_bwd_ref",
     "decode_attention_ref",
+    "adamw_ref",
+    "adamw8bit_ref",
+    "quantize_blockwise",
+    "dequantize_blockwise",
+    "QUANT_BLOCK",
+    "SCALE_FLOOR",
 ]
 
 #: Number of calls into the plain versions since the last reset to 0.
@@ -447,3 +465,83 @@ def decode_attention_ref(q, k_cache, v_cache, pos):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
     return out.to(q.dtype)
+
+
+# ---- AdamW (rows 10 and 11) ---------------------------------------------------
+
+#: Elements of a block of the 8-bit moments, each with one float32 scale.
+QUANT_BLOCK = 128
+#: The least scale a block divides by (``max(scale, 1e-30)``).
+SCALE_FLOOR = 1e-30
+
+
+def _law(p, g, m, v, lr, bc1, bc2, b1: float, b2: float, eps: float, weight_decay: float):
+    """``repro.optim.adamw``'s law on one leaf: ``m`` and ``v`` in place,
+    the new parameters returned (float32)."""
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * g * g)
+    upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    pf = p.float()
+    return pf - lr * (upd + weight_decay * pf)
+
+
+def adamw_ref(ps, gs, ms, vs, lr, bc1, bc2, scale, *, b1: float, b2: float, eps: float,
+              weight_decay: float) -> None:
+    """Row 10's plain version: each leaf ``p`` and its float32 moments
+    ``m``, ``v`` updated in place from its gradient ``g`` times the clip's
+    ``scale``; ``lr``, ``bc1``, ``bc2`` and ``scale`` 0-d float32 tensors."""
+    _count()
+    for p, g, m, v in zip(ps, gs, ms, vs):
+        p.copy_(_law(p, g.float() * scale, m, v, lr, bc1, bc2, b1, b2, eps, weight_decay))
+
+
+def _div(x, c: float):
+    """``x / c`` as a true division on every device."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def quantize_blockwise(x, signed: bool = True):
+    """``x`` (any shape, float32) -> ``(q int8 [nblocks, 128], scale float32
+    [nblocks])``, the last block padded with zeros: signed with ``scale =
+    absmax / 127``, or unsigned (``x >= 0``) with ``scale = max / 255``,
+    stored as ``q - 128``."""
+    flat = x.reshape(-1)
+    blocks = torch.nn.functional.pad(flat, (0, (-flat.numel()) % QUANT_BLOCK))
+    blocks = blocks.reshape(-1, QUANT_BLOCK)
+    if signed:
+        scale = _div(torch.amax(torch.abs(blocks), dim=1), 127.0)
+        q = torch.clamp(torch.round(blocks / torch.clamp(scale, min=SCALE_FLOOR)[:, None]),
+                        -127, 127)
+    else:
+        scale = _div(torch.amax(blocks, dim=1), 255.0)
+        q = torch.clamp(torch.round(blocks / torch.clamp(scale, min=SCALE_FLOOR)[:, None]),
+                        0, 255) - 128
+    return q.to(torch.int8), scale
+
+
+def dequantize_blockwise(q, scale, shape, signed: bool = True):
+    """The float32 tensor of ``shape`` that :func:`quantize_blockwise` gave
+    ``(q, scale)`` for."""
+    blocks = q.float()
+    if not signed:
+        blocks = blocks + 128.0
+    n = 1
+    for d in shape:
+        n *= d
+    return (blocks * scale[:, None]).reshape(-1)[:n].reshape(shape)
+
+
+def adamw8bit_ref(ps, gs, states, lr, bc1, bc2, scale, *, b1: float, b2: float, eps: float,
+                  weight_decay: float) -> None:
+    """Row 11's plain version: each leaf ``p`` and its 8-bit moments
+    (``{"mq", "ms", "vq", "vs"}``) updated in place: dequantize, the law of
+    :func:`adamw_ref`, requantize."""
+    _count()
+    for p, g, s8 in zip(ps, gs, states):
+        m = dequantize_blockwise(s8["mq"], s8["ms"], p.shape, signed=True)
+        v = dequantize_blockwise(s8["vq"], s8["vs"], p.shape, signed=False)
+        p.copy_(_law(p, g.float() * scale, m, v, lr, bc1, bc2, b1, b2, eps, weight_decay))
+        for key, t, signed in (("m", m, True), ("v", v, False)):
+            q, sc = quantize_blockwise(t, signed=signed)
+            s8[f"{key}q"].copy_(q)
+            s8[f"{key}s"].copy_(sc)

@@ -1,6 +1,8 @@
-"""Serving entry points of the port (``repro.launch``).
+"""Entry points of the port (``repro.launch``).
 
-Only :mod:`repro_torch.launch.serve`'s deprecated ``RkNNServer`` alias and
-its ``batched_raycast_counts`` are here; the JAX package's dry-run
-lowering and the LM launchers belong to its LM substrate.
+:mod:`repro_torch.launch.serve` holds the deprecated ``RkNNServer`` alias
+and its ``batched_raycast_counts``; :mod:`repro_torch.launch.train` the
+LM training launcher (``train_main``, ``python -m
+repro_torch.launch.train``).  The JAX package's dry-run lowering and its
+other LM launchers are not ported yet.
 """

@@ -13,8 +13,11 @@ a whole ``repro.steps.train`` state (``params``, ``opt.m``, ``opt.v``,
 ``opt.step`` and, where present, ``ef``), the moments and residuals as
 ``{name: tensor}`` congruent with the parameters; :func:`to_jax_layout`
 gives any of these back as numpy leaves in JAX's layout, so that a test
-compares leaf by leaf.  The parity tests use them with ``device="cpu"``;
-nothing here imports JAX.
+compares leaf by leaf.  :func:`jax_layout_views` gives the same tree over
+the live tensors themselves, a stacked leaf as a :class:`StackedLeaf` of
+its repeats: what a checkpoint of a training state saves and restores in
+place, under the leaf names of the JAX package's checkpoints.  The parity
+tests use them with ``device="cpu"``; nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.decoder import Attention, Decoder, DecoderLayer, Norm, check_supported
 from repro_torch.models.ffn import DenseFFN
 
-__all__ = ["params_from_jax", "train_state_from_jax", "to_jax_layout"]
+__all__ = ["params_from_jax", "train_state_from_jax", "to_jax_layout", "jax_layout_views",
+           "StackedLeaf"]
 
 
 def params_from_jax(tree: dict, cfg: ArchConfig, *, device=None,
@@ -89,40 +93,98 @@ def train_state_from_jax(state: dict, cfg: ArchConfig, *, device=None) -> dict:
     return out
 
 
-def _jax_params(named: Mapping[str, torch.Tensor], cfg: ArchConfig) -> dict:
-    def a(t: torch.Tensor) -> np.ndarray:
-        return t.detach().float().cpu().numpy()
+class StackedLeaf:
+    """A leaf of JAX's layout that stacks a layer group's ``R`` repeats on
+    a leading axis, over the port's ``R`` tensors (one a repeat), without
+    copying them: ``shape`` and ``dtype`` are the stacked leaf's,
+    ``np.asarray`` stacks the parts into a new host array, and
+    ``copy_(src)`` writes ``src[r]`` into part ``r`` in place."""
 
+    __slots__ = ("parts",)
+
+    def __init__(self, parts: list[torch.Tensor]):
+        self.parts = parts
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self.parts), *self.parts[0].shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        out = torch.empty(self.shape, dtype=self.dtype)
+        for r, t in enumerate(self.parts):
+            out[r].copy_(t.detach())
+        arr = out.numpy()
+        return arr if dtype is None else arr.astype(dtype, copy=False)
+
+    def copy_(self, src: torch.Tensor) -> "StackedLeaf":
+        for r, t in enumerate(self.parts):
+            t.copy_(src[r])
+        return self
+
+
+def _layout(named: Mapping[str, torch.Tensor], cfg: ArchConfig, leaf, stack) -> dict:
+    """The parameters' tree in JAX's layout: ``leaf(t)`` of each unstacked
+    tensor, ``stack([t0, t1, ...])`` of each group's repeats."""
     tree: dict = {"groups": [{f"p{i}": {} for i in range(len(g.specs))}
                              for g in cfg.layer_groups()]}
     stacks: dict = {}
     for name, t in named.items():
         parts = name.split(".")
         if parts[0] == "groups":  # groups.{gi}.p{i}.{r}.{module}.{leaf}
-            gi, key, r, mod, leaf = int(parts[1]), parts[2], int(parts[3]), parts[4], parts[5]
-            stacks.setdefault((gi, key, mod, leaf), {})[r] = a(t)
+            gi, key, r, mod, lf = int(parts[1]), parts[2], int(parts[3]), parts[4], parts[5]
+            stacks.setdefault((gi, key, mod, lf), {})[r] = t
         elif len(parts) == 1:
-            tree[parts[0]] = a(t)
+            tree[parts[0]] = leaf(t)
         else:
-            tree.setdefault(parts[0], {})[parts[1]] = a(t)
-    for (gi, key, mod, leaf), by_r in stacks.items():
-        tree["groups"][gi][key].setdefault(mod, {})[leaf] = np.stack(
+            tree.setdefault(parts[0], {})[parts[1]] = leaf(t)
+    for (gi, key, mod, lf), by_r in stacks.items():
+        tree["groups"][gi][key].setdefault(mod, {})[lf] = stack(
             [by_r[r] for r in range(len(by_r))])
     return tree
+
+
+def _host_f32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _jax_params(named: Mapping[str, torch.Tensor], cfg: ArchConfig) -> dict:
+    return _layout(named, cfg, _host_f32, lambda ts: np.stack([_host_f32(t) for t in ts]))
+
+
+def _views(named: Mapping[str, torch.Tensor], cfg: ArchConfig) -> dict:
+    return _layout({n: t.detach() for n, t in named.items()}, cfg, lambda t: t, StackedLeaf)
+
+
+def _state_tree(tree, cfg: ArchConfig, params_fn, step_fn) -> dict:
+    if isinstance(tree, nn.Module):
+        return params_fn(dict(tree.named_parameters()), cfg)
+    if "params" in tree:
+        opt = tree["opt"]
+        out = {"params": _state_tree(tree["params"], cfg, params_fn, step_fn),
+               "opt": {"m": params_fn(opt["m"], cfg), "v": params_fn(opt["v"], cfg),
+                       "step": step_fn(opt["step"])}}
+        if tree.get("ef") is not None:
+            out["ef"] = params_fn(tree["ef"], cfg)
+        return out
+    return params_fn(tree, cfg)
 
 
 def to_jax_layout(tree, cfg: ArchConfig) -> dict:
     """Numpy leaves in the JAX package's layout, float32, from the port's
     parameters (a :class:`Decoder` or ``{name: tensor}``) or from a whole
     training state (``{"params", "opt": {"m", "v", "step"}, "ef"?}``)."""
-    if isinstance(tree, nn.Module):
-        return _jax_params(dict(tree.named_parameters()), cfg)
-    if "params" in tree:
-        opt = tree["opt"]
-        out = {"params": to_jax_layout(tree["params"], cfg),
-               "opt": {"m": _jax_params(opt["m"], cfg), "v": _jax_params(opt["v"], cfg),
-                       "step": np.asarray(int(opt["step"]), dtype=np.int32)}}
-        if tree.get("ef") is not None:
-            out["ef"] = _jax_params(tree["ef"], cfg)
-        return out
-    return _jax_params(tree, cfg)
+    return _state_tree(tree, cfg, _jax_params,
+                       lambda step: np.asarray(int(step), dtype=np.int32))
+
+
+def jax_layout_views(tree, cfg: ArchConfig) -> dict:
+    """:func:`to_jax_layout`'s tree over the live tensors: each leaf the
+    port's tensor itself (detached) or a :class:`StackedLeaf` of a group's
+    repeats, and ``opt.step`` the state's int32 tensor.  Saving it writes
+    the JAX package's leaves; restoring into it (``restore_checkpoint(...,
+    into=True)``) writes the checkpoint into the state in place."""
+    return _state_tree(tree, cfg, _views, lambda step: step)

@@ -6,10 +6,13 @@ each parameter's name (``nn.Module.named_parameters``) to a float32
 tensor of its shape, and ``step`` is an int32 tensor on their device.  All
 moment maths runs in float32.  Unlike the JAX function, which returns new
 trees, :func:`adamw_update` updates the parameters, the moments and the
-step in place (under ``torch.no_grad()``), and scales the gradients in
-place by the clip: at full width a second copy of either would cost a
-tensor per parameter.  The schedule runs from the step count in the state,
-as JAX's does, on the card with no host synchronisation.
+step in place (under ``torch.no_grad()``): at full width a second copy
+would cost a tensor per parameter.  The clip's scale, the moments, the
+bias corrections, the weight decay and the parameters are one fused pass
+over every leaf (:func:`repro_torch.kernels.adamw.adamw_fused`: the CUDA
+kernel of row 10 on the card, its plain version on the CPU), which leaves
+the gradients as they were.  The schedule runs from the step count in the
+state, as JAX's does, on the card with no host synchronisation.
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ from typing import Callable, Mapping
 import torch
 from torch import nn
 
+from repro_torch.kernels.adamw import adamw_fused
+
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "clip_by_global_norm",
-           "make_schedule", "named_tensors"]
+           "clip_scale", "make_schedule", "named_tensors", "step_scalars"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,11 +66,17 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in leaves))
 
 
+def clip_scale(grads: Mapping[str, torch.Tensor], max_norm: float):
+    """``(scale, norm)``: the factor that brings ``grads`` to a global norm
+    of at most ``max_norm``, and their norm, 0-d float32 tensors."""
+    norm = global_norm(grads)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
 def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float):
     """Scales ``grads`` (float32) in place to a global norm of at most
     ``max_norm``; returns ``(grads, norm before the clip)``."""
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale, norm = clip_scale(grads, max_norm)
     torch._foreach_mul_(list(grads.values()), scale)
     return grads, norm
 
@@ -92,26 +103,28 @@ def make_schedule(cfg: AdamWConfig) -> Callable[[torch.Tensor], torch.Tensor]:
 
 @torch.no_grad()
 def adamw_update(params, grads: Mapping[str, torch.Tensor], state: dict, cfg: AdamWConfig):
-    """One AdamW step in place.  ``params`` a module or ``{name: tensor}``,
-    ``grads`` float32 ``{name: tensor}`` with the same names (scaled in
-    place by the clip), ``state`` from :func:`adamw_init` (its moments and
+    """One AdamW step in place.  ``params`` a module or ``{name: tensor}``
+    (float32), ``grads`` float32 ``{name: tensor}`` with the same names
+    (left as they are), ``state`` from :func:`adamw_init` (its moments and
     step updated in place).  Returns ``(params, state, {"grad_norm",
     "lr"})``, the metrics float32 tensors on the parameters' device."""
     named = named_tensors(params)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    scale, gnorm = clip_scale(grads, cfg.grad_clip)
+    lr, bc1, bc2 = step_scalars(state, cfg)
+    adamw_fused([p.detach() for p in named.values()], [grads[n] for n in named],
+                [state["m"][n] for n in named], [state["v"][n] for n in named],
+                lr, bc1, bc2, scale, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                weight_decay=cfg.weight_decay)
+    return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def step_scalars(state: dict, cfg: AdamWConfig):
+    """Adds one to ``state["step"]`` in place and returns ``(lr, 1 - b1^t,
+    1 - b2^t)`` at the new step ``t``, 0-d float32 tensors on its device."""
     state["step"] += 1
     step = state["step"]
     lr = make_schedule(cfg)(step)
-    b1, b2 = cfg.b1, cfg.b2
     sf = step.float()
-    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=sf.device), sf)
-    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=sf.device), sf)
-    for name, p in named.items():
-        g, m, v = grads[name].float(), state["m"][name], state["v"][name]
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        pf = p.float()
-        pn = pf - lr * (upd + cfg.weight_decay * pf)
-        p.copy_(pn)
-    return params, state, {"grad_norm": gnorm, "lr": lr}
+    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=sf.device), sf)
+    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=sf.device), sf)
+    return lr, bc1, bc2

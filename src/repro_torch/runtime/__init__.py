@@ -1,2 +1,3 @@
-"""Training runtime hooks of the LM substrate (``repro.runtime``): the
-int8 error-feedback gradient compression."""
+"""Training runtime of the LM substrate (``repro.runtime``): the int8
+error-feedback gradient compression, the straggler watchdog and hang timer,
+elastic re-meshing and the fault-tolerant training driver."""

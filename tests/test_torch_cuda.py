@@ -9,7 +9,8 @@ that has only the port's dependencies:
 Tolerances: ray-cast, grid and BVH counts bit-identical (kernels and plain
 versions share one rounding contract, and the ray-cast kernel's tile
 classes are exact); rank counts equal on users with no near-tie
-competitor and within ±1 on the rest.  The adversarial ray-cast inputs
+competitor and within ±1 on the rest; the AdamW kernels (rows 10 and 11)
+bit-identical to their plain versions.  The adversarial ray-cast inputs
 come from ``tests/_torch_parity.py``, which imports no JAX either.
 """
 
@@ -1243,3 +1244,162 @@ def test_decoder_kernel_gradients_stay_within_the_plain_spread_on_card(cuda_devi
     spread = max(pp.values())
     assert 0 < spread and max(kp.values()) <= 2 * spread, (kp, pp)
     assert max(k32.values()) <= 2 * max(p32.values()), (k32, p32)
+
+
+# ---- rows 10 and 11: the fused AdamW kernels ----------------------------------
+
+ADAMW_SIZES = (1, 127, 129, (1 << 20) + 3, 4096, 8193)
+ADAMW_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def _adamw_step_tensors(dev, gen):
+    """lr, bc1, bc2 and the clip's scale as the optimizer makes them: 0-d
+    float32 tensors on the card (step 3 of a schedule, a clip below 1)."""
+    from repro_torch.optim.adamw import AdamWConfig, step_scalars
+
+    st = {"step": torch.full((), 2, dtype=torch.int32, device=dev)}
+    lr, bc1, bc2 = step_scalars(st, AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=9))
+    scale = torch.rand((), generator=gen, device=dev) * 0.5 + 0.25
+    return lr, bc1, bc2, scale
+
+
+def _adamw_leaves(dev, gen, sizes, zero_leaf=None):
+    ps, gs, ms, vs = [], [], [], []
+    for i, n in enumerate(sizes):
+        p = torch.randn(n, generator=gen, device=dev)
+        g = torch.randn(n, generator=gen, device=dev) * 1e-2
+        m = torch.randn(n, generator=gen, device=dev) * 1e-3
+        v = torch.rand(n, generator=gen, device=dev) * 1e-4
+        if i == zero_leaf:
+            g[: n // 2] = 0
+            m[: n // 2] = 0
+            v[: n // 2] = 0
+        ps.append(p), gs.append(g), ms.append(m), vs.append(v)
+    return ps, gs, ms, vs
+
+
+def _clone(ts):
+    return [t.clone() for t in ts]
+
+
+@pytest.mark.parametrize("sizes", [(n,) for n in ADAMW_SIZES] + [ADAMW_SIZES])
+def test_adamw_kernel_is_bit_identical_to_plain_on_card(cuda_device, sizes):
+    from repro_torch.kernels import adamw as kadamw
+
+    gen = torch.Generator(cuda_device).manual_seed(sum(sizes))
+    steps = _adamw_step_tensors(cuda_device, gen)
+    ps, gs, ms, vs = _adamw_leaves(cuda_device, gen, sizes, zero_leaf=len(sizes) - 1)
+    kp, km, kv = _clone(ps), _clone(ms), _clone(vs)
+    ref.calls = kadamw.adamw_launches = 0
+    kadamw.adamw_fused(kp, gs, km, kv, *steps, **ADAMW_HYPER)
+    assert kadamw.adamw_launches == 1 and ref.calls == 0
+    pp, pm, pv = _clone(ps), _clone(ms), _clone(vs)
+    ref.adamw_ref(pp, gs, pm, pv, *steps, **ADAMW_HYPER)
+    torch.cuda.synchronize()
+    for got, want in ((kp, pp), (km, pm), (kv, pv)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), float((a - b).abs().max())
+    # a second launch from the same inputs gives the same bits
+    kp2, km2, kv2 = _clone(ps), _clone(ms), _clone(vs)
+    kadamw.adamw_fused(kp2, gs, km2, kv2, *steps, **ADAMW_HYPER)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kp + km + kv, kp2 + km2 + kv2))
+
+
+def test_adamw_kernel_takes_unaligned_leaves_on_card(cuda_device):
+    """Leaves 4 bytes past a 16-byte boundary run the scalar path."""
+    from repro_torch.kernels import adamw as kadamw
+
+    def unaligned(t):
+        return torch.empty(t.numel() + 1, device=t.device)[1:].copy_(t)
+
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    steps = _adamw_step_tensors(cuda_device, gen)
+    ps, gs, ms, vs = _adamw_leaves(cuda_device, gen, (10_001,))
+    kp, kg, km, kv = ([unaligned(x[0])] for x in (ps, gs, ms, vs))
+    assert kp[0].data_ptr() % 16
+    kadamw.adamw_fused(kp, kg, km, kv, *steps, **ADAMW_HYPER)
+    pp, pm, pv = _clone(ps), _clone(ms), _clone(vs)
+    ref.adamw_ref(pp, gs, pm, pv, *steps, **ADAMW_HYPER)
+    torch.cuda.synchronize()
+    for got, want in ((kp, pp), (km, pm), (kv, pv)):
+        assert torch.equal(got[0], want[0])
+
+
+def _int8_states(dev, gen, sizes, zero_leaf=None):
+    from repro_torch.optim.adamw8bit import quantize_blockwise
+
+    states = []
+    for i, n in enumerate(sizes):
+        m = torch.randn(n, generator=gen, device=dev) * 1e-3
+        v = torch.rand(n, generator=gen, device=dev) * 1e-4
+        if i == zero_leaf:
+            m[: n // 2] = 0
+            v[: n // 2] = 0
+        (mq, ms), (vq, vs) = quantize_blockwise(m, True), quantize_blockwise(v, False)
+        states.append({"mq": mq, "ms": ms, "vq": vq, "vs": vs})
+    return states
+
+
+def _clone_states(states):
+    return [{k: t.clone() for k, t in s.items()} for s in states]
+
+
+@pytest.mark.parametrize("sizes", [(n,) for n in ADAMW_SIZES] + [ADAMW_SIZES])
+def test_adamw8bit_kernel_is_bit_identical_to_plain_on_card(cuda_device, sizes):
+    from repro_torch.kernels import adamw as kadamw
+
+    gen = torch.Generator(cuda_device).manual_seed(7 + sum(sizes))
+    steps = _adamw_step_tensors(cuda_device, gen)
+    ps, gs, _, _ = _adamw_leaves(cuda_device, gen, sizes, zero_leaf=len(sizes) - 1)
+    states = _int8_states(cuda_device, gen, sizes, zero_leaf=len(sizes) - 1)
+    kp, ks = _clone(ps), _clone_states(states)
+    ref.calls = kadamw.adamw8bit_launches = 0
+    kadamw.adamw8bit_fused(kp, gs, ks, *steps, **ADAMW_HYPER)
+    assert kadamw.adamw8bit_launches == 1 and ref.calls == 0
+    pp, pst = _clone(ps), _clone_states(states)
+    ref.adamw8bit_ref(pp, gs, pst, *steps, **ADAMW_HYPER)
+    torch.cuda.synchronize()
+    for a, b in zip(kp, pp):
+        assert torch.equal(a, b), float((a - b).abs().max())
+    for a, b in zip(ks, pst):
+        for key in ("mq", "ms", "vq", "vs"):
+            assert torch.equal(a[key], b[key]), key
+    kp2, ks2 = _clone(ps), _clone_states(states)
+    kadamw.adamw8bit_fused(kp2, gs, ks2, *steps, **ADAMW_HYPER)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kp, kp2))
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(ks, ks2) for k in a)
+
+
+def test_adamw_kernels_in_the_optimizers_on_card(cuda_device, monkeypatch):
+    """``adamw_update`` and ``adamw8bit_update`` on card leaves launch their
+    kernel once and no plain version, and equal the optimizers over the
+    plain versions bit for bit, update after update."""
+    from repro_torch.kernels import adamw as kadamw
+    from repro_torch.optim import adamw as tadamw
+    from repro_torch.optim import adamw8bit as t8
+
+    gen = torch.Generator(cuda_device).manual_seed(11)
+    cfg = tadamw.AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=5)
+    p0 = {"a": torch.randn(3, 129, generator=gen, device=cuda_device),
+          "b": torch.randn(1, generator=gen, device=cuda_device)}
+    for module, init, update, counter, name, plain in (
+            (tadamw, tadamw.adamw_init, tadamw.adamw_update, "adamw_launches", "adamw_fused",
+             ref.adamw_ref),
+            (t8, t8.adamw8bit_init, t8.adamw8bit_update, "adamw8bit_launches",
+             "adamw8bit_fused", ref.adamw8bit_ref)):
+        kp = {k: v.clone() for k, v in p0.items()}
+        pp = {k: v.clone() for k, v in p0.items()}
+        kst, pst = init(kp), init(pp)
+        for i in range(3):
+            g = {k: torch.randn(v.shape, generator=gen, device=cuda_device) for k, v in p0.items()}
+            ref.calls = 0
+            setattr(kadamw, counter, 0)
+            update(kp, g, kst, cfg)
+            assert getattr(kadamw, counter) == 1 and ref.calls == 0
+            with monkeypatch.context() as mp:
+                mp.setattr(module, name, plain)
+                update(pp, g, pst, cfg)
+            torch.cuda.synchronize()
+            assert all(torch.equal(kp[k], pp[k]) for k in p0), (name, i)

@@ -58,5 +58,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
             "repro_torch.models.registry", "repro_torch.steps", "repro_torch.steps.train",
             "repro_torch.kernels.attention", "repro_torch.steps.loss", "repro_torch.optim",
             "repro_torch.optim.adamw", "repro_torch.runtime",
-            "repro_torch.runtime.compression"} <= set(report["modules"])
+            "repro_torch.runtime.compression", "repro_torch.runtime.watchdog",
+            "repro_torch.runtime.elastic", "repro_torch.runtime.driver",
+            "repro_torch.launch.train", "repro_torch.optim.adamw8bit",
+            "repro_torch.kernels.adamw"} <= set(report["modules"])
     assert report["leaked"] == []

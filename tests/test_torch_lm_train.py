@@ -180,9 +180,15 @@ def test_grad_clip_caps_global_norm():
     cfg = tadamw.AdamWConfig(grad_clip=1.0, warmup_steps=0, total_steps=1, schedule="constant")
     p = {"w": torch.zeros(4)}
     g = {"w": torch.full((4,), 100.0)}
-    _, _, metrics = tadamw.adamw_update(p, g, tadamw.adamw_init(p), cfg)
+    st = tadamw.adamw_init(p)
+    _, _, metrics = tadamw.adamw_update(p, g, st, cfg)
     assert float(metrics["grad_norm"]) == pytest.approx(200.0, rel=1e-4)
-    assert float(tadamw.global_norm(g)) == pytest.approx(1.0, rel=1e-6)  # clipped in place
+    # the fused update clips as it reads (m = (1 - b1) * g * scale) and
+    # leaves the gradients as they were; clip_by_global_norm clips in place
+    torch.testing.assert_close(st["m"]["w"], torch.full((4,), (1 - cfg.b1) * 0.5))
+    assert float(tadamw.global_norm(g)) == pytest.approx(200.0, rel=1e-6)
+    tadamw.clip_by_global_norm(g, cfg.grad_clip)
+    assert float(tadamw.global_norm(g)) == pytest.approx(1.0, rel=1e-6)
 
 
 # ---- int8 error-feedback compression -----------------------------------------

@@ -146,6 +146,33 @@ def test_restore_gives_each_leaf_as_the_template_has_it(tmp_path):
         restore_checkpoint(str(tmp_path), {**tree, "n": np.arange(4)})
 
 
+def test_restore_into_writes_each_leaf_in_place(tmp_path):
+    """``into=True`` copies each stored leaf into the template's own leaf (a
+    tensor, an array, or a stacked view over per-layer tensors) and returns
+    the template; the stacked view saves as the stack of its parts."""
+    from repro_torch.models.convert import StackedLeaf
+
+    parts = [torch.full((2, 3), float(r)) for r in range(3)]
+    tree = {"t": torch.arange(4.0), "n": np.arange(3.0), "s": StackedLeaf(parts)}
+    ck = AsyncCheckpointer(str(tmp_path))
+    assert ck.save(5, tree) == 4 * 4 + 3 * 8 + 3 * 6 * 4  # the bytes copied to the host
+    ck.wait()
+    stored, _ = restore_checkpoint(str(tmp_path), {"t": np.zeros(4, np.float32),
+                                                   "n": np.zeros(3), "s": np.zeros((3, 2, 3),
+                                                                                   np.float32)})
+    np.testing.assert_array_equal(stored["s"], np.stack([p.numpy() for p in parts]))
+    ids = (tree["t"].data_ptr(), tree["n"].ctypes.data, [p.data_ptr() for p in parts])
+    for leaf in (tree["t"], *parts):
+        leaf.zero_()
+    tree["n"][:] = 0
+    got, manifest = restore_checkpoint(str(tmp_path), tree, into=True)
+    assert got is tree and manifest["step"] == 5
+    assert (tree["t"].data_ptr(), tree["n"].ctypes.data, [p.data_ptr() for p in parts]) == ids
+    assert torch.equal(tree["t"], torch.arange(4.0))
+    np.testing.assert_array_equal(tree["n"], np.arange(3.0))
+    assert all(torch.equal(p, torch.full((2, 3), float(r))) for r, p in enumerate(parts))
+
+
 def test_async_checkpointer_snapshots_before_writing(tmp_path):
     ck = AsyncCheckpointer(str(tmp_path), keep=2)
     t = torch.zeros(4)
