@@ -73,6 +73,19 @@ read just after:
   and decode, and the kernel path against plain and float32 paths, and
   the two kernels' wrapper times beside their device times alone (a CUDA
   graph of launches; the ``lm_serve_times`` line; see :func:`_lm_serve`);
+* ``lm_moe_serve`` — the MoE serving path: deepseek-moe-16b at the
+  published widths and full depth (1 dense and 27 MoE layers of 64 routed
+  experts top-6 and 2 shared), bf16 weights from the port's ``init``, 8
+  prompts of 2,048 tokens through ``make_prefill_step`` (54 launches of
+  row 12, the routed experts' kernel, beside 28 of the flash kernel) and
+  64 greedy ``make_decode_step`` steps (64 x 54 row-12 launches), then
+  decode at B = 1; row 12 held against its plain version and float64 at
+  the phase's prefill and decode shapes and awkward ones, the forward
+  against prefill and decode (drop-free capacity), the kernel path
+  against plain paths and, at the first ``LM_MOE_F32_LAYERS`` layers, a
+  float32 path; row 12's times beside the padded ``torch.bmm`` MLP, the
+  experts each layer touches, and profiled prefill and decode windows
+  (see :func:`_lm_moe_serve`);
 * ``lm_train`` — the LM substrate's training step: starcoder2-3b at the
   published widths and full depth, float32 master parameters from the
   port's ``init``, bf16 compute with per-layer remat, 4 AdamW steps of
@@ -90,7 +103,7 @@ read just after:
   one step of a 2-layer model through the kernels against plain and
   float32 paths (``lm_train_checks``; see :func:`_lm_train`);
 * ``lm_driver`` — the training launcher: starcoder2-3b at the published
-  widths, 2 layers deep, 200 steps through ``train_main`` with two
+  widths, 2 layers deep, 80 steps through ``train_main`` with two
   checkpoints in a temporary directory (the free disk logged first), the
   loss finite and falling; the same run with a transient failure and a
   device loss injected between the checkpoints, whose restarted steps
@@ -185,8 +198,12 @@ SCENARIO_MAX_USERS = 60_000
 BUILD_LOGS: dict = {}
 
 
+_T0 = time.perf_counter()
+
+
 def _log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - _T0, **fields}), flush=True)
 
 
 def _sync_ms(fn, reps: int, dev) -> float:
@@ -1259,6 +1276,10 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     _ops(dev, eng, ops_qs, stream_s)
     del eng, mono_eng
     records += _lm_serve(dev, seed)
+    moe_records, moe_launches = _lm_moe_serve(dev, seed)
+    for r in records:  # rows 7 and 8 count lm_moe_serve's windows too
+        r["launches"] += moe_launches.get(r["name"], 0)
+    records += moe_records
     records += _lm_train(dev, seed)
     driver_records, driver_launches = _lm_driver(dev, seed)
     for r in records:  # rows 7, 9 and 10 count lm_train's and lm_driver's windows
@@ -2318,6 +2339,9 @@ LM_PROMPT = 2048
 LM_DECODE = 64
 LM_CHECK_ROWS = 2  # prompts of the forward check (f32 logits of 2 x 2049 x V: 2.5 GB)
 LM_B1_STEPS = 16  # decode steps timed at B = 1
+# decode steps of check 3's teacher-forced paths (the counted decode runs
+# LM_DECODE): cut from 64 to keep the script inside its time limit
+LM_CHECK_STEPS = 16
 LM_PROFILE_STEPS = 3
 # Kernel path against plain path end to end: two plain paths that differ
 # only in the order of the prefill's f32 sums already differ by 0.034 of
@@ -2411,7 +2435,7 @@ def _kernel_device_ms(prof) -> dict:
     everything else (elementwise, norms, RoPE, embedding, argmax, copies)."""
     import torch
 
-    kinds = {"flash_fwd": 0.0, "flash_bwd": 0.0, "decode_attn": 0.0, "adamw": 0.0,
+    kinds = {"flash_fwd": 0.0, "flash_bwd": 0.0, "decode_attn": 0.0, "adamw": 0.0, "moe": 0.0,
              "matmul": 0.0, "other": 0.0}
     for evt in prof.key_averages():
         # the device's own events only: an operator's self device time
@@ -2436,6 +2460,8 @@ def _kernel_device_ms(prof) -> dict:
             kinds["decode_attn"] += us / 1e3
         elif "adamw_" in name:  # csrc/adamw.cu: adamw_f32_kernel, adamw_int8_kernel
             kinds["adamw"] += us / 1e3
+        elif "moe_up_kernel" in name or "moe_down_kernel" in name:  # csrc/moe.cu, row 12
+            kinds["moe"] += us / 1e3
         elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
             kinds["matmul"] += us / 1e3
         else:
@@ -2669,17 +2695,17 @@ def _lm_serve(dev, seed: int) -> list:
 
     # ---- check 3: kernel path against plain path, teacher-forced ---------------
     def teacher_forced(mdl):
-        """Logits of the prefill and of the 64 steps, fed the kernel path's
-        tokens: ``[65, B, V]`` f32."""
+        """Logits of the prefill and of the first ``LM_CHECK_STEPS`` steps,
+        fed the kernel path's tokens: ``[1 + LM_CHECK_STEPS, B, V]`` f32."""
         lg, c = make_prefill_step(mdl, pad_cache_to=smax)(params, prompts, {})
         out = [lg]
         step = make_decode_step(mdl)
-        for i in range(LM_DECODE):
+        for i in range(LM_CHECK_STEPS):
             lg, c = step(params, gen[:, i:i + 1], c)
             out.append(lg)
         return torch.stack(out)
 
-    kernel_path = torch.cat([prefill_logits[None], torch.stack(step_logits)])
+    kernel_path = torch.cat([prefill_logits[None], torch.stack(step_logits[:LM_CHECK_STEPS])])
     kattn.flash_launches = kattn.decode_launches = 0
     ref.calls = 0
     t0 = time.perf_counter()
@@ -2829,6 +2855,500 @@ def _lm_serve(dev, seed: int) -> list:
          "library_ms": decode_lib_ms,
          "shape": {"B": B, "Smax": smax, "pos": LM_PROMPT, "K": K, "G": G, "D": D}},
     ]
+
+
+# ---- the MoE serving path (lm_moe_serve) --------------------------------------
+
+LM_MOE_ARCH = "deepseek_moe_16b"
+# check 2's prompts (f32 logits of 4 x 2,049 x 102,400: 3.4 GB)
+LM_MOE_CHECK_ROWS = 4
+# a router near-tie at deepseek's logits (about 1 in magnitude): the k-th
+# and (k+1)-th within 8 bf16 ulps, where two passes that round apart (the
+# forward and the decode step) may choose apart; with random weights the
+# router's probabilities are near-uniform and 27 MoE layers meet many
+LM_MOE_TIE_GAP = 0.0625
+# check 3's float32 leg: the first 6 layers (1 dense, 5 MoE); float32
+# copies of all 28 would take 65.5 GB beside the 32.8 GB of bf16 weights
+LM_MOE_F32_LAYERS = 6
+# row 12 at deepseek's widths beside the phase's own shapes: compact runs
+# of each (group, expert), [n_groups][64] counts
+LM_MOE_AWKWARD = {
+    "empty_experts": [[37 if e % 4 == 0 else 0 for e in range(64)]],
+    "one_expert_full": [[480 if e == 7 else 0 for e in range(64)]],
+    "ragged_tiles": [[(65, 1, 127, 130, 0, 64)[e % 6] for e in range(64)],
+                     [(0, 129, 2, 63)[e % 4] for e in range(64)]],
+    "b1": [[1 if e in (3, 9, 17, 40, 41, 63) else 0 for e in range(64)]],
+}
+
+
+def _route_recorder(tffn, k: int, store: list):
+    """A patch of ``repro_torch.models.ffn.route`` that appends each MoE
+    layer's sorted top-k, its k-th minus (k+1)-th router logit (the
+    probabilities' log ratio) and its probabilities ``[tokens, E]`` to
+    ``store``, one entry a layer in order."""
+    import torch
+
+    real = tffn.route
+
+    def route(probs, moe_cfg, capacity):
+        r = real(probs, moe_cfg, capacity)
+        flat = probs.reshape(-1, probs.shape[-1])
+        top = torch.sort(flat, dim=-1, descending=True).values
+        store.append((r.topi.reshape(-1, k).sort(-1).values,
+                      torch.log(top[:, k - 1]) - torch.log(top[:, k]), flat))
+        return r
+
+    return mock.patch.object(tffn, "route", route)
+
+
+def _routes_apart(want: list, got: list, want_tok: int, got_tok: int):
+    """``(layer, gap, probs_rel)``: the first MoE layer where token
+    ``got_tok`` of one pass takes other experts than token ``want_tok`` of
+    another (None where they agree in every layer), the logit gap there in
+    ``want``, and the largest difference of the two tokens' router
+    probabilities over the layers before it, over their max."""
+    rel = 0.0
+    for layer, ((sets_w, gap_w, p_w), (sets_g, _, p_g)) in enumerate(zip(want, got)):
+        if bool((sets_w[want_tok] != sets_g[got_tok]).any()):
+            return layer, float(gap_w[want_tok]), rel
+        rel = max(rel, float((p_w[want_tok] - p_g[got_tok]).abs().max() / p_w[want_tok].max()))
+    return None, None, rel
+
+
+def _moe_mlp64(xc, offsets, w_in, w_gate, w_out):
+    """Float64 swiglu expert MLP over each compact run, unrounded: row 12's
+    yardstick (shares no code with the port)."""
+    import torch
+
+    off = offsets.tolist()
+    E = w_in.shape[0]
+    out = torch.zeros((xc.shape[0], w_out.shape[2]), dtype=torch.float64, device=xc.device)
+    for ge in range(len(off) - 1):
+        a, b = off[ge], off[ge + 1]
+        if a == b:
+            continue
+        e = ge % E
+        x = xc[a:b].double()
+        g = x @ w_gate[e].double()
+        out[a:b] = ((x @ w_in[e].double()) * g * torch.sigmoid(g)) @ w_out[e].double()
+    return out
+
+
+def _moe_bound(offsets, E: int, d: int, f: int) -> tuple[float, str, dict]:
+    """Row 12's least time: the touched experts' weights (3 d f bf16 each)
+    and the rows in and out over the HBM rate, or 6 R d f over the bf16
+    tensor-core rate, for these runs."""
+    runs = (offsets[1:] - offsets[:-1]).view(-1, E)
+    rows = int(offsets[-1])
+    touched = int((runs.sum(0) > 0).sum())
+    n_bytes = touched * 3 * d * f * 2 + 2 * rows * d * 2
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, 6 * rows * d * f / PEAK_BF16_TC_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            {"rows": rows, "touched_experts": touched, "groups": runs.shape[0]})
+
+
+def _lm_moe_serve(dev, seed: int) -> tuple[list, dict]:
+    """deepseek-moe-16b at the published widths and full depth (28 layers:
+    1 dense, 27 MoE of 64 routed experts top-6 and 2 shared) on the card
+    through ``build_model`` / ``make_prefill_step`` / ``make_decode_step``:
+    8 prompts of 2,048 tokens from the token pipeline, prefill with the
+    cache padded to 2,112, 64 greedy decode steps at B = 8, then decode at
+    B = 1.  Checks: row 12 against its plain version and float64 at the
+    phase's prefill and decode shapes and awkward ones; the forward against
+    prefill and the first decode step on ``LM_MOE_CHECK_ROWS`` prompts with
+    drop-free capacity (0.05 of max |logits|); the kernel path against the
+    plain path teacher-forced (``LM_E2E_FACTOR``), and against a float32
+    path at the first ``LM_MOE_F32_LAYERS`` layers; 54 row-12 launches a
+    prefill and 64 x 54 in the decode, no plain call.  Random weights make
+    the router's probabilities near-uniform, and a near-tie at one of 27
+    layers sends a token to another expert wherever two passes round apart
+    (forward and decode; kernel and plain): check 2 then holds the token's
+    router probabilities before that layer within 0.05 of their max and
+    the tie within ``LM_MOE_TIE_GAP``, in place of its logits; check 3's
+    paths diverge so at every layer, and its rule compares like with like.
+    Returns row 12's record and the phase's launches of rows 7 and 8."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import ShardedTokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import moe as kmoe
+    from repro_torch.kernels import ref
+    from repro_torch.models import ffn as tffn
+    from repro_torch.models.common import Policy
+    from repro_torch.models.decoder import Decoder
+    from repro_torch.models.registry import build_model
+    from repro_torch.steps.train import make_decode_step, make_prefill_step
+
+    def plain_kernels():
+        """The plain versions of rows 7, 8 and 12 in place of their wrappers."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(
+            kattn, "flash_attention", lambda q, k, v, *, causal=True, q_block=512, kv_block=1024:
+            ref.flash_attention_ref(q, k, v, causal, q_block, kv_block)))
+        stack.enter_context(mock.patch.object(kattn, "decode_attention", ref.decode_attention_ref))
+        stack.enter_context(mock.patch.object(kmoe, "moe_expert_mlp", ref.moe_expert_mlp_ref))
+        return stack
+
+    def counts():
+        return {"flash_fwd": kattn.flash_launches, "decode_attn": kattn.decode_launches,
+                "moe": kmoe.moe_launches, "plain_calls": ref.calls}
+
+    def reset():
+        kattn.flash_launches = kattn.decode_launches = kmoe.moe_launches = ref.calls = 0
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.zeros((), device=dev)
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(LM_MOE_ARCH)
+    E, k, d, f = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model, cfg.moe.d_ff_expert
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    smax = LM_PROMPT + LM_DECODE
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(dev).manual_seed(seed), dtype=Policy.compute_dtype)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, the config counts {cfg.param_count()}")
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    layer1 = params.groups[1]["p0"][0].moe  # the first MoE layer's experts
+
+    pipe = ShardedTokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=LM_PROMPT, global_batch=LM_BATCH, seed=seed))
+    prompts = torch.from_numpy(pipe.batch_at(0)["tokens"]).long().to(dev)
+    prefill = make_prefill_step(model, pad_cache_to=smax)
+    decode = make_decode_step(model)
+
+    _, wc = make_prefill_step(model, pad_cache_to=80)(params, prompts[:1, :64], {})
+    decode(params, prompts[:1, 64:65], wc)
+    del wc
+    torch.cuda.synchronize(dev)
+
+    # ---- counted prefill and 64 greedy decode steps ----------------------------
+    reset()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompts, {})
+    torch.cuda.synchronize(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_counted = counts()
+    want = {"flash_fwd": cfg.n_layers, "decode_attn": 0, "moe": 2 * n_moe, "plain_calls": 0}
+    if prefill_counted != want:
+        raise AssertionError(f"prefill window: {prefill_counted}, want {want}")
+    prefill_logits = logits
+    tok = logits.argmax(dim=-1, keepdim=True)
+    tokens, step_logits = [tok], []
+    reset()
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE):
+        logits, cache = decode(params, tok, cache)
+        tok = logits.argmax(dim=-1, keepdim=True)
+        step_logits.append(logits)
+        tokens.append(tok)
+    torch.cuda.synchronize(dev)
+    decode_s = time.perf_counter() - t0
+    decode_counted = counts()
+    want = {"flash_fwd": 0, "decode_attn": LM_DECODE * cfg.n_layers,
+            "moe": LM_DECODE * 2 * n_moe, "plain_calls": 0}
+    if decode_counted != want:
+        raise AssertionError(f"decode window: {decode_counted}, want {want}")
+    gen = torch.cat(tokens, dim=1)
+    if int(cache["pos"].min()) != smax or not bool(torch.isfinite(torch.stack(step_logits)).all()):
+        raise AssertionError(f"decode ended at pos {cache['pos'].tolist()} or non-finite logits")
+    del cache
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    _log("lm_moe_serve", arch=cfg.name, describe=cfg.describe(), params=n_params,
+         weight_gb=weight_bytes / 1e9, batch=LM_BATCH, prompt=LM_PROMPT, decode_steps=LM_DECODE,
+         cache_slots=smax, init_s=init_s, prefill_s=prefill_s,
+         prefill_tok_s=LM_BATCH * LM_PROMPT / prefill_s, decode_ms_step=decode_s * 1e3 / LM_DECODE,
+         decode_tok_s=LM_BATCH * LM_DECODE / decode_s, serving_max_memory_allocated_gb=peak_gb,
+         memory_before_gb=mem_before / 1e9, prefill_counted=prefill_counted,
+         decode_counted=decode_counted, first_tokens=gen[:, :8].tolist())
+
+    failures = []
+    # ---- the phase's row-12 inputs, and the experts each layer touches ---------
+    real = kmoe.moe_expert_mlp
+    seen: dict = {}
+
+    def recorder(label):
+        def call(xc, offsets, rows_bound, w_in, w_gate, w_out, act):
+            runs = (offsets[1:] - offsets[:-1]).view(-1, E)
+            seen.setdefault(label, {"touched": [], "first": None})
+            seen[label]["touched"].append((runs > 0).sum(-1))
+            if seen[label]["first"] is None:
+                seen[label]["first"] = (xc.clone(), offsets.clone(), rows_bound)
+            return real(xc, offsets, rows_bound, w_in, w_gate, w_out, act)
+        return call
+
+    with mock.patch.object(kmoe, "moe_expert_mlp", recorder("prefill")):
+        _, c8 = prefill(params, prompts, {})
+    with mock.patch.object(kmoe, "moe_expert_mlp", recorder("decode_b8")):
+        decode(params, gen[:, :1], c8)
+    _, c1 = prefill(params, prompts[:1], {})
+    with mock.patch.object(kmoe, "moe_expert_mlp", recorder("decode_b1")):
+        decode(params, gen[:1, :1], c1)
+    del c8, c1
+    touched = {label: torch.stack(v["touched"]).tolist() for label, v in seen.items()}
+
+    # ---- check 1: row 12 against its plain version and float64 -----------------
+    wts = (layer1.w_in, layer1.w_gate, layer1.w_out)
+    gen_rng = torch.Generator(dev).manual_seed(seed + 29)
+    row12 = {}
+
+    def check(name, xc, offsets, bound):
+        rows = int(offsets[-1])
+        got = kmoe.moe_expert_mlp(xc, offsets, bound, *wts[:2], wts[2], "swiglu")
+        torch.cuda.synchronize(dev)
+        if not bool(torch.isfinite(got[:rows]).all()):
+            raise AssertionError(f"row 12 {name}: non-finite rows")
+        row12[name] = _yardstick(got[:rows], ref.moe_expert_mlp_ref(xc, offsets, bound, *wts,
+                                                                     "swiglu")[:rows],
+                                 _moe_mlp64(xc, offsets, *wts)[:rows])
+        row12[name]["rows"] = rows
+
+    for label in ("prefill", "decode_b8", "decode_b1"):
+        check(label, *seen[label]["first"])
+    for name, runs in LM_MOE_AWKWARD.items():
+        c = torch.tensor(runs, dtype=torch.int64).reshape(-1)
+        offsets = torch.zeros(c.numel() + 1, dtype=torch.int32)
+        offsets[1:] = torch.cumsum(c, 0)
+        rows = int(offsets[-1])
+        xc = torch.randn((rows + 3, d), generator=gen_rng, device=dev).to(torch.bfloat16)
+        xc[rows:] = float("nan")  # past the runs: never read
+        check(name, xc, offsets.to(dev), int(c.max()))
+    _log("lm_moe_serve_kernels", row12=row12, touched_experts=touched)
+
+    # ---- check 2: forward against prefill and the first decode step ------------
+    rows = LM_MOE_CHECK_ROWS
+    free_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(E)))
+    free = build_model(free_cfg, device=dev)
+    fwd_tokens = torch.cat([prompts[:rows], gen[:rows, :1]], dim=1)
+    r_pre, r_dec, r_fwd = [], [], []
+    with _route_recorder(tffn, k, r_pre):
+        lp, c2 = make_prefill_step(free, pad_cache_to=smax)(params, prompts[:rows], {})
+    with _route_recorder(tffn, k, r_dec):
+        ld, c2 = make_decode_step(free)(params, gen[:rows, :1], c2)
+    del c2
+    with torch.no_grad(), _route_recorder(tffn, k, r_fwd):
+        fwd, fwd_aux = free.forward(params, fwd_tokens, {})
+    scale = float(fwd.abs().max())
+    S1 = LM_PROMPT + 1
+    fwd_check = {"scale": scale, "aux_loss": float(fwd_aux["aux_loss"]), "rows": []}
+    for b in range(rows):
+        row = {}
+        for what, got, routes, tok, pos in (("prefill", lp, r_pre, b * LM_PROMPT + LM_PROMPT - 1,
+                                             LM_PROMPT - 1),
+                                            ("decode", ld, r_dec, b, LM_PROMPT)):
+            layer, gap, probs_rel = _routes_apart(r_fwd, routes, b * S1 + pos, tok)
+            row[what] = {"rel": float((got[b] - fwd[b, pos]).abs().max()) / scale,
+                         "apart_at_layer": layer, "gap": gap, "probs_rel_before": probs_rel}
+        fwd_check["rows"].append(row)
+    del fwd, lp, ld, r_pre, r_dec, r_fwd
+    torch.cuda.empty_cache()
+    for row in fwd_check["rows"]:
+        for what, c in row.items():
+            if c["apart_at_layer"] is None and c["rel"] >= LM_FWD_REL:
+                failures.append(f"forward against {what}: {c} (scale {scale})")
+            if c["apart_at_layer"] is not None and c["gap"] >= LM_MOE_TIE_GAP:
+                failures.append(f"forward and {what} route apart off a near-tie: {c}")
+            if c["probs_rel_before"] >= LM_FWD_REL:
+                failures.append(f"forward and {what} router probabilities apart: {c}")
+
+    # ---- check 3: kernel path against plain paths, teacher-forced --------------
+    def teacher_forced(mdl, p, routes=None):
+        """Logits of the prefill and the first ``LM_CHECK_STEPS`` steps fed
+        the kernel path's tokens, ``[1 + LM_CHECK_STEPS, B, V]`` f32; each
+        MoE layer's top-k into ``routes``."""
+        stack = contextlib.ExitStack()
+        if routes is not None:
+            real_route = tffn.route
+
+            def route(probs, moe_cfg, capacity):
+                r = real_route(probs, moe_cfg, capacity)
+                routes.append(r.topi.reshape(-1, moe_cfg.top_k).sort(-1).values)
+                return r
+            stack.enter_context(mock.patch.object(tffn, "route", route))
+        with stack:
+            lg, c = make_prefill_step(mdl, pad_cache_to=smax)(p, prompts, {})
+            out = [lg]
+            step = make_decode_step(mdl)
+            for i in range(LM_CHECK_STEPS):
+                lg, c = step(p, gen[:, i:i + 1], c)
+                out.append(lg)
+        return torch.stack(out)
+
+    def rel(a, b):
+        return ((a - b).abs().amax(dim=(1, 2)) / b.abs().amax(dim=(1, 2))).tolist()
+
+    def route_differs(a, b):
+        """Share of tokens whose top-k set differs, per MoE layer (the
+        prefill's tokens and each step's, over the layers in order)."""
+        share = []
+        for layer in range(n_moe):
+            ra = torch.cat(a[layer::n_moe])
+            rb = torch.cat(b[layer::n_moe])
+            share.append(float((ra != rb).any(-1).float().mean()))
+        return share
+
+    r_kernel, r_plain = [], []
+    kernel_path = teacher_forced(model, params, r_kernel)
+    reset()
+    t0 = time.perf_counter()
+    with plain_kernels():
+        plain_path = teacher_forced(model, params, r_plain)
+        torch.cuda.synchronize(dev)
+        plain_path_s = time.perf_counter() - t0
+        plain_counted = counts()
+        plain_other = teacher_forced(
+            build_model(dataclasses.replace(cfg, q_block=256, kv_block=256), device=dev), params)
+    forced_vs_counted = max(rel(kernel_path, torch.cat(
+        [prefill_logits[None], torch.stack(step_logits[:LM_CHECK_STEPS])])))
+    kp, pp = rel(kernel_path, plain_path), rel(plain_other, plain_path)
+    differs = route_differs(r_kernel, r_plain)
+    del kernel_path, plain_path, plain_other, r_kernel, r_plain
+    torch.cuda.empty_cache()
+
+    # the float32 leg at the first LM_MOE_F32_LAYERS layers: kernel and plain
+    # paths over the same bf16 weights, the plain path over their exact f32 copy
+    cut_cfg = dataclasses.replace(cfg, n_layers=LM_MOE_F32_LAYERS)
+    cut_model = build_model(cut_cfg, device=dev)
+    cut = Decoder(params.embed, params.final_norm,
+                  [{"p0": list(params.groups[0]["p0"])},
+                   {"p0": list(params.groups[1]["p0"][:LM_MOE_F32_LAYERS - 1])}], params.unembed)
+    cut_kernel = teacher_forced(cut_model, cut)
+    compute = Policy.compute_dtype
+    with plain_kernels():
+        cut_plain = teacher_forced(cut_model, cut)
+        cut32 = copy.deepcopy(cut).float()
+        try:
+            Policy.compute_dtype = torch.float32
+            cut_f32 = teacher_forced(cut_model, cut32)
+        finally:
+            Policy.compute_dtype = compute
+    del cut32
+    k32, p32 = rel(cut_kernel, cut_f32), rel(cut_plain, cut_f32)
+    kp_cut = rel(cut_kernel, cut_plain)
+    del cut_kernel, cut_plain, cut_f32, cut
+    torch.cuda.empty_cache()
+    e2e = {"kernel_vs_plain_max": max(kp), "kernel_vs_plain_prefill": kp[0],
+           "plain_blocks_vs_plain_max": max(pp), "teacher_forced_vs_counted": forced_vs_counted,
+           "f32_layers": LM_MOE_F32_LAYERS, "cut_kernel_vs_plain_max": max(kp_cut),
+           "cut_kernel_vs_f32_max": max(k32), "cut_plain_vs_f32_max": max(p32),
+           "routing_differs_share_by_layer": differs,
+           "per_step": {"kernel_vs_plain": kp, "plain_blocks_vs_plain": pp,
+                        "cut_kernel_vs_f32": k32, "cut_plain_vs_f32": p32},
+           "plain_path_s": plain_path_s, "plain_counted": plain_counted}
+    _log("lm_moe_serve_checks", forward=fwd_check, e2e=e2e)
+    if plain_counted["flash_fwd"] or plain_counted["decode_attn"] or plain_counted["moe"]:
+        raise AssertionError(f"the plain path launched a kernel: {plain_counted}")
+    if max(kp) > LM_E2E_FACTOR * max(pp):
+        failures.append(f"kernel path against plain path {max(kp)} > {LM_E2E_FACTOR} x the "
+                        f"plain paths' spread {max(pp)}")
+    if max(k32) > LM_E2E_FACTOR * max(p32):
+        failures.append(f"kernel path against float32 at {LM_MOE_F32_LAYERS} layers {max(k32)} "
+                        f"> {LM_E2E_FACTOR} x the plain path's {max(p32)}")
+
+    # ---- row 12's times at the phase's shapes ----------------------------------
+    def padded(xc, offsets, cap):
+        """JAX's capacity-padded expert buffer [E, n * cap, d] of the runs."""
+        n = (offsets.numel() - 1) // E
+        rows = int(offsets[-1])
+        r = torch.arange(rows, device=dev)
+        ge = torch.searchsorted(offsets[1:], r.to(torch.int32), right=True)
+        xe = torch.zeros((E, n * cap, d), dtype=xc.dtype, device=dev)
+        xe[ge % E, (ge // E) * cap + (r - offsets[ge])] = xc[:rows]
+        return xe
+
+    def library(xe):
+        return torch.bmm(torch.bmm(xe, layer1.w_in) * F.silu(torch.bmm(xe, layer1.w_gate)),
+                         layer1.w_out)
+
+    times = {}
+    caps = {"prefill": max(1, int(cfg.moe.capacity_factor * 4096 * k / E)),
+            "decode_b8": LM_BATCH * k, "decode_b1": k}
+    for label in ("prefill", "decode_b8", "decode_b1"):
+        xc, offsets, bound = seen[label]["first"]
+        reps = 10 if label == "prefill" else 50
+
+        def kernel():
+            return kmoe.moe_expert_mlp(xc, offsets, bound, *wts[:2], wts[2], "swiglu")
+        xe = padded(xc, offsets, caps[label])
+        b_ms, b_by, b_shape = _moe_bound(offsets, E, d, f)
+        times[label] = {
+            "ms": _sync_ms(kernel, reps, dev), "device_ms": _graph_ms(kernel, reps, dev),
+            "plain_ms": _sync_ms(lambda: ref.moe_expert_mlp_ref(xc, offsets, bound, *wts,
+                                                                 "swiglu"), 3, dev),
+            "library_ms": _sync_ms(lambda: library(xe), reps, dev), "bound_ms": b_ms,
+            "bound_by": b_by, "padded_rows": E * xe.shape[1], **b_shape}
+        del xe
+    _log("lm_moe_serve_times", row12=times)
+
+    # ---- decode at B = 1, and profiled windows by kind -------------------------
+    _, c1 = prefill(params, prompts[:1], {})
+    tok1 = gen[:1, :1]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for i in range(LM_B1_STEPS):
+        l1, c1 = decode(params, tok1, c1)
+        tok1 = l1.argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize(dev)
+    b1_ms = (time.perf_counter() - t0) * 1e3 / LM_B1_STEPS
+    _, c8 = prefill(params, prompts, {})
+    profiles = {}
+    windows = {"b1": (lambda c: decode(params, tok1, c)[1], c1, LM_PROFILE_STEPS, b1_ms),
+               "b8": (lambda c: decode(params, gen[:, :1], c)[1], c8, LM_PROFILE_STEPS,
+                      decode_s * 1e3 / LM_DECODE),
+               "prefill": (lambda c: prefill(params, prompts, {})[1], None, 1, prefill_s * 1e3)}
+    for name, (step, c, n_steps, wall_ms) in windows.items():
+        for _ in range(2):  # the first profiled window pays the profiler's start
+            torch.cuda.synchronize(dev)
+            prof = _start_profiler(profiles)
+            if prof is None:
+                break
+            for _ in range(n_steps):
+                c = step(c)
+            torch.cuda.synchronize(dev)
+            prof.stop()
+        if prof is None:
+            break
+        kinds = {k2: v2 / n_steps for k2, v2 in _kernel_device_ms(prof).items()}
+        busy = sum(kinds.values())
+        profiles[name] = {"device_ms": kinds, "device_busy_ms": busy, "unprofiled_ms": wall_ms,
+                          "idle_share": 1 - busy / wall_ms if busy else None,
+                          "top_kernels_ms_window": _device_kernels_ms(prof, 10)}
+    del c1, c8
+    _log("lm_moe_serve_decode", b1_ms_step=b1_ms, b1_tok_s=1e3 / b1_ms,
+         b8_ms_step=decode_s * 1e3 / LM_DECODE, b8_tok_s=LM_BATCH * LM_DECODE / decode_s,
+         profiled_steps=LM_PROFILE_STEPS, profiles=profiles,
+         phase_max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         phase_s=time.perf_counter() - t_phase)
+    del params, layer1, wts, seen, model
+    torch.cuda.empty_cache()
+
+    if failures:
+        raise AssertionError("; ".join(failures))
+    pf = times["prefill"]
+    rec = {"name": "moe_expert_mlp", "route": "cuda", "source": "src/repro_torch/csrc/moe.cu",
+           "replaces": "src/repro/models/ffn.py:131 (jnp _expert_mlp in moe_ffn, "
+                       "not a Pallas site)",
+           "launches": prefill_counted["moe"] + decode_counted["moe"],
+           "max_abs_err": row12["prefill"]["kernel_vs_plain"], "ms": pf["ms"],
+           "plain_ms": pf["plain_ms"], "bound_ms": pf["bound_ms"], "bound_by": pf["bound_by"],
+           "library_ms": pf["library_ms"],
+           "shape": {"rows": pf["rows"], "d": d, "f": f, "E": E}}
+    launches = {"flash_fwd": prefill_counted["flash_fwd"],
+                "decode_attn": decode_counted["decode_attn"]}
+    return [rec], launches
 
 
 # ---- the LM substrate's training step (lm_train) -----------------------------
@@ -3455,11 +3975,11 @@ def _lm_train(dev, seed: int) -> list:
 # ---- the training driver and launcher (lm_driver) ---------------------------
 
 LM_DRIVER_LAYERS = 2  # the depth cut: every width of the published config kept
-LM_DRIVER_STEPS = 200
-LM_DRIVER_SAVE_EVERY = 100  # two checkpoints a run
+LM_DRIVER_STEPS = 80  # cut from 200 (PR 27) to keep the script inside its time limit
+LM_DRIVER_SAVE_EVERY = 40  # two checkpoints a run
 # the restart run: a transient failure and a device loss between the saves
-LM_DRIVER_TRANSIENT = 110
-LM_DRIVER_DEVICE_LOSS = 120
+LM_DRIVER_TRANSIENT = 45
+LM_DRIVER_DEVICE_LOSS = 50
 LM_DRIVER_CHECK_UPDATES = 3  # rows 10 and 11 against plain on real gradients
 LM_DRIVER_CHECK_BATCH = 2
 # the widths of the published config that reduced_config replaces

@@ -49,11 +49,19 @@ kernels repeat them in order.  :func:`quantize_blockwise` and
 tensor on the input's device, which is a true division on the CPU and on
 the card alike (a Python number there would multiply by its reciprocal on
 the card).
+
+:func:`moe_expert_mlp_ref` is the plain version of row 12
+(``csrc/moe.cu``), the routed experts' MLP of ``repro.models.ffn``
+``moe_ffn`` (its ``_expert_mlp``) over compact rows: a loop over (group,
+expert) with ``torch.matmul`` on each expert's rows, rounding where the
+kernel rounds (each product to the input's dtype, the activation on that
+value, the GLU product).  It reads the row offsets back to the host.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 __all__ = [
     "raycast_count_ref",
@@ -75,6 +83,7 @@ __all__ = [
     "decode_attention_ref",
     "adamw_ref",
     "adamw8bit_ref",
+    "moe_expert_mlp_ref",
     "quantize_blockwise",
     "dequantize_blockwise",
     "QUANT_BLOCK",
@@ -545,3 +554,46 @@ def adamw8bit_ref(ps, gs, states, lr, bc1, bc2, scale, *, b1: float, b2: float, 
             q, sc = quantize_blockwise(t, signed=signed)
             s8[f"{key}q"].copy_(q)
             s8[f"{key}s"].copy_(sc)
+
+
+# ---- the MoE FFN's routed experts (row 12) -------------------------------------
+
+def _moe_act(act: str, h, g):
+    """JAX's ``_expert_mlp`` activation: ``h * silu(g)`` (``swiglu``),
+    ``h * gelu(g)`` (``geglu``, tanh form), or ``activation(act, h)``."""
+    if act == "swiglu":
+        return h * F.silu(g)
+    if act == "geglu":
+        return h * F.gelu(g, approximate="tanh")
+    if act == "gelu":
+        return F.gelu(h, approximate="tanh")
+    if act == "relu2":
+        r = F.relu(h)
+        return r * r
+    raise ValueError(f"unknown ffn_act {act!r}")
+
+
+def moe_expert_mlp_ref(xc, offsets, rows_bound: int, w_in, w_gate, w_out, act: str):
+    """Row 12's plain version: ``xc [R, d]`` holds each (group, expert)'s
+    rows at ``offsets[g*E + e] : offsets[g*E + e + 1]`` (``offsets [n*E +
+    1]`` int32, at most ``rows_bound`` rows a pair); each run goes through
+    expert ``e``'s MLP (``w_in``/``w_gate [E, d, f]``, ``w_out [E, f, d]``;
+    ``w_gate`` None for ``gelu``/``relu2``).  Returns ``[R, d]`` in
+    ``xc``'s dtype, zero past the last run."""
+    _count()
+    E = w_in.shape[0]
+    off = offsets.tolist()
+    y = torch.zeros((xc.shape[0], w_out.shape[2]), dtype=xc.dtype, device=xc.device)
+    for ge in range(len(off) - 1):
+        a, b = off[ge], off[ge + 1]
+        if a == b:
+            continue
+        if b - a > rows_bound:
+            raise ValueError(f"(group, expert) {divmod(ge, E)} holds {b - a} rows, "
+                             f"more than the bound {rows_bound}")
+        e = ge % E
+        xe = xc[a:b]
+        h = xe @ w_in[e]
+        h = _moe_act(act, h, None if w_gate is None else xe @ w_gate[e])
+        y[a:b] = h @ w_out[e]
+    return y

@@ -69,4 +69,4 @@ def flash_attention_fused(q, k, v, causal: bool = True, q_block: int = 512,
 def local_attention(*args, **kwargs):
     raise NotImplementedError(
         "local_attention (the hybrid family's sliding window) is not ported yet: "
-        "ROADMAP queue 1, LM item 4 (local_attention and rglru)")
+        "ROADMAP queue 1, LM item 2 (local_attention and rglru)")

@@ -5,7 +5,9 @@ the port, and back.
 ``init_decoder`` with numpy leaves (``jax.tree.map(np.asarray, params)``):
 ``embed``, ``final_norm``, ``unembed`` (unless tied) and
 ``groups[gi]["p{i}"]``, whose leaves stack a group's ``repeat`` layers on
-a leading ``R`` axis.  It returns the port's :class:`Decoder` with the
+a leading ``R`` axis; a MoE layer's ``moe`` subtree (``router``, ``w_in``,
+``w_gate``, ``w_out`` and the shared experts' ``shared``) comes over
+under the same names.  It returns the port's :class:`Decoder` with the
 same values, on the card unless ``device`` names another (raising where
 there is none), as every entry point of the port.  Float32 parameters are
 trainable (``Policy.param_dtype``).  :func:`train_state_from_jax` carries
@@ -31,7 +33,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.decoder import Attention, Decoder, DecoderLayer, Norm, check_supported
-from repro_torch.models.ffn import DenseFFN
+from repro_torch.models.ffn import DenseFFN, MoEFFN
 
 __all__ = ["params_from_jax", "train_state_from_jax", "to_jax_layout", "jax_layout_views",
            "StackedLeaf"]
@@ -49,6 +51,15 @@ def params_from_jax(tree: dict, cfg: ArchConfig, *, device=None,
     def norm(p) -> Norm:
         return Norm(t(p["scale"]), t(p["bias"]) if "bias" in p else None)
 
+    def dense(f, r) -> DenseFFN:
+        return DenseFFN(t(f["w_in"][r]), t(f["w_out"][r]),
+                        t(f["w_gate"][r]) if "w_gate" in f else None)
+
+    def moe(m, r) -> MoEFFN:
+        return MoEFFN(t(m["router"][r]), t(m["w_in"][r]), t(m["w_out"][r]),
+                      t(m["w_gate"][r]) if "w_gate" in m else None,
+                      dense(m["shared"], r) if "shared" in m else None)
+
     groups = []
     for gi, group in enumerate(cfg.layer_groups()):
         g = {}
@@ -56,7 +67,7 @@ def params_from_jax(tree: dict, cfg: ArchConfig, *, device=None,
             st = tree["groups"][gi][f"p{i}"]
             layers = []
             for r in range(group.repeat):
-                a, f = st["attn"], st["ffn"]
+                a = st["attn"]
                 bias = [t(a[n][r]) for n in ("bq", "bk", "bv")] if "bq" in a else []
                 layers.append(DecoderLayer(
                     Norm(t(st["norm1"]["scale"][r]),
@@ -64,8 +75,8 @@ def params_from_jax(tree: dict, cfg: ArchConfig, *, device=None,
                     Attention(t(a["wq"][r]), t(a["wk"][r]), t(a["wv"][r]), t(a["wo"][r]), *bias),
                     Norm(t(st["norm2"]["scale"][r]),
                          t(st["norm2"]["bias"][r]) if "bias" in st["norm2"] else None),
-                    DenseFFN(t(f["w_in"][r]), t(f["w_out"][r]),
-                             t(f["w_gate"][r]) if "w_gate" in f else None)))
+                    ffn=dense(st["ffn"], r) if "ffn" in st else None,
+                    moe=moe(st["moe"], r) if "moe" in st else None))
             g[f"p{i}"] = layers
         groups.append(g)
     unembed = t(tree["unembed"]) if "unembed" in tree else None
@@ -134,16 +145,18 @@ def _layout(named: Mapping[str, torch.Tensor], cfg: ArchConfig, leaf, stack) -> 
     stacks: dict = {}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "groups":  # groups.{gi}.p{i}.{r}.{module}.{leaf}
-            gi, key, r, mod, lf = int(parts[1]), parts[2], int(parts[3]), parts[4], parts[5]
-            stacks.setdefault((gi, key, mod, lf), {})[r] = t
+        if parts[0] == "groups":  # groups.{gi}.p{i}.{r}.{module}[.{sub}].{leaf}
+            gi, key, r, path = int(parts[1]), parts[2], int(parts[3]), tuple(parts[4:])
+            stacks.setdefault((gi, key, path), {})[r] = t
         elif len(parts) == 1:
             tree[parts[0]] = leaf(t)
         else:
             tree.setdefault(parts[0], {})[parts[1]] = leaf(t)
-    for (gi, key, mod, lf), by_r in stacks.items():
-        tree["groups"][gi][key].setdefault(mod, {})[lf] = stack(
-            [by_r[r] for r in range(len(by_r))])
+    for (gi, key, path), by_r in stacks.items():
+        node = tree["groups"][gi][key]
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = stack([by_r[r] for r in range(len(by_r))])
     return tree
 
 

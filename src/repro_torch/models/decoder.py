@@ -1,5 +1,5 @@
 """Decoder-only LM (``repro.models.decoder``) for the ``attn`` mixer and the
-``dense`` FFN: the serving path of the dense families.
+``dense`` and ``moe`` FFNs: the serving path of the dense and MoE families.
 
 The parameters are ``nn.Module``\\ s laid out as the JAX package's tree:
 :class:`Decoder` holds ``embed``, ``final_norm``, ``unembed`` (unless
@@ -33,8 +33,15 @@ cache is ``{"groups": [{"p{i}": {"k", "v"}}], "pos": [B] int32}`` with
 cache it is given (an indexed write per layer, no copy of the cache) and
 returns the same tensors.
 
-Other mixers (``local``, ``ssd``, ``rglru``, ``xattn``) and the MoE FFN
-raise ``NotImplementedError``: they are later slices of the port.
+A ``moe`` layer's FFN is :func:`~repro_torch.models.ffn.moe_ffn`: with
+capacity dropping in the forward and the prefill (JAX's default group of
+4,096 tokens), drop-free (``no_drop``) in the decode; the forward returns
+the sum of the MoE layers' ``moe_aux`` as ``aux_loss``, as JAX's
+``_run_groups`` does.  MoE training (the routed experts' backward) is a
+later slice: on the card the forward under grad raises there.
+
+Other mixers (``local``, ``ssd``, ``rglru``, ``xattn``) raise
+``NotImplementedError``: they are later slices of the port.
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ from repro_torch.models.common import (
     rotate,
     take_embedding,
 )
-from repro_torch.models.ffn import DenseFFN, dense_ffn, init_dense_ffn
+from repro_torch.models.ffn import DenseFFN, MoEFFN, dense_ffn, init_dense_ffn, init_moe, moe_ffn
 
 __all__ = [
     "Norm",
@@ -78,14 +85,15 @@ __all__ = [
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` unless every layer is ``attn``/``dense``."""
+    """Raise ``NotImplementedError`` unless every layer is ``attn`` with a
+    ``dense`` or ``moe`` FFN."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder family is not ported yet: ROADMAP queue 1, "
-            "LM item 6 (encdec)")
-    later = {"moe": "item 3 (the MoE FFN)", "local": "item 4 (local_attention and rglru)",
-             "rglru": "item 4 (local_attention and rglru)", "ssd": "item 5 (ssd)",
-             "xattn": "item 6 (encdec)"}
+            "LM item 4 (encdec)")
+    later = {"local": "item 2 (local_attention and rglru)",
+             "rglru": "item 2 (local_attention and rglru)", "ssd": "item 3 (ssd)",
+             "xattn": "item 4 (encdec)"}
     for group in cfg.layer_groups():
         for spec in group.specs:
             for part in (spec.mixer, spec.ffn):
@@ -93,7 +101,7 @@ def check_supported(cfg: ArchConfig) -> None:
                     raise NotImplementedError(
                         f"{cfg.name}: layer {spec} is not ported yet: ROADMAP queue 1, LM "
                         f"{later[part]}")
-            if spec.mixer != "attn" or spec.ffn != "dense":
+            if spec.mixer != "attn" or spec.ffn not in ("dense", "moe"):
                 raise NotImplementedError(f"{cfg.name}: layer {spec} is not ported")
 
 
@@ -119,11 +127,16 @@ class Attention(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """One ``attn``/``dense`` layer: ``norm1``, ``attn``, ``norm2``, ``ffn``."""
+    """One ``attn`` layer: ``norm1``, ``attn``, ``norm2`` and either ``ffn``
+    (a dense layer) or ``moe`` (a MoE layer); the other is None."""
 
-    def __init__(self, norm1: Norm, attn_p: Attention, norm2: Norm, ffn: DenseFFN):
+    def __init__(self, norm1: Norm, attn_p: Attention, norm2: Norm,
+                 ffn: DenseFFN | None = None, moe: MoEFFN | None = None):
         super().__init__()
-        self.norm1, self.attn, self.norm2, self.ffn = norm1, attn_p, norm2, ffn
+        if (ffn is None) == (moe is None):
+            raise ValueError("a layer holds exactly one of ffn and moe")
+        self.norm1, self.attn, self.norm2 = norm1, attn_p, norm2
+        self.ffn, self.moe = ffn, moe
 
 
 class Decoder(nn.Module):
@@ -184,14 +197,19 @@ def init_decoder(generator: torch.Generator, cfg: ArchConfig,
     groups = []
     for group in cfg.layer_groups():
         g = {}
-        for i, _spec in enumerate(group.specs):
-            g[f"p{i}"] = [
-                DecoderLayer(
-                    _zeros_norm(cfg, dev, dtype), _init_attn(generator, cfg, dtype),
-                    _zeros_norm(cfg, dev, dtype),
-                    init_dense_ffn(generator, cfg.d_model, cfg.d_ff, cfg.ffn_act, dtype=dtype))
-                for _ in range(group.repeat)
-            ]
+        for i, spec in enumerate(group.specs):
+            layers = []
+            for _ in range(group.repeat):
+                norm1 = _zeros_norm(cfg, dev, dtype)
+                attn_p = _init_attn(generator, cfg, dtype)
+                norm2 = _zeros_norm(cfg, dev, dtype)
+                if spec.ffn == "moe":
+                    layers.append(DecoderLayer(norm1, attn_p, norm2, moe=init_moe(
+                        generator, cfg.d_model, cfg.moe, cfg.ffn_act, dtype=dtype)))
+                else:
+                    layers.append(DecoderLayer(norm1, attn_p, norm2, ffn=init_dense_ffn(
+                        generator, cfg.d_model, cfg.d_ff, cfg.ffn_act, dtype=dtype)))
+            g[f"p{i}"] = layers
         groups.append(g)
     return Decoder(embed, _zeros_norm(cfg, dev, dtype), groups, unembed)
 
@@ -226,12 +244,21 @@ def _attn_out(p: Attention, o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return o.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo.to(o.dtype)
 
 
-def _ffn_residual(layer: DecoderLayer, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return x + dense_ffn(layer.ffn, _norm(cfg, x, layer.norm2), cfg.ffn_act)
+def _ffn_residual(layer: DecoderLayer, x: torch.Tensor, cfg: ArchConfig,
+                  no_drop: bool = False):
+    """``(x + ffn(norm2(x)), aux)``: ``aux`` the MoE layer's ``moe_aux``, or
+    None for a dense layer."""
+    h = _norm(cfg, x, layer.norm2)
+    if layer.moe is None:
+        return x + dense_ffn(layer.ffn, h, cfg.ffn_act), None
+    y, aux = moe_ffn(layer.moe, h, cfg.moe, cfg.ffn_act, no_drop=no_drop,
+                     gather_dispatch=cfg.moe_gather)
+    return x + y, aux["moe_aux"]
 
 
 def _layer_forward(layer: DecoderLayer, x, rope, cfg: ArchConfig):
-    """Returns ``(x, k, v)``: the layer's output and its cache entries."""
+    """Returns ``(x, k, v, aux)``: the layer's output, its cache entries and
+    its MoE aux loss (None for a dense layer)."""
     q, k, v = _qkv(layer.attn, _norm(cfg, x, layer.norm1), rope, cfg)
     if torch.is_grad_enabled() and layer.attn.wq.requires_grad:
         o = mattn.flash_attention_fused(q, k, v, True, cfg.q_block, cfg.kv_block, cfg.q_parallel)
@@ -239,7 +266,8 @@ def _layer_forward(layer: DecoderLayer, x, rope, cfg: ArchConfig):
         o = kattn.flash_attention(q, k, v, causal=True, q_block=cfg.q_block,
                                   kv_block=cfg.kv_block)
     x = x + _attn_out(layer.attn, o, cfg)
-    return _ffn_residual(layer, x, cfg), k, v
+    x, aux = _ffn_residual(layer, x, cfg)
+    return x, k, v, aux
 
 
 #: The outputs a ``"dots"`` checkpoint keeps (JAX's ``dots_saveable``):
@@ -254,10 +282,11 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 
 def _layer_train(layer: DecoderLayer, x, rope, cfg: ArchConfig):
-    """The layer's output under ``cfg.remat`` (the JAX scan body's
-    ``jax.checkpoint``, taken per layer)."""
+    """The layer's ``(output, aux)`` under ``cfg.remat`` (the JAX scan
+    body's ``jax.checkpoint``, taken per layer)."""
     def run(x_):
-        return _layer_forward(layer, x_, rope, cfg)[0]
+        out = _layer_forward(layer, x_, rope, cfg)
+        return out[0], out[3]
 
     if cfg.remat == "none":
         return run(x)
@@ -278,8 +307,10 @@ def _layers(params: Decoder, cfg: ArchConfig):
 
 
 def _run(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig, cache_len: int | None):
-    """Embedding and every layer over ``tokens [B, S]``; with ``cache_len``
-    also the KV cache, padded (or cut to its last slots) to that length."""
+    """Embedding and every layer over ``tokens [B, S]``: ``(x, caches,
+    aux)``; with ``cache_len`` also the KV cache, padded (or cut to its last
+    slots) to that length.  ``aux`` sums the MoE layers' aux losses in
+    float32, in layer order."""
     B, S = tokens.shape
     x = take_embedding(params.embed, tokens)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
@@ -288,22 +319,26 @@ def _run(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig, cache_len: int 
     if cache_len is not None:
         caches = init_cache(cfg, B, cache_len, dtype=x.dtype, device=x.device)["groups"]
         keep = min(S, cache_len)  # JAX keeps the last slots of a longer prefill
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, key, r, layer in _layers(params, cfg):
         if caches is None and torch.is_grad_enabled() and layer.attn.wq.requires_grad:
-            x = _layer_train(layer, x, rope, cfg)
-            continue
-        x, k, v = _layer_forward(layer, x, rope, cfg)
-        if caches is not None:
-            caches[gi][key]["k"][r, :, :keep] = k[:, S - keep:]
-            caches[gi][key]["v"][r, :, :keep] = v[:, S - keep:]
-    return _norm(cfg, x, params.final_norm), caches
+            x, aux = _layer_train(layer, x, rope, cfg)
+        else:
+            x, k, v, aux = _layer_forward(layer, x, rope, cfg)
+            if caches is not None:
+                caches[gi][key]["k"][r, :, :keep] = k[:, S - keep:]
+                caches[gi][key]["v"][r, :, :keep] = v[:, S - keep:]
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _norm(cfg, x, params.final_norm), caches, aux_total
 
 
 def decoder_forward(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig):
-    """Training forward: tokens ``[B, S]`` -> ``(logits [B, S, V] f32, aux)``."""
-    x, _ = _run(params, tokens, cfg, None)
+    """Training forward: tokens ``[B, S]`` -> ``(logits [B, S, V] f32,
+    {"aux_loss": the MoE layers' summed aux loss, 0 without them})``."""
+    x, _, aux = _run(params, tokens, cfg, None)
     logits = (x @ params.unembedding(x.dtype)).float()
-    return logits, {"aux_loss": torch.zeros((), dtype=torch.float32, device=x.device)}
+    return logits, {"aux_loss": aux}
 
 
 @torch.no_grad()
@@ -313,7 +348,7 @@ def decoder_prefill(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig,
     time axis is ``S``, or ``pad_cache_to`` (zero-padded, or the last
     ``pad_cache_to`` positions of a longer prompt)."""
     B, S = tokens.shape
-    x, caches = _run(params, tokens, cfg, S if pad_cache_to is None else pad_cache_to)
+    x, caches, _ = _run(params, tokens, cfg, S if pad_cache_to is None else pad_cache_to)
     logits = (x[:, -1, :] @ params.unembedding(x.dtype)).float()
     pos = torch.full((B,), S, dtype=torch.int32, device=tokens.device)  # next token's index
     return logits, {"groups": caches, "pos": pos}
@@ -371,7 +406,7 @@ def decoder_decode(params: Decoder, token: torch.Tensor, cache: dict, cfg: ArchC
         _scatter_time(vc, v[:, 0], rows, pos, keep)
         o = kattn.decode_attention(q, kc, vc, pos)
         x = x + _attn_out(layer.attn, o, cfg)
-        x = _ffn_residual(layer, x, cfg)
+        x, _ = _ffn_residual(layer, x, cfg, no_drop=True)
     x = _norm(cfg, x, params.final_norm)
     logits = (x[:, 0] @ params.unembedding(x.dtype)).float()
     return logits, {"groups": groups, "pos": pos + 1}

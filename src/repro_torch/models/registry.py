@@ -13,9 +13,12 @@ than the model's.
 then builds the graph of training under grad mode).  Serving weights:
 ``init(seed, dtype=Policy.compute_dtype)`` draws each weight in float32
 and casts it once to the compute dtype, which is what the JAX package's
-``_w`` casts at every use; they are frozen.  Only the ``attn``/``dense``
-layer stacks are ported; the encoder-decoder, MoE, SSM and hybrid
-families raise ``NotImplementedError``.
+``_w`` casts at every use; they are frozen.  The ``attn`` layer stacks
+with ``dense`` and ``moe`` FFNs are ported (the dense and MoE families:
+deepseek-moe-16b, dbrx-132b); the encoder-decoder, SSM and hybrid
+families raise ``NotImplementedError``.  A MoE model serves (prefill,
+decode, the forward without grad) on the card; its forward under grad
+runs on the CPU only, as row 12 has no backward yet.
 """
 
 from __future__ import annotations

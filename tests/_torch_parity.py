@@ -371,3 +371,72 @@ def kernel_within_yardstick(kernel, plain, want64, floor=0.0):
              "err_kernel": float(err_k.flatten()[i]), "err_plain": float(err_p.flatten()[i]),
              "bf16_ulp": float(ulp.flatten()[i])}
     return bool((excess <= 0).all()), float(err_k.max()), float(err_p.max()), worst
+
+
+# ---- the MoE FFN's routed experts (row 12) -------------------------------------
+
+def moe_offsets(counts, device=CPU):
+    """``offsets [n*E + 1]`` int32 of compact runs of ``counts [n, E]`` rows,
+    laid out in (group, expert) order."""
+    c = np.asarray(counts, np.int64).reshape(-1)
+    return torch.from_numpy(np.concatenate([[0], np.cumsum(c)]).astype(np.int32)).to(device)
+
+
+def moe_inputs(seed, counts, d, f, glu=True, tail=3, dtype=torch.float32, device=CPU):
+    """Compact rows ``xc [sum(counts) + tail, d]``, their ``offsets`` and
+    an expert's ``w_in``/``w_gate [E, d, f]``, ``w_out [E, f, d]`` (N(0, 1)
+    rows, fan-in scaled weights), made with numpy from ``seed``; the
+    ``tail`` rows past the last run hold NaN, which no run may read."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts)
+    E = counts.shape[1]
+    R = int(counts.sum())
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=dtype)
+
+    xc = np.concatenate([rng.standard_normal((R, d)), np.full((tail, d), np.nan)])
+    w_in = rng.standard_normal((E, d, f)) * d ** -0.5
+    w_gate = rng.standard_normal((E, d, f)) * d ** -0.5 if glu else None
+    w_out = rng.standard_normal((E, f, d)) * f ** -0.5
+    return (t(xc), moe_offsets(counts, device), t(w_in),
+            None if w_gate is None else t(w_gate), t(w_out))
+
+
+def _act64(act, h, g):
+    if act in ("swiglu", "geglu"):
+        if act == "swiglu":
+            return h * g / (1.0 + torch.exp(-g))
+        return h * 0.5 * g * (1.0 + torch.tanh((2.0 / np.pi) ** 0.5 * (g + 0.044715 * g ** 3)))
+    if act == "gelu":
+        return 0.5 * h * (1.0 + torch.tanh((2.0 / np.pi) ** 0.5 * (h + 0.044715 * h ** 3)))
+    return torch.clamp_min(h, 0.0) ** 2  # relu2
+
+
+def moe_mlp64(xc, offsets, w_in, w_gate, w_out, act):
+    """Float64 expert MLP over each compact run (no rounding anywhere):
+    row 12's yardstick, ``[R, d]`` float64, zero past the last run."""
+    off = offsets.tolist()
+    E = w_in.shape[0]
+    out = torch.zeros((xc.shape[0], w_out.shape[2]), dtype=torch.float64, device=xc.device)
+    for ge in range(len(off) - 1):
+        a, b = off[ge], off[ge + 1]
+        if a == b:
+            continue
+        e = ge % E
+        x = xc[a:b].double()
+        h = x @ w_in[e].double()
+        g = None if w_gate is None else x @ w_gate[e].double()
+        out[a:b] = _act64(act, h, g) @ w_out[e].double()
+    return out
+
+
+def moe_tie_mask(logits, k, rel=2.0 ** -7):
+    """Tokens (rows of ``logits [..., E]``, float64 router logits from the
+    bf16 inputs) whose ``k``-th and ``(k+1)``-th largest logits lie within
+    one bf16 ulp (``rel`` of their magnitude): the two packages round the
+    router's product to bf16 apart, so such a token may take another
+    expert in each; the float64 logits decide neither way."""
+    s = np.sort(np.asarray(logits, np.float64), axis=-1)[..., ::-1]
+    kth, nxt = s[..., k - 1], s[..., k]
+    return (kth - nxt) <= rel * np.maximum(np.abs(kth), np.abs(nxt))

@@ -1403,3 +1403,161 @@ def test_adamw_kernels_in_the_optimizers_on_card(cuda_device, monkeypatch):
                 update(pp, g, pst, cfg)
             torch.cuda.synchronize()
             assert all(torch.equal(kp[k], pp[k]) for k in p0), (name, i)
+
+
+# ---- row 12: the MoE FFN's routed experts (csrc/moe.cu) -----------------------
+
+#: A router near-tie: the k-th and (k+1)-th logits within this (about 10
+#: bf16 ulps at the reduced model's logits, which lie near 0.25), where the
+#: card and the CPU may choose apart.
+MOE_TIE_GAP = 0.02
+
+# (counts [n_groups, E] of compact rows, d, f): empty experts; one expert
+# holding all C = 480 rows; runs that are no multiple of the 64-row tile;
+# B = 1 decode (6 experts of 64 with one row each); deepseek's widths
+MOE_CASES = {
+    "empty_experts": ([[3, 0, 70, 0, 1], [0, 0, 2, 129, 0]], 128, 64),
+    "one_expert_full": ([[0] * 7 + [480] + [0] * 8], 256, 128),
+    "ragged_tiles": ([[65, 1, 130, 63], [64, 0, 127, 2]], 128, 192),
+    "b1_decode": ([[1 if e in (3, 9, 17, 40, 41, 63) else 0 for e in range(64)]], 2048, 1408),
+    "b8_decode": ([[(e * 7) % 3 for e in range(64)]], 2048, 1408),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu", "relu2"])
+def test_moe_kernel_matches_plain_and_float64_on_card(cuda_device, case, act):
+    from repro_torch.kernels import moe as kmoe
+    from _torch_parity import kernel_within_yardstick, moe_inputs, moe_mlp64
+
+    counts, d, f = MOE_CASES[case]
+    glu = act in ("swiglu", "geglu")
+    xc, offsets, w_in, w_gate, w_out = moe_inputs(
+        len(case) * d, counts, d, f, glu=glu, dtype=torch.bfloat16, device=cuda_device)
+    R = int(np.sum(counts))
+    bound = int(np.max(counts))
+    kmoe.moe_launches = 0
+    ref.calls = 0
+    got = kmoe.moe_expert_mlp(xc, offsets, bound, w_in, w_gate, w_out, act)
+    torch.cuda.synchronize()
+    assert (kmoe.moe_launches, ref.calls) == (2, 0) and got.shape == xc.shape
+    assert bool(torch.isfinite(got[:R]).all())  # the NaN rows past the runs were not read
+    plain = ref.moe_expert_mlp_ref(xc, offsets, bound, w_in, w_gate, w_out, act)
+    ok, err_k, err_p, worst = kernel_within_yardstick(
+        got[:R], plain[:R], moe_mlp64(xc, offsets, w_in, w_gate, w_out, act)[:R])
+    assert ok, (err_k, err_p, worst)
+    # a larger static bound only adds blocks that return at once
+    again = kmoe.moe_expert_mlp(xc, offsets, min(4 * bound, xc.shape[0]), w_in, w_gate, w_out,
+                                act)
+    assert torch.equal(again[:R], got[:R])
+
+
+def test_moe_kernel_refuses_bad_inputs_on_card(cuda_device):
+    from repro_torch.kernels import moe as kmoe
+    from _torch_parity import moe_inputs
+
+    xc, offsets, w_in, w_gate, w_out = moe_inputs(3, [[2, 3]], 128, 64, dtype=torch.bfloat16,
+                                                  device=cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kmoe.moe_expert_mlp(xc.float(), offsets, 3, w_in, w_gate, w_out, "swiglu")
+    with pytest.raises(ValueError, match="w_gate"):
+        kmoe.moe_expert_mlp(xc, offsets, 3, w_in, None, w_out, "swiglu")
+    with pytest.raises(ValueError, match="offsets"):
+        kmoe.moe_expert_mlp(xc, offsets.long(), 3, w_in, w_gate, w_out, "swiglu")
+    with pytest.raises(ValueError, match="multiple"):
+        kmoe.moe_expert_mlp(xc[:, :96].contiguous(), offsets, 3, w_in[:, :96].contiguous(),
+                            w_gate[:, :96].contiguous(), w_out[:, :, :96].contiguous(), "swiglu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kmoe.moe_expert_mlp(xc, offsets, 3, w_in.requires_grad_(), w_gate, w_out, "swiglu")
+
+
+def test_moe_decoder_on_card_matches_the_cpu_plain_path(cuda_device):
+    """A reduced deepseek-moe-16b (1 dense and 3 MoE layers) at bf16: the
+    forward, prefill and 4 decode steps on the card through rows 7, 8 and
+    12 against the same weights on the CPU (the plain versions).  The two
+    round apart, so a token whose router logits near-tie may take another
+    expert on each device, which moves its logits far more than rounding:
+    such a token must have had a near-tie (its k-th and (k+1)-th router
+    logits within ``MOE_TIE_GAP`` on the CPU at the first layer where the
+    two choose apart), a pair dropped at the capacity on one device only
+    must follow such a flip, and at most 10 % of the tokens may be either;
+    every other token's logits lie within 0.05 of the scale.  6 row-12 launches a
+    prefill, 6 a decode step, no plain call."""
+    import copy
+    from unittest import mock
+
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.kernels import moe as kmoe
+    from repro_torch.models import ffn as tffn
+    from repro_torch.models.registry import build_model
+
+    cfg = get_reduced("deepseek_moe_16b")
+    k = cfg.moe.top_k
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    params_cpu = build_model(cfg, device=CPU).init(torch.Generator().manual_seed(5),
+                                                   dtype=torch.bfloat16)
+    rng = np.random.default_rng(15)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 70)))
+    real_route = tffn.route
+
+    def run(dev):
+        model = build_model(cfg, device=dev)
+        params = copy.deepcopy(params_cpu).to(dev)
+        routes = []  # per call: each MoE layer's (sorted top-k, their keep, the logit gap)
+
+        def route(probs, moe_cfg, capacity):
+            r = real_route(probs, moe_cfg, capacity)
+            top = torch.sort(probs, dim=-1, descending=True).values.reshape(-1, probs.shape[-1])
+            gap = torch.log(top[:, k - 1]) - torch.log(top[:, k])
+            sets, order = r.topi.reshape(-1, k).sort(-1)
+            keep = torch.gather(r.keep.reshape(-1, k), 1, order)
+            routes[-1].append((sets.cpu(), keep.cpu(), gap.cpu()))
+            return r
+
+        out, counted = {}, []
+        with mock.patch.object(tffn, "route", route):
+            routes.append([])
+            out["forward"] = model.forward(params, tokens.to(dev), {})[0]
+            kmoe.moe_launches = 0
+            ref.calls = 0
+            routes.append([])
+            lp, cache = model.prefill(params, tokens[:, :66].to(dev), {}, pad_cache_to=72)
+            counted.append(kmoe.moe_launches)
+            out["prefill"] = lp
+            for i in range(4):
+                kmoe.moe_launches = 0
+                routes.append([])
+                out[f"decode{i}"], cache = model.decode(params, tokens[:, 66 + i:67 + i].to(dev),
+                                                        cache)
+                counted.append(kmoe.moe_launches)
+        plain = ref.calls
+        return {key: v.float().cpu() for key, v in out.items()}, routes, counted, plain
+
+    with torch.no_grad():
+        card, card_routes, card_counted, card_plain = run(cuda_device)
+        cpu, cpu_routes, _, _ = run(CPU)
+    assert card_counted == [2 * n_moe] * 5 and card_plain == 0
+    scale = float(cpu["forward"].abs().max())
+    flipped = total = 0
+    for (key, got), rc, rp in zip(card.items(), card_routes, cpu_routes):
+        want = cpu[key]
+        n_tok = {"forward": 3 * 70, "prefill": 3 * 66}.get(key, 3)
+        apart = torch.zeros(n_tok, dtype=torch.bool)
+        flips = False
+        for (sets_c, keep_c, _), (sets_p, keep_p, gap_p) in zip(rc, rp):
+            chose = (sets_c[:n_tok] != sets_p[:n_tok]).any(-1)
+            first = chose & ~apart
+            assert bool((gap_p[:n_tok][first] < MOE_TIE_GAP).all()), (key, gap_p[:n_tok][first])
+            flips |= bool(chose.any())
+            # a flip moves the later tokens of its experts' queues: at the
+            # capacity a pair may drop on one device and not on the other
+            dropped = (keep_c[:n_tok] != keep_p[:n_tok]).any(-1) & ~chose
+            assert flips or not bool(dropped.any()), key
+            apart |= chose | dropped
+        if key == "prefill":  # the last prompt position's logits
+            apart = apart.view(3, 66)[:, -1]
+        err = (got - want).abs().amax(-1).reshape(-1) / scale
+        assert bool((err[~apart] < 0.05).all()), (key, float(err[~apart].max()))
+        flipped += int(apart.sum())
+        total += apart.numel()
+    assert flipped <= 0.1 * total, (flipped, total)

@@ -61,5 +61,6 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
             "repro_torch.runtime.compression", "repro_torch.runtime.watchdog",
             "repro_torch.runtime.elastic", "repro_torch.runtime.driver",
             "repro_torch.launch.train", "repro_torch.optim.adamw8bit",
-            "repro_torch.kernels.adamw"} <= set(report["modules"])
+            "repro_torch.kernels.adamw", "repro_torch.kernels.moe",
+            "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.dbrx_132b"} <= set(report["modules"])
     assert report["leaked"] == []
