@@ -2871,13 +2871,15 @@ LM_MOE_TIE_GAP = 0.0625
 # copies of all 28 would take 65.5 GB beside the 32.8 GB of bf16 weights
 LM_MOE_F32_LAYERS = 6
 # row 12 at deepseek's widths beside the phase's own shapes: compact runs
-# of each (group, expert), [n_groups][64] counts
+# of each (expert, group), [n_groups][64] counts
 LM_MOE_AWKWARD = {
     "empty_experts": [[37 if e % 4 == 0 else 0 for e in range(64)]],
     "one_expert_full": [[480 if e == 7 else 0 for e in range(64)]],
     "ragged_tiles": [[(65, 1, 127, 130, 0, 64)[e % 6] for e in range(64)],
                      [(0, 129, 2, 63)[e % 4] for e in range(64)]],
     "b1": [[1 if e in (3, 9, 17, 40, 41, 63) else 0 for e in range(64)]],
+    # the tiles' edges: a narrow tile's 64 rows and 65, a wide tile's 128 and 129
+    "tile_edges": [[(128, 129, 64, 65, 0)[e % 5] for e in range(64)]],
 }
 
 
@@ -2921,13 +2923,13 @@ def _moe_mlp64(xc, offsets, w_in, w_gate, w_out):
     import torch
 
     off = offsets.tolist()
-    E = w_in.shape[0]
+    n = (len(off) - 1) // w_in.shape[0]  # runs in (expert, group) order
     out = torch.zeros((xc.shape[0], w_out.shape[2]), dtype=torch.float64, device=xc.device)
-    for ge in range(len(off) - 1):
-        a, b = off[ge], off[ge + 1]
+    for q in range(len(off) - 1):
+        a, b = off[q], off[q + 1]
         if a == b:
             continue
-        e = ge % E
+        e = q // n
         x = xc[a:b].double()
         g = x @ w_gate[e].double()
         out[a:b] = ((x @ w_in[e].double()) * g * torch.sigmoid(g)) @ w_out[e].double()
@@ -2938,13 +2940,97 @@ def _moe_bound(offsets, E: int, d: int, f: int) -> tuple[float, str, dict]:
     """Row 12's least time: the touched experts' weights (3 d f bf16 each)
     and the rows in and out over the HBM rate, or 6 R d f over the bf16
     tensor-core rate, for these runs."""
-    runs = (offsets[1:] - offsets[:-1]).view(-1, E)
+    runs = (offsets[1:] - offsets[:-1]).view(E, -1)  # [E, n_groups]
     rows = int(offsets[-1])
-    touched = int((runs.sum(0) > 0).sum())
+    touched = int((runs.sum(1) > 0).sum())
     n_bytes = touched * 3 * d * f * 2 + 2 * rows * d * 2
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, 6 * rows * d * f / PEAK_BF16_TC_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
-            {"rows": rows, "touched_experts": touched, "groups": runs.shape[0]})
+            {"rows": rows, "touched_experts": touched, "groups": runs.shape[1]})
+
+
+def _moe_seen(kmoe, E: int, prefill, decode, params, prompts, tok) -> dict:
+    """Row 12's inputs ``(xc, offsets, rows_bound)`` at the first MoE layer
+    of a prefill of ``prompts``, of a decode step at their batch and of one
+    at B = 1 (``tok [B, 1]`` the next tokens), captured by patching
+    ``kernels.moe.moe_expert_mlp``; and the experts each layer touched, by
+    label ``prefill``, ``decode_b8``, ``decode_b1``."""
+    import torch
+
+    real = kmoe.moe_expert_mlp
+    seen: dict = {}
+
+    def recorder(label):
+        def call(xc, offsets, rows_bound, w_in, w_gate, w_out, act):
+            runs = (offsets[1:] - offsets[:-1]).view(E, -1)  # [E, n_groups]
+            seen.setdefault(label, {"touched": [], "first": None})
+            seen[label]["touched"].append((runs > 0).sum(0))
+            if seen[label]["first"] is None:
+                seen[label]["first"] = (xc.clone(), offsets.clone(), rows_bound)
+            return real(xc, offsets, rows_bound, w_in, w_gate, w_out, act)
+        return call
+
+    with mock.patch.object(kmoe, "moe_expert_mlp", recorder("prefill")):
+        _, c8 = prefill(params, prompts, {})
+    with mock.patch.object(kmoe, "moe_expert_mlp", recorder("decode_b8")):
+        decode(params, tok, c8)
+    del c8
+    _, c1 = prefill(params, prompts[:1], {})
+    with mock.patch.object(kmoe, "moe_expert_mlp", recorder("decode_b1")):
+        decode(params, tok[:1], c1)
+    del c1
+    torch.cuda.synchronize()
+    return seen
+
+
+def _row12_times(dev, cfg, layer1, seen) -> dict:
+    """Row 12 at the three shapes ``seen`` holds (:func:`_moe_seen`), with
+    the first MoE layer's weights ``layer1``: the wrapper's ms (CUDA
+    events), its device ms (a CUDA graph), the plain version's ms, JAX's
+    padded form as one ``torch.bmm`` MLP over ``[E, n C, d]`` (C the
+    capacity: 480 at the prefill, the pairs of a decode step), the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe as kmoe
+    from repro_torch.kernels import ref
+
+    E, k, d, f = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model, cfg.moe.d_ff_expert
+    wts = (layer1.w_in, layer1.w_gate, layer1.w_out)
+
+    def padded(xc, offsets, cap):
+        """JAX's capacity-padded expert buffer [E, n * cap, d] of the runs."""
+        n = (offsets.numel() - 1) // E
+        rows = int(offsets[-1])
+        r = torch.arange(rows, device=dev)
+        q = torch.searchsorted(offsets[1:], r.to(torch.int32), right=True)  # (expert, group)
+        xe = torch.zeros((E, n * cap, d), dtype=xc.dtype, device=dev)
+        xe[q // n, (q % n) * cap + (r - offsets[q])] = xc[:rows]
+        return xe
+
+    def library(xe):
+        return torch.bmm(torch.bmm(xe, layer1.w_in) * F.silu(torch.bmm(xe, layer1.w_gate)),
+                         layer1.w_out)
+
+    times = {}
+    caps = {"prefill": max(1, int(cfg.moe.capacity_factor * 4096 * k / E)),
+            "decode_b8": LM_BATCH * k, "decode_b1": k}
+    for label in ("prefill", "decode_b8", "decode_b1"):
+        xc, offsets, bound = seen[label]["first"]
+        reps = 10 if label == "prefill" else 50
+
+        def kernel():
+            return kmoe.moe_expert_mlp(xc, offsets, bound, *wts[:2], wts[2], "swiglu")
+        xe = padded(xc, offsets, caps[label])
+        b_ms, b_by, b_shape = _moe_bound(offsets, E, d, f)
+        times[label] = {
+            "ms": _sync_ms(kernel, reps, dev), "device_ms": _graph_ms(kernel, reps, dev),
+            "plain_ms": _sync_ms(lambda: ref.moe_expert_mlp_ref(xc, offsets, bound, *wts,
+                                                                 "swiglu"), 3, dev),
+            "library_ms": _sync_ms(lambda: library(xe), reps, dev), "bound_ms": b_ms,
+            "bound_by": b_by, "padded_rows": E * xe.shape[1], **b_shape}
+        del xe
+    return times
 
 
 def _lm_moe_serve(dev, seed: int) -> tuple[list, dict]:
@@ -2970,7 +3056,6 @@ def _lm_moe_serve(dev, seed: int) -> tuple[list, dict]:
     import copy
 
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs.registry import get_config
     from repro_torch.data.tokens import ShardedTokenPipeline, TokenPipelineConfig
@@ -3076,27 +3161,7 @@ def _lm_moe_serve(dev, seed: int) -> tuple[list, dict]:
 
     failures = []
     # ---- the phase's row-12 inputs, and the experts each layer touches ---------
-    real = kmoe.moe_expert_mlp
-    seen: dict = {}
-
-    def recorder(label):
-        def call(xc, offsets, rows_bound, w_in, w_gate, w_out, act):
-            runs = (offsets[1:] - offsets[:-1]).view(-1, E)
-            seen.setdefault(label, {"touched": [], "first": None})
-            seen[label]["touched"].append((runs > 0).sum(-1))
-            if seen[label]["first"] is None:
-                seen[label]["first"] = (xc.clone(), offsets.clone(), rows_bound)
-            return real(xc, offsets, rows_bound, w_in, w_gate, w_out, act)
-        return call
-
-    with mock.patch.object(kmoe, "moe_expert_mlp", recorder("prefill")):
-        _, c8 = prefill(params, prompts, {})
-    with mock.patch.object(kmoe, "moe_expert_mlp", recorder("decode_b8")):
-        decode(params, gen[:, :1], c8)
-    _, c1 = prefill(params, prompts[:1], {})
-    with mock.patch.object(kmoe, "moe_expert_mlp", recorder("decode_b1")):
-        decode(params, gen[:1, :1], c1)
-    del c8, c1
+    seen = _moe_seen(kmoe, E, prefill, decode, params, prompts, gen[:, :1])
     touched = {label: torch.stack(v["touched"]).tolist() for label, v in seen.items()}
 
     # ---- check 1: row 12 against its plain version and float64 -----------------
@@ -3118,12 +3183,12 @@ def _lm_moe_serve(dev, seed: int) -> tuple[list, dict]:
     for label in ("prefill", "decode_b8", "decode_b1"):
         check(label, *seen[label]["first"])
     for name, runs in LM_MOE_AWKWARD.items():
-        c = torch.tensor(runs, dtype=torch.int64).reshape(-1)
+        c = torch.tensor(runs, dtype=torch.int64).t().reshape(-1)  # (expert, group) order
         offsets = torch.zeros(c.numel() + 1, dtype=torch.int32)
         offsets[1:] = torch.cumsum(c, 0)
         rows = int(offsets[-1])
         xc = torch.randn((rows + 3, d), generator=gen_rng, device=dev).to(torch.bfloat16)
-        xc[rows:] = float("nan")  # past the runs: never read
+        xc[rows:] = float("nan")  # past the runs: may be read, never stored
         check(name, xc, offsets.to(dev), int(c.max()))
     _log("lm_moe_serve_kernels", row12=row12, touched_experts=touched)
 
@@ -3259,38 +3324,7 @@ def _lm_moe_serve(dev, seed: int) -> tuple[list, dict]:
                         f"> {LM_E2E_FACTOR} x the plain path's {max(p32)}")
 
     # ---- row 12's times at the phase's shapes ----------------------------------
-    def padded(xc, offsets, cap):
-        """JAX's capacity-padded expert buffer [E, n * cap, d] of the runs."""
-        n = (offsets.numel() - 1) // E
-        rows = int(offsets[-1])
-        r = torch.arange(rows, device=dev)
-        ge = torch.searchsorted(offsets[1:], r.to(torch.int32), right=True)
-        xe = torch.zeros((E, n * cap, d), dtype=xc.dtype, device=dev)
-        xe[ge % E, (ge // E) * cap + (r - offsets[ge])] = xc[:rows]
-        return xe
-
-    def library(xe):
-        return torch.bmm(torch.bmm(xe, layer1.w_in) * F.silu(torch.bmm(xe, layer1.w_gate)),
-                         layer1.w_out)
-
-    times = {}
-    caps = {"prefill": max(1, int(cfg.moe.capacity_factor * 4096 * k / E)),
-            "decode_b8": LM_BATCH * k, "decode_b1": k}
-    for label in ("prefill", "decode_b8", "decode_b1"):
-        xc, offsets, bound = seen[label]["first"]
-        reps = 10 if label == "prefill" else 50
-
-        def kernel():
-            return kmoe.moe_expert_mlp(xc, offsets, bound, *wts[:2], wts[2], "swiglu")
-        xe = padded(xc, offsets, caps[label])
-        b_ms, b_by, b_shape = _moe_bound(offsets, E, d, f)
-        times[label] = {
-            "ms": _sync_ms(kernel, reps, dev), "device_ms": _graph_ms(kernel, reps, dev),
-            "plain_ms": _sync_ms(lambda: ref.moe_expert_mlp_ref(xc, offsets, bound, *wts,
-                                                                 "swiglu"), 3, dev),
-            "library_ms": _sync_ms(lambda: library(xe), reps, dev), "bound_ms": b_ms,
-            "bound_by": b_by, "padded_rows": E * xe.shape[1], **b_shape}
-        del xe
+    times = _row12_times(dev, cfg, layer1, seen)
     _log("lm_moe_serve_times", row12=times)
 
     # ---- decode at B = 1, and profiled windows by kind -------------------------
@@ -3349,6 +3383,37 @@ def _lm_moe_serve(dev, seed: int) -> tuple[list, dict]:
     launches = {"flash_fwd": prefill_counted["flash_fwd"],
                 "decode_attn": decode_counted["decode_attn"]}
     return [rec], launches
+
+
+def _lm_moe_row12(dev, seed: int) -> dict:
+    """Row 12 alone at ``lm_moe_serve``'s three shapes (``--row12-times``):
+    deepseek-moe-16b built and initialised as that phase does, one prefill
+    of its prompts, then the first MoE layer's inputs captured by
+    :func:`_moe_seen` and timed by :func:`_row12_times`.  Run once from
+    each of two checkouts in one call, it compares two trees' row 12 on
+    one card."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import ShardedTokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import moe as kmoe
+    from repro_torch.models.common import Policy
+    from repro_torch.models.registry import build_model
+    from repro_torch.steps.train import make_decode_step, make_prefill_step
+
+    cfg = get_config(LM_MOE_ARCH)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(dev).manual_seed(seed), dtype=Policy.compute_dtype)
+    pipe = ShardedTokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=LM_PROMPT, global_batch=LM_BATCH, seed=seed))
+    prompts = torch.from_numpy(pipe.batch_at(0)["tokens"]).long().to(dev)
+    prefill = make_prefill_step(model, pad_cache_to=LM_PROMPT + LM_DECODE)
+    decode = make_decode_step(model)
+    logits, _ = prefill(params, prompts, {})
+    tok = logits.argmax(dim=-1, keepdim=True)
+    del logits
+    seen = _moe_seen(kmoe, cfg.moe.n_experts, prefill, decode, params, prompts, tok)
+    return _row12_times(dev, cfg, params.groups[1]["p0"][0].moe, seen)
 
 
 # ---- the LM substrate's training step (lm_train) -----------------------------
@@ -4231,6 +4296,9 @@ def _lm_driver(dev, seed: int) -> tuple[list, dict]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of the generated data")
+    ap.add_argument("--row12-times", action="store_true",
+                    help="only time row 12 at lm_moe_serve's shapes with this checkout's "
+                         "src (one JSON line); no smoke run and no ok line")
     args = ap.parse_args(argv)
 
     # lm_driver runs under torch.use_deterministic_algorithms(True), which
@@ -4251,6 +4319,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    if args.row12_times:
+        from repro_torch.kernels import build
+
+        build.build(("moe",))
+        _log("lm_moe_row12_times", src=str(ROOT / "src"), card=card,
+             row12=_lm_moe_row12(dev, args.seed))
+        return 0
     records = run(dev, card, n_points=N_POINTS, n_facilities=N_FACILITIES, q_n=Q,
                   mono_points=MONO_POINTS, seed=args.seed)
     print(json.dumps({"kernels": [

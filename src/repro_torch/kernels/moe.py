@@ -2,18 +2,24 @@
 
 :func:`moe_expert_mlp` replaces the jnp ``_expert_mlp`` of
 ``repro/models/ffn.py`` ``moe_ffn`` (not a Pallas site).  Its rows are the
-kept (token, choice) pairs laid out by (group, expert, position):
-``xc [R, d]``, each (group, expert)'s run from ``offsets[g*E + e]`` to
-``offsets[g*E + e + 1]`` (``offsets [n_groups*E + 1]`` int32 on the
-device, at most ``rows_bound`` rows a run).  Rows past the last run are
-neither read nor written.  A CPU tensor runs the plain version
-(:func:`repro_torch.kernels.ref.moe_expert_mlp_ref`); a CUDA tensor
-launches the two kernels (gate/up with the activation, then down) on the
-current stream or raises: a failed build or launch is never caught.  The
-kernels take contiguous bf16 rows and weights, 16-byte aligned, ``d`` a
-multiple of 128 and ``f`` of 64; anything else on the card raises
-``ValueError``.  Nothing is read back to the host: the grid is sized from
-``rows_bound``, and a block whose tile lies past its run returns at once.
+kept (token, choice) pairs laid out by (expert, group, position):
+``xc [R, d]``, each (expert, group)'s run from ``offsets[e*n + g]`` to
+``offsets[e*n + g + 1]`` (``offsets [E*n + 1]`` int32 on the device, at
+most ``rows_bound`` rows a run), so each expert's rows from every group
+are one stretch.  Rows past an expert's stretch may be read (a row tile
+is one TMA box) but are never written.  A CPU tensor runs the plain
+version (:func:`repro_torch.kernels.ref.moe_expert_mlp_ref`); a CUDA
+tensor launches the two kernels (gate/up with the activation, then down)
+on the current stream or raises: a failed build or launch is never
+caught.  The kernels take contiguous bf16 rows and weights, 16-byte
+aligned, ``d`` and ``f`` multiples of 64, and at most ``MOE_MAX_EXPERTS``
+experts; anything else on the card raises ``ValueError``.  Nothing is read
+back to the host: the persistent grid is sized from the SMs and
+``rows_bound``, and each block walks only the row tiles the experts hold,
+so an empty expert loads no weight.  The geometry follows ``rows_bound``
+alone (wide tiles above ``MOE_NARROW_MAX_BOUND``, narrow ones at decode);
+every output element is one f32 sum over k in the same order in both, with
+no atomics, so a call gives the same result every time.
 
 On the card no input may require grad: the backward of row 12 (MoE
 training) is ROADMAP queue 1, LM item 7, and nothing falls back to the
@@ -22,6 +28,7 @@ plain version.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -30,7 +37,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["moe_expert_mlp", "moe_expert_mlp_kernel_call", "moe_launches", "MOE_ACTS",
-           "MOE_ROW_TILE", "MOE_UP_COLS", "MOE_DOWN_COLS", "MOE_DEPTH"]
+           "MOE_GEOMETRY", "MOE_DEPTH", "MOE_NARROW_MAX_BOUND", "MOE_MAX_EXPERTS"]
 
 #: Launches of the two kernels since the last reset to 0 (one per launch,
 #: nowhere else: two a call).
@@ -38,13 +45,17 @@ moe_launches = 0
 
 #: The activations and their codes in the kernel (``csrc/moe.cu`` ``Act``).
 MOE_ACTS = {"swiglu": 0, "geglu": 1, "gelu": 2, "relu2": 3}
-#: The kernels' tiles (``kRows``, ``kUpCols``, ``kDownCols``, ``kDepth``),
-#: checked against the library's own when it is loaded: rows of a block,
-#: columns of the gate/up and of the down kernel, depth of a stage.
-MOE_ROW_TILE = 64
-MOE_UP_COLS = 64
-MOE_DOWN_COLS = 128
-MOE_DEPTH = 32
+#: The kernels' geometry (``csrc/moe.cu`` ``moe_geometry``), checked
+#: against the library's own when it is loaded: rows of a wide and of a
+#: narrow tile, columns (of each weight) of a wide gate/up and down item and
+#: of a narrow one, the depth of a stage, the largest bound that runs
+#: narrow, the most experts.
+MOE_GEOMETRY = {"wide_rows": 128, "narrow_rows": 64, "wide_up_cols": 128, "wide_down_cols": 256,
+                "narrow_up_cols": 64, "narrow_down_cols": 128, "depth": 64,
+                "narrow_max_bound": 64, "max_experts": 8192}
+MOE_DEPTH = MOE_GEOMETRY["depth"]
+MOE_NARROW_MAX_BOUND = MOE_GEOMETRY["narrow_max_bound"]
+MOE_MAX_EXPERTS = MOE_GEOMETRY["max_experts"]
 
 _LIB: ctypes.CDLL | None = None
 
@@ -53,20 +64,19 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = build.load("moe")
-        lib.moe_up.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.moe_up.restype = ctypes.c_int
-        lib.moe_down.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.moe_down.restype = ctypes.c_int
-        lib.moe_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.moe_mlp.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                                + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        lib.moe_mlp.restype = ctypes.c_int
+        lib.moe_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.moe_geometry.restype = None
         lib.moe_error_string.argtypes = [ctypes.c_int]
         lib.moe_error_string.restype = ctypes.c_char_p
-        got = [ctypes.c_int(0) for _ in range(4)]
-        lib.moe_geometry(*(ctypes.byref(c) for c in got))
-        want = (MOE_ROW_TILE, MOE_UP_COLS, MOE_DOWN_COLS, MOE_DEPTH)
-        if tuple(c.value for c in got) != want:
-            raise RuntimeError(f"the MoE kernels' tiles are {tuple(c.value for c in got)}; "
-                               f"the wrapper checks shapes against {want}")
+        got = (ctypes.c_int * len(MOE_GEOMETRY))()
+        lib.moe_geometry(got)
+        want = tuple(MOE_GEOMETRY.values())
+        if tuple(got) != want:
+            raise RuntimeError(f"the MoE kernels' geometry is {tuple(got)}; the wrapper "
+                               f"checks shapes against {want} ({', '.join(MOE_GEOMETRY)})")
         _LIB = lib
     return _LIB
 
@@ -74,7 +84,7 @@ def _lib() -> ctypes.CDLL:
 def moe_expert_mlp(xc: torch.Tensor, offsets: torch.Tensor, rows_bound: int,
                    w_in: torch.Tensor, w_gate: torch.Tensor | None, w_out: torch.Tensor,
                    act: str) -> torch.Tensor:
-    """Each (group, expert)'s rows of ``xc [R, d]`` through expert ``e``'s
+    """Each (expert, group)'s rows of ``xc [R, d]`` through expert ``e``'s
     MLP (``w_in``/``w_gate [E, d, f]``, ``w_out [E, f, d]``; ``w_gate``
     None for ``gelu``/``relu2``) -> ``[R, d]`` in ``xc``'s dtype.  On the
     CPU the plain version."""
@@ -119,31 +129,35 @@ def moe_expert_mlp_kernel_call(xc, offsets, rows_bound: int, w_in, w_gate, w_out
             or (glu and w_gate.shape != w_in.shape)):
         raise ValueError(f"the weights must be [{E}, {d}, f] and [{E}, f, {d}], got "
                          f"{ {n: tuple(t.shape) for n, t in weights.items()} }")
-    if d % MOE_DOWN_COLS or f % MOE_UP_COLS:
-        raise ValueError(f"the MoE kernels take d a multiple of {MOE_DOWN_COLS} and f of "
-                         f"{MOE_UP_COLS}, got d={d}, f={f}")
+    if d % MOE_DEPTH or f % MOE_DEPTH:
+        raise ValueError(f"the MoE kernels take d and f multiples of {MOE_DEPTH}, got d={d}, "
+                         f"f={f}")
     n_runs = offsets.numel() - 1
     if (offsets.device != dev or offsets.dtype != torch.int32 or offsets.ndim != 1
             or not offsets.is_contiguous() or n_runs < 1 or n_runs % E):
-        raise ValueError(f"offsets must be contiguous int32 [n_groups * {E} + 1] on {dev}")
+        raise ValueError(f"offsets must be contiguous int32 [{E} * n_groups + 1] on {dev}")
+    if E > MOE_MAX_EXPERTS:
+        raise ValueError(f"the MoE kernels take at most {MOE_MAX_EXPERTS} experts, got {E}")
     if not 0 <= rows_bound <= R:
         raise ValueError(f"rows_bound {rows_bound} outside [0, {R}]")
-    y = torch.empty((R, d), dtype=torch.bfloat16, device=dev)
+    y = xc.new_empty((R, d))
     if R == 0 or rows_bound == 0:
         return y
-    h = torch.empty((R, f), dtype=torch.bfloat16, device=dev)
+    h = xc.new_empty((R, f))
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.moe_up(xc.data_ptr(), offsets.data_ptr(), w_in.data_ptr(),
-                        w_gate.data_ptr() if glu else None, h.data_ptr(), d, f, E, n_runs // E,
-                        rows_bound, MOE_ACTS[act], stream)
-        if rc != 0:
-            raise RuntimeError(f"moe_up launch failed: {lib.moe_error_string(rc).decode()}")
-        moe_launches += 1
-        rc = lib.moe_down(h.data_ptr(), offsets.data_ptr(), w_out.data_ptr(), y.data_ptr(), f,
-                          d, E, n_runs // E, rows_bound, stream)
-        if rc != 0:
-            raise RuntimeError(f"moe_down launch failed: {lib.moe_error_string(rc).decode()}")
-        moe_launches += 1
+    # the raw handle of the current stream, without building a Stream object
+    # (a few microseconds a call: decode is bound by the host's launches)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    launched = ctypes.c_int(0)
+    same = torch.cuda.current_device() == dev.index
+    with contextlib.nullcontext() if same else torch.cuda.device(dev):
+        # one call launches both kernels (gate/up, then down)
+        rc = lib.moe_mlp(xc.data_ptr(), offsets.data_ptr(), w_in.data_ptr(),
+                         w_gate.data_ptr() if glu else None, w_out.data_ptr(), h.data_ptr(),
+                         y.data_ptr(), R, d, f, E, n_runs // E, rows_bound, MOE_ACTS[act],
+                         stream, ctypes.byref(launched))
+    moe_launches += launched.value
+    if rc != 0:
+        step = ("moe_up", "moe_down")[launched.value]
+        raise RuntimeError(f"{step} launch failed: {lib.moe_error_string(rc).decode()}")
     return y

@@ -574,8 +574,8 @@ def _moe_act(act: str, h, g):
 
 
 def moe_expert_mlp_ref(xc, offsets, rows_bound: int, w_in, w_gate, w_out, act: str):
-    """Row 12's plain version: ``xc [R, d]`` holds each (group, expert)'s
-    rows at ``offsets[g*E + e] : offsets[g*E + e + 1]`` (``offsets [n*E +
+    """Row 12's plain version: ``xc [R, d]`` holds each (expert, group)'s
+    rows at ``offsets[e*n + g] : offsets[e*n + g + 1]`` (``offsets [E*n +
     1]`` int32, at most ``rows_bound`` rows a pair); each run goes through
     expert ``e``'s MLP (``w_in``/``w_gate [E, d, f]``, ``w_out [E, f, d]``;
     ``w_gate`` None for ``gelu``/``relu2``).  Returns ``[R, d]`` in
@@ -583,15 +583,16 @@ def moe_expert_mlp_ref(xc, offsets, rows_bound: int, w_in, w_gate, w_out, act: s
     _count()
     E = w_in.shape[0]
     off = offsets.tolist()
+    n = (len(off) - 1) // E
     y = torch.zeros((xc.shape[0], w_out.shape[2]), dtype=xc.dtype, device=xc.device)
-    for ge in range(len(off) - 1):
-        a, b = off[ge], off[ge + 1]
+    for q in range(len(off) - 1):
+        a, b = off[q], off[q + 1]
         if a == b:
             continue
+        e, g = divmod(q, n)
         if b - a > rows_bound:
-            raise ValueError(f"(group, expert) {divmod(ge, E)} holds {b - a} rows, "
+            raise ValueError(f"(group, expert) {(g, e)} holds {b - a} rows, "
                              f"more than the bound {rows_bound}")
-        e = ge % E
         xe = xc[a:b]
         h = xe @ w_in[e]
         h = _moe_act(act, h, None if w_gate is None else xe @ w_gate[e])

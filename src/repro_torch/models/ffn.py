@@ -14,9 +14,10 @@ lower expert first on ties, as ``jax.lax.top_k``), ``router_norm_topk``,
 each (token, choice) pair's position in its expert's queue by a cumsum in
 (token, choice) order, and ``keep`` where the position is under the
 capacity.  Instead of JAX's ``[n, g, E, C]`` one-hot dispatch or its
-capacity-padded gather, the kept pairs are laid out compactly in (group,
-expert, position) order (a stable sort of their expert ids, on the
-device: nothing is read back to the host), and
+capacity-padded gather, the kept pairs are laid out compactly in (expert,
+group, position) order (a stable sort of their expert ids, on the
+device: nothing is read back to the host), so each expert's rows from
+every group are one stretch, and
 :func:`repro_torch.kernels.moe.moe_expert_mlp` (row 12) runs each
 expert's MLP over its rows only, so an expert that no token picked costs
 nothing.  The combine gathers each pair's row back and sums the choices
@@ -166,19 +167,20 @@ def _dispatch_rows(r: Routing, capacity: int):
     """The compact layout of the kept pairs: ``(perm, offsets, row)``.
 
     ``perm [n*g*k]`` lists the pairs (flattened (group, token, choice)
-    order) with the kept ones first, in (group, expert, position) order;
-    ``offsets [n*E + 1]`` int32 is where each (group, expert)'s rows start;
-    ``row [n, g, k]`` is each kept pair's row (meaningless for a dropped
-    one).  All on the device, with shapes known on the host."""
+    order) with the kept ones first, in (expert, group, position) order;
+    ``offsets [E*n + 1]`` int32 is where each (expert, group)'s rows start,
+    at ``offsets[e*n + g]``; ``row [n, g, k]`` is each kept pair's row
+    (meaningless for a dropped one).  All on the device, with shapes known
+    on the host."""
     n, g, k = r.topi.shape
     E = r.counts.shape[1]
-    ge = torch.arange(n, device=r.topi.device)[:, None, None] * E + r.topi  # [n, g, k]
-    key = torch.where(r.keep, ge, n * E).reshape(-1)
+    eg = r.topi * n + torch.arange(n, device=r.topi.device)[:, None, None]  # [n, g, k]
+    key = torch.where(r.keep, eg, n * E).reshape(-1)
     perm = torch.argsort(key, stable=True)
-    kept = torch.clamp_max(r.counts, capacity).reshape(-1)
+    kept = torch.clamp_max(r.counts, capacity).t().reshape(-1)  # expert-major
     offsets = torch.zeros(n * E + 1, dtype=torch.int32, device=kept.device)
     offsets[1:] = torch.cumsum(kept, 0, dtype=torch.int32)
-    row = offsets[ge] + r.pos
+    row = offsets[eg] + r.pos
     return perm, offsets, row
 
 
@@ -208,7 +210,7 @@ def moe_ffn(params: MoEFFN, x: torch.Tensor, cfg: MoECfg, act: str, group_size: 
     k = cfg.top_k
     perm, offsets, row = _dispatch_rows(r, capacity)
     tok = torch.arange(n_groups * gs, device=x.device).repeat_interleave(k)  # pair -> token
-    xc = xf[tok[perm]]  # [n*g*k, d]: the kept pairs' rows first, by (group, expert, position)
+    xc = xf[tok[perm]]  # [n*g*k, d]: the kept pairs' rows first, by (expert, group, position)
     w_gate = None if params.w_gate is None else params.w_gate.to(x.dtype)
     yc = kmoe.moe_expert_mlp(xc, offsets, min(capacity, gs), params.w_in.to(x.dtype),
                              w_gate, params.w_out.to(x.dtype), act)

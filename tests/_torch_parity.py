@@ -376,9 +376,9 @@ def kernel_within_yardstick(kernel, plain, want64, floor=0.0):
 # ---- the MoE FFN's routed experts (row 12) -------------------------------------
 
 def moe_offsets(counts, device=CPU):
-    """``offsets [n*E + 1]`` int32 of compact runs of ``counts [n, E]`` rows,
-    laid out in (group, expert) order."""
-    c = np.asarray(counts, np.int64).reshape(-1)
+    """``offsets [E*n + 1]`` int32 of compact runs of ``counts [n, E]`` rows,
+    laid out in (expert, group) order."""
+    c = np.asarray(counts, np.int64).T.reshape(-1)
     return torch.from_numpy(np.concatenate([[0], np.cumsum(c)]).astype(np.int32)).to(device)
 
 
@@ -386,7 +386,8 @@ def moe_inputs(seed, counts, d, f, glu=True, tail=3, dtype=torch.float32, device
     """Compact rows ``xc [sum(counts) + tail, d]``, their ``offsets`` and
     an expert's ``w_in``/``w_gate [E, d, f]``, ``w_out [E, f, d]`` (N(0, 1)
     rows, fan-in scaled weights), made with numpy from ``seed``; the
-    ``tail`` rows past the last run hold NaN, which no run may read."""
+    ``tail`` rows past the last run hold NaN, which no output row may show
+    (the kernels may load them with a tile, and never store them)."""
     rng = np.random.default_rng(seed)
     counts = np.asarray(counts)
     E = counts.shape[1]
@@ -417,13 +418,13 @@ def moe_mlp64(xc, offsets, w_in, w_gate, w_out, act):
     """Float64 expert MLP over each compact run (no rounding anywhere):
     row 12's yardstick, ``[R, d]`` float64, zero past the last run."""
     off = offsets.tolist()
-    E = w_in.shape[0]
+    n = (len(off) - 1) // w_in.shape[0]
     out = torch.zeros((xc.shape[0], w_out.shape[2]), dtype=torch.float64, device=xc.device)
-    for ge in range(len(off) - 1):
-        a, b = off[ge], off[ge + 1]
+    for q in range(len(off) - 1):
+        a, b = off[q], off[q + 1]
         if a == b:
             continue
-        e = ge % E
+        e = q // n
         x = xc[a:b].double()
         h = x @ w_in[e].double()
         g = None if w_gate is None else x @ w_gate[e].double()

@@ -1412,15 +1412,29 @@ def test_adamw_kernels_in_the_optimizers_on_card(cuda_device, monkeypatch):
 #: card and the CPU may choose apart.
 MOE_TIE_GAP = 0.02
 
-# (counts [n_groups, E] of compact rows, d, f): empty experts; one expert
-# holding all C = 480 rows; runs that are no multiple of the 64-row tile;
-# B = 1 decode (6 experts of 64 with one row each); deepseek's widths
+# (counts [n_groups, E] of compact rows, laid out by (expert, group); d, f):
+# empty experts; one expert holding all C = 480 rows; runs that are no
+# multiple of a tile; B = 1 decode (6 experts of 64 with one row each) and
+# B = 8 at deepseek's widths; the tiles' boundaries: the largest bound that
+# runs narrow (64, one narrow tile, its columns no multiple of a wide
+# item's) and the smallest that runs wide (65), an expert of exactly one
+# wide tile (128 rows) and one row more, in one group and across groups
+# (a tile takes an expert's rows of every group), the widest runs (480) at
+# deepseek's widths; B = 1 at dbrx-132b's widths (d 6144, f 10752: the
+# deepest streams of a narrow item, 96 and 168 stages)
 MOE_CASES = {
     "empty_experts": ([[3, 0, 70, 0, 1], [0, 0, 2, 129, 0]], 128, 64),
     "one_expert_full": ([[0] * 7 + [480] + [0] * 8], 256, 128),
     "ragged_tiles": ([[65, 1, 130, 63], [64, 0, 127, 2]], 128, 192),
     "b1_decode": ([[1 if e in (3, 9, 17, 40, 41, 63) else 0 for e in range(64)]], 2048, 1408),
     "b8_decode": ([[(e * 7) % 3 for e in range(64)]], 2048, 1408),
+    "narrow_full_tile": ([[64, 3, 0, 64]], 128, 192),
+    "wide_smallest_bound": ([[65, 1, 0, 2]], 128, 192),
+    "one_wide_tile": ([[128, 0, 3], [0, 128, 0]], 256, 128),
+    "one_wide_tile_plus_one": ([[129, 2, 0], [0, 0, 129]], 256, 128),
+    "wide_tile_across_groups": ([[100, 64, 1], [28, 65, 0]], 128, 192),
+    "widest_runs": ([[480, 0, 480, 17]], 2048, 1408),
+    "b1_dbrx_widths": ([[1, 1]], 6144, 10752),
 }
 
 
@@ -1441,15 +1455,40 @@ def test_moe_kernel_matches_plain_and_float64_on_card(cuda_device, case, act):
     got = kmoe.moe_expert_mlp(xc, offsets, bound, w_in, w_gate, w_out, act)
     torch.cuda.synchronize()
     assert (kmoe.moe_launches, ref.calls) == (2, 0) and got.shape == xc.shape
-    assert bool(torch.isfinite(got[:R]).all())  # the NaN rows past the runs were not read
+    # the NaN rows past the runs may be read by a tile of the last run, never stored
+    assert bool(torch.isfinite(got[:R]).all())
     plain = ref.moe_expert_mlp_ref(xc, offsets, bound, w_in, w_gate, w_out, act)
     ok, err_k, err_p, worst = kernel_within_yardstick(
         got[:R], plain[:R], moe_mlp64(xc, offsets, w_in, w_gate, w_out, act)[:R])
     assert ok, (err_k, err_p, worst)
-    # a larger static bound only adds blocks that return at once
+    # a larger static bound only adds blocks, or takes the other geometry
+    # (a bound of 64 runs narrow, 256 wide): the same sums in the same order
     again = kmoe.moe_expert_mlp(xc, offsets, min(4 * bound, xc.shape[0]), w_in, w_gate, w_out,
                                 act)
     assert torch.equal(again[:R], got[:R])
+
+
+@pytest.mark.parametrize("case", ["b8_decode", "narrow_full_tile", "ragged_tiles"])
+def test_moe_kernel_is_deterministic_on_card(cuda_device, case):
+    """Two calls on the same inputs give the same bits (no atomics; the
+    walk and every sum's order are fixed by the offsets), and a bound that
+    runs narrow gives the bits of one that runs wide."""
+    from repro_torch.kernels import moe as kmoe
+    from _torch_parity import moe_inputs
+
+    counts, d, f = MOE_CASES[case]
+    xc, offsets, w_in, w_gate, w_out = moe_inputs(
+        17 + len(case), counts, d, f, dtype=torch.bfloat16, device=cuda_device)
+    R = int(np.sum(counts))
+    bound = int(np.max(counts))
+
+    def call(rows_bound):
+        return kmoe.moe_expert_mlp(xc, offsets, rows_bound, w_in, w_gate, w_out, "swiglu")[:R]
+
+    first = call(bound)
+    assert torch.equal(call(bound), first)
+    if bound <= kmoe.MOE_NARROW_MAX_BOUND:
+        assert torch.equal(call(kmoe.MOE_NARROW_MAX_BOUND + 1), first)
 
 
 def test_moe_kernel_refuses_bad_inputs_on_card(cuda_device):

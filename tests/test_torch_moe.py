@@ -321,7 +321,7 @@ def _padded64(xc, offsets, counts, C, w_in, w_gate, w_out, act):
     xe = torch.zeros((n, E, C, d), dtype=torch.float64)
     for gi in range(n):
         for e in range(E):
-            a, b = off[gi * E + e], off[gi * E + e + 1]
+            a, b = off[e * n + gi], off[e * n + gi + 1]
             xe[gi, e, :b - a] = xc[a:b].double()
     h = torch.einsum("necd,edf->necf", xe, w_in.double())
     if w_gate is not None:
@@ -338,7 +338,7 @@ def _padded64(xc, offsets, counts, C, w_in, w_gate, w_out, act):
     out = torch.zeros((xc.shape[0], d), dtype=torch.float64)
     for gi in range(n):
         for e in range(E):
-            a, b = off[gi * E + e], off[gi * E + e + 1]
+            a, b = off[e * n + gi], off[e * n + gi + 1]
             out[a:b] = ye[gi, e, :b - a]
     return out
 
