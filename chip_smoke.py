@@ -17,13 +17,13 @@ read just after:
   ones;
 * ``grid_nonpruned`` — a second engine without pruning (``strategy=
   "none"``, one occluder per competitor: the regime the grid index is
-  for) on the same Q = 64 batch, ``grid-pallas`` and ``dense`` both
-  against the oracle;
+  for) on the first ``NONPRUNED_Q`` = 32 queries of the main batch,
+  ``grid-pallas`` and ``dense`` both against the oracle;
 * ``bvh_path`` — the main path's engine and batch through ``bvh`` (the
   paper's LBVH walk, the CUDA stack-traversal kernel with an early exit
   at k; ``query`` and ``query_mono`` too), its masks equal to the dense
   ones and its counts to ``min(dense, k)`` off edge ties;
-* ``bvh_nonpruned`` — the ``grid_nonpruned`` engine's 64 scenes (999
+* ``bvh_nonpruned`` — the ``grid_nonpruned`` engine's 32 scenes (999
   triangles each), reused, through ``bvh``, with the same checks;
 * ``scenarios`` — each of the paper's regimes
   (``repro_torch.workloads.SCENARIOS``, at most 60,000 users) through
@@ -41,7 +41,7 @@ read just after:
   oracle, every dispatched backend's kernel launched, no plain call;
 * ``dynamic`` — the dynamic-data subsystem (``repro_torch.dynamic``): one
   ``DynamicEngine`` on the CAL users and the facilities plus four corners
-  takes the bench's four update streams, 2 steps each; every version's
+  takes the bench's four update streams, 1 step each; every version's
   batch through its backends' kernels, bit-identical to a cold engine and
   held against the rank kernel; the user scatter on the card; two
   continuous queries against the rank kernel and a cold recount (see
@@ -86,6 +86,17 @@ read just after:
   float32 path; row 12's times beside the padded ``torch.bmm`` MLP, the
   experts each layer touches, and profiled prefill and decode windows
   (see :func:`_lm_moe_serve`);
+* ``lm_hybrid_serve`` — the hybrid family's serving path: recurrentgemma-9b
+  at the published widths and full depth (26 RG-LRU and 12 local-attention
+  layers, window 2,048), bf16 weights from the port's ``init``, 8 prompts
+  of 4,096 tokens through ``make_prefill_step`` without padding (12 launches
+  of row 13, the flash kernel with a window, and 26 of row 14, the RG-LRU
+  recurrence) and 64 greedy decode steps (12 row-8 and 26 row-14 launches
+  a step), then decode at B = 1; rows 13 and 14 held against their plain
+  versions and float64 at the phase's inputs and awkward ones, the forward
+  against prefill and decode, the kernel path against two plain paths and
+  a float32 path, rows 13 and 14's times beside SDPA with a band mask, and
+  profiled prefill and decode windows (see :func:`_lm_hybrid_serve`);
 * ``lm_train`` — the LM substrate's training step: starcoder2-3b at the
   published widths and full depth, float32 master parameters from the
   port's ``init``, bf16 compute with per-layer remat, 4 AdamW steps of
@@ -137,13 +148,13 @@ at its sub-tile of 256 users, with the user tests the TEST pairs need),
 and the kernel's device time alone (a CUDA graph of launches, without the
 wrapper's host work) at the wrapper's cut of the facilities into splits.
 The BVH kernel (one walk per warp for a span of 128 users, 4 a lane) is
-held against its plain version (one walk per user) over all 64 queries
-at both shapes and at Q = 1, its counts bit for bit and, from its
+held against its plain version (one walk per user) over all the queries
+of both paths (64 and 32) and at Q = 1, its counts bit for bit and, from its
 counting instance, each user's pops (internal nodes and leaves) equal;
 the ``bvh_tiles`` line logs the nodes each user popped (mean, 99th
 percentile, most), the share of users that stopped at k, the lane
 efficiency, the nodes the warps took against their busiest users' pops,
-and the host time of the 64 BVH builds and of their stacking.
+and the host time of the BVH builds and of their stacking.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -176,6 +187,12 @@ N_FACILITIES = 1_000  # the paper's default |F|
 K = 10
 Q = 64
 STREAM_BATCHES = 4
+# queries of the non-pruned paths (999 triangles a scene): the first 32 of
+# the main batch (64 before the hybrid serving phase needed the time)
+NONPRUNED_Q = 32
+# the planner's calibration on the card keeps the best of this many runs
+# of each shape (2 before the hybrid serving phase needed the time)
+PLANNER_REPEATS = 1
 MONO_POINTS = 20_000
 TIE_EPS = 1e-6  # the JAX package's near-tie rule (tests/test_kernels.py)
 RANK_CHECK_QUERIES = 8  # rank kernel against its plain version
@@ -881,7 +898,8 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     # ---- grid, non-pruned: one occluder per competitor ------------------
     eng_np = RkNNEngine(F, U, RkNNConfig(backend="grid-pallas", strategy="none", grid_g=GRID_G),
                         device=dev)
-    qs_np = qs
+    qs_np = qs[:NONPRUNED_Q]
+    oracle_np = oracle[:NONPRUNED_Q]
     eng_np.xs  # noqa: B018 — upload the users before the counted window
     grid_raycast.batch_launches = grid_raycast.single_launches = raycast.batch_launches = 0
     ref.calls = 0
@@ -895,7 +913,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     np_plain = ref.calls
     np_wrong = {"grid-pallas": 0, "dense": 0}
     np_near = 0
-    for i, (want, ties) in enumerate(oracle):
+    for i, (want, ties) in enumerate(oracle_np):
         np_near += int(ties.sum())
         for name, r in (("grid-pallas", np_grid), ("dense", np_dense)):
             got = torch.from_numpy(r.masks[i]).to(dev)
@@ -950,7 +968,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
         raise AssertionError(f"the bvh path did not go through the kernel: {bvh_counted}, "
                              f"plain calls {bvh_plain}")
 
-    # ---- bvh, non-pruned: the grid_nonpruned engine's 64 scenes, reused ---
+    # ---- bvh, non-pruned: the grid_nonpruned engine's scenes, reused ------
     bvh.batch_launches = 0
     ref.calls = 0
     np_bvh = eng_np.query_batch(qs_np, K, backend="bvh")
@@ -959,7 +977,7 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     np_bvh_plain = ref.calls
     nb_checks = {
         **_saturated_diffs(np_bvh, np_dense, xs64, ys64, K),
-        "oracle_mismatches": _oracle_mismatches(np_bvh.masks, oracle, dev),
+        "oracle_mismatches": _oracle_mismatches(np_bvh.masks, oracle_np, dev),
     }
     _log("bvh_nonpruned", users=len(U), queries=len(qs_np), k=K, strategy="none",
          m_max=max(sc.n_tris for sc in np_bvh.scenes),
@@ -1171,13 +1189,13 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
          grid_path=_grid_tiles(bk, planes_q, lens_q),
          grid_nonpruned=_grid_tiles(bk2, planes_np, lens_np))
     # the BVH kernel (the jnp walk of core/bvh.py, not a Pallas site): bit
-    # for bit against its plain version over all 64 queries at both shapes
+    # for bit against its plain version over every query at both shapes
     # and at Q = 1; its pops per lane give the operations term of the bound
     bvh_src, bvh_rows = "src/repro_torch/csrc/bvh_traverse.cu", "src/repro/core/bvh.py"
 
     def bvh_host_s(scenes) -> dict:
-        """Host seconds of the 64 BVH builds and of their stacking, run once
-        more on their own."""
+        """Host seconds of the batch's BVH builds and of their stacking, run
+        once more on their own."""
         t0 = time.perf_counter()
         trees = [build_bvh(sc.tris[: sc.n_tris]) for sc in scenes]
         t1 = time.perf_counter()
@@ -1280,6 +1298,10 @@ def run(dev, card: str, *, n_points: int, n_facilities: int, q_n: int, mono_poin
     for r in records:  # rows 7 and 8 count lm_moe_serve's windows too
         r["launches"] += moe_launches.get(r["name"], 0)
     records += moe_records
+    hybrid_records, hybrid_launches = _lm_hybrid_serve(dev, seed)
+    for r in records:  # row 8 counts lm_hybrid_serve's decode window too
+        r["launches"] += hybrid_launches.get(r["name"], 0)
+    records += hybrid_records
     records += _lm_train(dev, seed)
     driver_records, driver_launches = _lm_driver(dev, seed)
     for r in records:  # rows 7, 9 and 10 count lm_train's and lm_driver's windows
@@ -1367,7 +1389,8 @@ def _plan_line(plan: dict) -> dict:
 
 
 def _planner(dev, eng, mono_eng, qs, stream_qs, oracle, users, mono_oracle, observed) -> None:
-    """The query planner on the card: calibrate (the fast grid, ``repeats=2``),
+    """The query planner on the card: calibrate (the fast grid,
+    ``repeats=PLANNER_REPEATS``),
     load the committed profile of this runner class, price the CAL batch
     with the fresh profile next to the forced backends' observed times,
     serve ``query_batch``, ``query``, ``stream`` and ``query_mono`` through
@@ -1397,7 +1420,7 @@ def _planner(dev, eng, mono_eng, qs, stream_qs, oracle, users, mono_oracle, obse
 
     # ---- calibrate on the card -----------------------------------------
     t0 = time.perf_counter()
-    fresh = calibrate(device=dev, fast=True, repeats=2)
+    fresh = calibrate(device=dev, fast=True, repeats=PLANNER_REPEATS)
     cal_s = time.perf_counter() - t0
     names = [sh["name"] for sh in fresh.meta["shapes"]]
     _log("planner_calibration", seconds=cal_s, hardware=fresh.hardware,
@@ -1564,10 +1587,11 @@ def _planner(dev, eng, mono_eng, qs, stream_qs, oracle, users, mono_oracle, obse
 
 
 #: The dynamic phase: the bench's four update streams
-#: (``benchmarks/bench_rknn.py`` ``update_throughput``), 2 steps each where
-#: the bench runs 4, taken in turn by one engine, and the backends each
-#: stream's versions are served through.
-DYN_STEPS = 2
+#: (``benchmarks/bench_rknn.py`` ``update_throughput``), 1 step each where
+#: the bench runs 4 (2 before the hybrid serving phase needed the time),
+#: taken in turn by one engine, and the backends each stream's versions
+#: are served through.
+DYN_STEPS = 1
 DYN_STREAMS = {
     "drift_lo": ("dense", "grid-pallas", "bvh"),
     "fjitter": ("dense", "grid-pallas", "bvh"),
@@ -2436,7 +2460,7 @@ def _kernel_device_ms(prof) -> dict:
     import torch
 
     kinds = {"flash_fwd": 0.0, "flash_bwd": 0.0, "decode_attn": 0.0, "adamw": 0.0, "moe": 0.0,
-             "matmul": 0.0, "other": 0.0}
+             "rglru": 0.0, "matmul": 0.0, "other": 0.0}
     for evt in prof.key_averages():
         # the device's own events only: an operator's self device time
         # repeats the time of the kernels it launched
@@ -2462,6 +2486,8 @@ def _kernel_device_ms(prof) -> dict:
             kinds["adamw"] += us / 1e3
         elif "moe_up_kernel" in name or "moe_down_kernel" in name:  # csrc/moe.cu, row 12
             kinds["moe"] += us / 1e3
+        elif "rglru_scan_kernel" in name:  # csrc/rglru.cu, row 14
+            kinds["rglru"] += us / 1e3
         elif any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "nvjet", "gemv")):
             kinds["matmul"] += us / 1e3
         else:
@@ -3414,6 +3440,510 @@ def _lm_moe_row12(dev, seed: int) -> dict:
     del logits
     seen = _moe_seen(kmoe, cfg.moe.n_experts, prefill, decode, params, prompts, tok)
     return _row12_times(dev, cfg, params.groups[1]["p0"][0].moe, seen)
+
+
+# ---- the hybrid family's serving path (lm_hybrid_serve) -----------------------
+
+LM_HYBRID_ARCH = "recurrentgemma_9b"
+# twice the window of 2,048: the window bites, and S % window == 0 keeps
+# decode's ring slot (pos % window) in the prefill's time order, as JAX's
+LM_HYBRID_PROMPT = 4096
+# check 2's prompts (f32 logits of 2 x 4,097 x 256,000: 8.4 GB)
+LM_HYBRID_CHECK_ROWS = 2
+# row 13 beside the phase's own shape: (B, S, K, G, D, window); recurrentgemma's
+# heads at the real window with S % window != 0, S < window and one token,
+# and late rows whose window misses the block's first key tile (G = 1)
+LM_LOCAL_SHAPES = ((2, 2100, 1, 16, 256, 2048), (1, 1500, 1, 16, 256, 2048),
+                   (2, 1, 1, 16, 256, 2048), (1, 300, 1, 16, 256, 64), (1, 300, 1, 1, 256, 50),
+                   (1, 257, 2, 7, 128, 64))
+# row 14 beside the phase's: (B, S, w, h float32, with an initial state):
+# w past a block's 64 channels, S past the 16-step unroll
+LM_SCAN_SHAPES = ((2, 37, 130, True, True), (1, 4100, 4096, False, False),
+                  (3, 9, 4096, False, True))
+
+
+def _hybrid_params(cfg) -> int:
+    """recurrentgemma's parameters as the JAX package's tree holds them
+    (the gates block-diagonal, ``[nb, w/nb, w/nb]`` each; ``ArchConfig.
+    param_count`` counts them as ``w x w``)."""
+    d, w, nb = cfg.d_model, cfg.hybrid.lru_width or cfg.d_model, max(1, cfg.n_heads)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ffn = 3 * d * cfg.d_ff  # geglu: w_in, w_gate, w_out
+    attn = d * H * hd + 2 * d * K * hd + H * hd * d
+    # w_gate_in, w_x_in; conv_w, conv_b; w_a, w_i; lambda; w_out
+    rglru = 2 * d * w + 5 * w + 2 * nb * (w // nb) ** 2 + w + w * d
+    n = cfg.vocab * d * (1 if cfg.tie_embeddings else 2) + d
+    for g in cfg.layer_groups():
+        for spec in g.specs:
+            n += g.repeat * (2 * d + ffn + (rglru if spec.mixer == "rglru" else attn))
+    return n
+
+
+def _local64(q, k, v, window: int):
+    """Float64 sliding-window attention (key ``j`` seen by query ``i`` iff
+    ``i - window < j <= i``), one row at a time: row 13's yardstick (shares
+    no code with the port)."""
+    import torch
+
+    B, S, K, G, D = q.shape
+    i = torch.arange(S, device=q.device)
+    delta = i[:, None] - i[None, :]
+    mask = (delta >= 0) & (delta < window)
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for b in range(B):
+        s = torch.einsum("qkgd,skd->kgqs", q[b].double(), k[b].double()) * D ** -0.5
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        del s
+        out[b] = torch.einsum("kgqs,skd->qkgd", p, v[b].double())
+    return out
+
+
+def _rglru64(r, i, h, lam, init):
+    """Float64 RG-LRU recurrence walked in order: row 14's yardstick."""
+    import torch
+
+    log_a0 = torch.nn.functional.logsigmoid(lam.double())
+    y = torch.empty(r.shape, dtype=torch.float64, device=r.device)
+    acc = (torch.zeros(r.shape[0], r.shape[2], dtype=torch.float64, device=r.device)
+           if init is None else init.double())
+    for t in range(r.shape[1]):
+        at = torch.exp(8.0 * r[:, t].double() * log_a0)
+        x = torch.sqrt(torch.clamp(1.0 - at * at, min=1e-12)) * i[:, t].double() * h[:, t].double()
+        acc = at * acc + x
+        y[:, t] = acc
+    return y
+
+
+def _local_bound(B, S, K, G, D, window) -> tuple[float, str]:
+    """Row 13's least time: ``4 B H D sum_i min(i + 1, w)`` FLOPs over the
+    bf16 tensor-core rate, or q, k, v and out once over the HBM rate."""
+    w = min(window, S)
+    keys = w * (w + 1) // 2 + (S - w) * w
+    t_ops = 4 * B * K * G * D * keys / PEAK_BF16_TC_S
+    t_bytes = 2 * (2 * B * S * K * G * D + 2 * B * S * K * D) / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _scan_bound(B, S, w) -> tuple[float, str]:
+    """Row 14's least time: r, i (f32) and h (bf16) read and y (f32)
+    written once, 14 bytes an element, plus Λ, the state in and out."""
+    return (14 * B * S * w + 4 * w + 8 * B * w) / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def _row14_check(got, plain, want64) -> dict:
+    """:func:`_yardstick` for row 14, and the float32-level rule beside it:
+    each output row (b, t) within 2^-16 of its max |y| of the plain
+    version, which rounds ``a_t`` and every term as the kernel does and
+    sums the recurrence in another order.  (Both lie further from float64:
+    ``a_t`` rounded to float32 is carried through up to 1 / (1 - a_t)
+    steps.)"""
+    out = _yardstick(got, plain, want64)
+    rows = (got - plain).abs().amax(-1) / plain.abs().amax(-1).clamp_min(1e-30)
+    out["row_rel_vs_plain_max"] = float(rows.max())
+    if out["row_rel_vs_plain_max"] >= 2.0 ** -16:
+        raise AssertionError(f"row 14 past 2^-16 of a row's scale from plain: {out}")
+    return out
+
+
+def _lm_hybrid_serve(dev, seed: int) -> tuple[list, dict]:
+    """recurrentgemma-9b at the published widths and full depth (38
+    layers: 26 RG-LRU and 12 local-attention, window 2,048, 16 query heads
+    over one KV head of 256, GeGLU FFNs of 12,288, vocab 256,000 tied) on
+    the card through ``build_model`` / ``make_prefill_step`` /
+    ``make_decode_step``: 8 prompts of 4,096 tokens from the token pipeline,
+    prefill without ``pad_cache_to`` (a local layer keeps its window), 64
+    greedy decode steps at B = 8, then 16 at B = 1.  Checks: rows 13, 14
+    and 8 against their plain versions and float64 at the phase's inputs
+    (the first layer of each kind, captured by patching the wrappers; row
+    8 also at ragged positions over the captured ring) and awkward ones; the forward against prefill and the first decode step
+    on ``LM_HYBRID_CHECK_ROWS`` prompts (0.05 of max |logits|); the kernel
+    path against the plain path teacher-forced, within
+    ``LM_E2E_FACTOR`` times the spread of two plain paths (the second with
+    the recurrence in two halves, the first's state carried: another order
+    of the f32 sums) and of the plain path's distance to a float32 path;
+    12 row-13 and 26 row-14 launches a prefill, 12 row-8 and 26 row-14 a
+    decode step, no plain call.  Returns rows 13 and 14's records and the
+    phase's launches of row 8."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.tokens import ShardedTokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.models.common import Policy
+    from repro_torch.models.registry import build_model
+    from repro_torch.steps.train import make_decode_step, make_prefill_step
+
+    def halves_scan(r, i, h, lam, init_state=None):
+        """The plain recurrence over each half of S, the first's state
+        carried into the second: the same function, other f32 roundings."""
+        m = r.shape[1] // 2
+        if m == 0:
+            return ref.rglru_scan_ref(r, i, h, lam, init_state)
+        y1, s1 = ref.rglru_scan_ref(r[:, :m], i[:, :m], h[:, :m], lam, init_state)
+        y2, s2 = ref.rglru_scan_ref(r[:, m:], i[:, m:], h[:, m:], lam, s1)
+        return torch.cat([y1, y2], dim=1), s2
+
+    def plain_kernels(halves: bool = False):
+        """The plain versions of rows 13, 8 and 14 in place of their wrappers."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(
+            kattn, "local_attention",
+            lambda q, k, v, *, window: ref.local_attention_ref(q, k, v, window)))
+        stack.enter_context(mock.patch.object(kattn, "decode_attention", ref.decode_attention_ref))
+        stack.enter_context(mock.patch.object(
+            krglru, "rglru_scan", halves_scan if halves else ref.rglru_scan_ref))
+        return stack
+
+    def counts():
+        return {"local_attn": kattn.local_launches, "rglru": krglru.launches,
+                "decode_attn": kattn.decode_launches, "flash_fwd": kattn.flash_launches,
+                "plain_calls": ref.calls}
+
+    def reset():
+        kattn.local_launches = kattn.decode_launches = kattn.flash_launches = 0
+        krglru.launches = ref.calls = 0
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.zeros((), device=dev)
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(LM_HYBRID_ARCH)
+    window, w = cfg.hybrid.window, cfg.hybrid.lru_width
+    n_local = sum(g.repeat * sum(s.mixer == "local" for s in g.specs) for g in cfg.layer_groups())
+    n_rglru = cfg.n_layers - n_local
+    B, S = LM_BATCH, LM_HYBRID_PROMPT
+    K, G, D = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(dev).manual_seed(seed), dtype=Policy.compute_dtype)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != _hybrid_params(cfg):
+        raise AssertionError(f"{n_params} parameters, JAX's tree holds {_hybrid_params(cfg)}")
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+
+    pipe = ShardedTokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed))
+    prompts = torch.from_numpy(pipe.batch_at(0)["tokens"]).long().to(dev)
+    prefill = make_prefill_step(model)  # no padding: a local layer keeps its window
+    decode = make_decode_step(model)
+
+    _, wc = prefill(params, prompts[:1, :64], {})
+    decode(params, prompts[:1, 64:65], wc)
+    del wc
+    torch.cuda.synchronize(dev)
+
+    # ---- counted prefill and 64 greedy decode steps ----------------------------
+    reset()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompts, {})
+    torch.cuda.synchronize(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_counted = counts()
+    want = {"local_attn": n_local, "rglru": n_rglru, "decode_attn": 0, "flash_fwd": 0,
+            "plain_calls": 0}
+    if prefill_counted != want:
+        raise AssertionError(f"prefill window: {prefill_counted}, want {want}")
+    rings = [e["k"].shape[2] for g in cache["groups"] for e in g.values() if "k" in e]
+    if sorted(set(rings)) != [window]:
+        raise AssertionError(f"local caches of {rings} slots, want {window}")
+    prefill_logits = logits
+    tok = logits.argmax(dim=-1, keepdim=True)
+    tokens, step_logits = [tok], []
+    reset()
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE):
+        logits, cache = decode(params, tok, cache)
+        tok = logits.argmax(dim=-1, keepdim=True)
+        step_logits.append(logits)
+        tokens.append(tok)
+    torch.cuda.synchronize(dev)
+    decode_s = time.perf_counter() - t0
+    decode_counted = counts()
+    want = {"local_attn": 0, "rglru": LM_DECODE * n_rglru, "decode_attn": LM_DECODE * n_local,
+            "flash_fwd": 0, "plain_calls": 0}
+    if decode_counted != want:
+        raise AssertionError(f"decode window: {decode_counted}, want {want}")
+    gen = torch.cat(tokens, dim=1)
+    if (int(cache["pos"].min()) != S + LM_DECODE
+            or not bool(torch.isfinite(torch.stack(step_logits)).all())
+            or not bool(torch.isfinite(prefill_logits).all())):
+        raise AssertionError(f"decode ended at pos {cache['pos'].tolist()} or non-finite logits")
+    del cache
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    _log("lm_hybrid_serve", arch=cfg.name, describe=cfg.describe(), params=n_params,
+         param_count_claimed=cfg.param_count(), weight_gb=weight_bytes / 1e9,
+         layers={"rglru": n_rglru, "local": n_local}, window=window, batch=B, prompt=S,
+         decode_steps=LM_DECODE, init_s=init_s, prefill_s=prefill_s,
+         prefill_tok_s=B * S / prefill_s, decode_ms_step=decode_s * 1e3 / LM_DECODE,
+         decode_tok_s=B * LM_DECODE / decode_s, serving_max_memory_allocated_gb=peak_gb,
+         memory_before_gb=mem_before / 1e9, prefill_counted=prefill_counted,
+         decode_counted=decode_counted, first_tokens=gen[:, :8].tolist())
+
+    failures = []
+    # ---- the phase's row-13 and row-14 inputs: the first layer of each kind ----
+    seen: dict = {}
+    real_local, real_scan = kattn.local_attention, krglru.rglru_scan
+    real_decode = kattn.decode_attention
+
+    def rec_local(q, k, v, *, window):
+        if "local" not in seen:
+            seen["local"] = (q.clone(), k.clone(), v.clone(), window)
+        return real_local(q, k, v, window=window)
+
+    def rec_scan(label):
+        def call(r, i, h, lam, init_state=None):
+            if label not in seen:
+                seen[label] = tuple(None if t is None else t.clone()
+                                    for t in (r, i, h, lam, init_state))
+            return real_scan(r, i, h, lam, init_state)
+        return call
+
+    with mock.patch.object(kattn, "local_attention", rec_local), \
+            mock.patch.object(krglru, "rglru_scan", rec_scan("prefill")):
+        _, c8 = prefill(params, prompts, {})
+    def rec_decode(q, k_cache, v_cache, pos):
+        if "decode_attn" not in seen:  # the first local layer: D 256, G 16, K 1
+            seen["decode_attn"] = tuple(t.clone() for t in (q, k_cache, v_cache, pos))
+        return real_decode(q, k_cache, v_cache, pos)
+
+    with mock.patch.object(krglru, "rglru_scan", rec_scan("decode_b8")), \
+            mock.patch.object(kattn, "decode_attention", rec_decode):
+        decode(params, gen[:, :1], c8)
+    del c8
+    torch.cuda.synchronize(dev)
+
+    # ---- check 1: rows 13 and 14 against their plain versions and float64 ------
+    gen_rng = torch.Generator(dev).manual_seed(seed + 31)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen_rng, device=dev).to(dtype)
+
+    row13 = {}
+    q, k, v, win = seen["local"]
+    row13["phase"] = _yardstick(kattn.local_attention(q, k, v, window=win),
+                                ref.local_attention_ref(q, k, v, win), _local64(q, k, v, win))
+    for Bx, Sx, Kx, Gx, Dx, wx in LM_LOCAL_SHAPES:
+        qa, ka, va = randn(Bx, Sx, Kx, Gx, Dx), randn(Bx, Sx, Kx, Dx), randn(Bx, Sx, Kx, Dx)
+        row13[f"{Bx}x{Sx}x{Kx}x{Gx}x{Dx}_w{wx}"] = _yardstick(
+            kattn.local_attention(qa, ka, va, window=wx), ref.local_attention_ref(qa, ka, va, wx),
+            _local64(qa, ka, va, wx))
+    torch.cuda.empty_cache()
+    row14 = {}
+    for label in ("prefill", "decode_b8"):
+        args = seen[label]
+        row14[label] = _row14_check(krglru.rglru_scan(*args)[0], ref.rglru_scan_ref(*args)[0],
+                                    _rglru64(*args))
+    for Bx, Sx, wx, h32, with_init in LM_SCAN_SHAPES:
+        args = (torch.rand((Bx, Sx, wx), generator=gen_rng, device=dev),
+                torch.rand((Bx, Sx, wx), generator=gen_rng, device=dev),
+                randn(Bx, Sx, wx, dtype=torch.float32 if h32 else torch.bfloat16),
+                2.2 + 4.7 * torch.rand((wx,), generator=gen_rng, device=dev),
+                randn(Bx, wx, dtype=torch.float32) if with_init else None)
+        y, state = krglru.rglru_scan(*args)
+        if not torch.equal(state, y[:, -1]):
+            raise AssertionError("row 14's state is not its last output")
+        row14[f"{Bx}x{Sx}x{wx}_h{'f32' if h32 else 'bf16'}"] = _row14_check(
+            y, ref.rglru_scan_ref(*args)[0], _rglru64(*args))
+    row8 = {}
+    qd, kc, vc, last = seen["decode_attn"]
+    T = kc.shape[1]
+    pos_sets = {"phase": last,  # the ring's last slot, min(pos, T - 1)
+                "ragged": torch.tensor([i * (T - 1) // (B - 1) for i in range(B)],
+                                       dtype=torch.int32, device=dev)}
+    for name, pos in pos_sets.items():
+        row8[name] = _yardstick(kattn.decode_attention(qd, kc, vc, pos),
+                                ref.decode_attention_ref(qd, kc, vc, pos),
+                                _decode64(qd, kc, vc, pos))
+    row8["b1_last"] = _yardstick(kattn.decode_attention(qd[:1], kc[:1], vc[:1], last[:1]),
+                                 ref.decode_attention_ref(qd[:1], kc[:1], vc[:1], last[:1]),
+                                 _decode64(qd[:1], kc[:1], vc[:1], last[:1]))
+    row8["shape"] = list(qd.shape) + [T]
+    row8["phase_pos"] = sorted(set(last.tolist()))
+    _log("lm_hybrid_serve_kernels", row13=row13, row14=row14, row8=row8)
+    torch.cuda.empty_cache()
+
+    # ---- check 2: forward against prefill and the first decode step ------------
+    rows = LM_HYBRID_CHECK_ROWS
+    fwd_tokens = torch.cat([prompts[:rows], gen[:rows, :1]], dim=1)
+    lp, c2 = prefill(params, prompts[:rows], {})
+    ld, c2 = decode(params, gen[:rows, :1], c2)
+    del c2
+    with torch.no_grad():
+        fwd, _ = model.forward(params, fwd_tokens, {})
+    scale = float(fwd.abs().max())
+    fwd_check = {"scale": scale,
+                 "prefill_rel": float((lp - fwd[:, S - 1]).abs().max()) / scale,
+                 "decode_rel": float((ld - fwd[:, S]).abs().max()) / scale}
+    del fwd, lp, ld
+    torch.cuda.empty_cache()
+    for what in ("prefill_rel", "decode_rel"):
+        if fwd_check[what] >= LM_FWD_REL:
+            failures.append(f"forward against {what}: {fwd_check}")
+
+    # ---- check 3: kernel path against plain paths, teacher-forced --------------
+    def teacher_forced():
+        """Logits of the prefill and the first ``LM_CHECK_STEPS`` steps fed
+        the kernel path's tokens, ``[1 + LM_CHECK_STEPS, B, V]`` f32."""
+        lg, c = prefill(params, prompts, {})
+        out = [lg]
+        for i in range(LM_CHECK_STEPS):
+            lg, c = decode(params, gen[:, i:i + 1], c)
+            out.append(lg)
+        return torch.stack(out)
+
+    def rel(a, b):
+        return ((a - b).abs().amax(dim=(1, 2)) / b.abs().amax(dim=(1, 2))).tolist()
+
+    def argmax_share(a, b):
+        return float((a.argmax(-1) != b.argmax(-1)).float().mean())
+
+    kernel_path = torch.cat([prefill_logits[None], torch.stack(step_logits[:LM_CHECK_STEPS])])
+    reset()
+    t0 = time.perf_counter()
+    with plain_kernels():
+        plain_path = teacher_forced()
+        torch.cuda.synchronize(dev)
+        plain_path_s = time.perf_counter() - t0
+        plain_counted = counts()
+    with plain_kernels(halves=True):
+        plain_other = teacher_forced()
+    compute = Policy.compute_dtype
+    with plain_kernels():
+        try:
+            params.float()
+            Policy.compute_dtype = torch.float32
+            f32_path = teacher_forced()
+        finally:
+            Policy.compute_dtype = compute
+            params.to(torch.bfloat16)  # exact: the values came from bf16
+    torch.cuda.empty_cache()
+    kp, pp = rel(kernel_path, plain_path), rel(plain_other, plain_path)
+    k32, p32 = rel(kernel_path, f32_path), rel(plain_path, f32_path)
+    e2e = {"kernel_vs_plain_max": max(kp), "kernel_vs_plain_prefill": kp[0],
+           "plain_halves_vs_plain_max": max(pp), "kernel_vs_f32_max": max(k32),
+           "plain_vs_f32_max": max(p32),
+           "argmax_differs_share": {"kernel_vs_plain": argmax_share(kernel_path, plain_path),
+                                    "plain_halves_vs_plain": argmax_share(plain_other, plain_path),
+                                    "kernel_vs_f32": argmax_share(kernel_path, f32_path),
+                                    "plain_vs_f32": argmax_share(plain_path, f32_path)},
+           "per_step": {"kernel_vs_plain": kp, "plain_halves_vs_plain": pp,
+                        "kernel_vs_f32": k32, "plain_vs_f32": p32},
+           "plain_path_s": plain_path_s, "plain_counted": plain_counted}
+    del kernel_path, plain_path, plain_other, f32_path
+    _log("lm_hybrid_serve_checks", forward=fwd_check, e2e=e2e)
+    if plain_counted["local_attn"] or plain_counted["decode_attn"] or plain_counted["rglru"]:
+        raise AssertionError(f"the plain path launched a kernel: {plain_counted}")
+    if max(kp) > LM_E2E_FACTOR * max(pp):
+        failures.append(f"kernel path against plain path {max(kp)} > {LM_E2E_FACTOR} x the "
+                        f"plain paths' spread {max(pp)}")
+    if max(k32) > LM_E2E_FACTOR * max(p32):
+        failures.append(f"kernel path against float32 {max(k32)} > {LM_E2E_FACTOR} x the "
+                        f"plain path's {max(p32)}")
+
+    # ---- rows 13 and 14 timed at the phase's shapes ----------------------------
+    local_ms = _sync_ms(lambda: kattn.local_attention(q, k, v, window=win), 10, dev)
+    local_dev_ms = _graph_ms(lambda: kattn.local_attention(q, k, v, window=win), 10, dev)
+    local_plain_ms = _sync_ms(lambda: ref.local_attention_ref(q, k, v, win), 2, dev)
+    local_lib = {"ms": None}
+    try:  # SDPA with a boolean band mask, [B, H, S, D] views of the same tensors
+        qs_, ks_, vs_ = (t.transpose(1, 2) for t in (q.reshape(B, S, K * G, D), k, v))
+        pos_ = torch.arange(S, device=dev)
+        band = (pos_[:, None] >= pos_[None, :]) & (pos_[:, None] - pos_[None, :] < win)
+        local_lib["ms"] = _sync_ms(lambda: F.scaled_dot_product_attention(
+            qs_, ks_, vs_, attn_mask=band, enable_gqa=True), 3, dev)
+        del qs_, ks_, vs_, band
+    except Exception as exc:  # no backend takes it: logged, library_ms null
+        local_lib["error"] = repr(exc)[:300]
+    torch.cuda.empty_cache()
+    scan_times = {}
+    for label, reps in (("prefill", 10), ("decode_b8", 50)):
+        args = seen[label]
+        b_ms, b_by = _scan_bound(*args[0].shape)
+        scan_times[label] = {
+            "ms": _sync_ms(lambda: krglru.rglru_scan(*args), reps, dev),
+            "device_ms": _graph_ms(lambda: krglru.rglru_scan(*args), reps, dev),
+            "plain_ms": _sync_ms(lambda: ref.rglru_scan_ref(*args), 2, dev),
+            "bound_ms": b_ms, "bound_by": b_by, "shape": list(args[0].shape)}
+    local_bound, local_by = _local_bound(B, S, K, G, D, win)
+    _log("lm_hybrid_serve_times",
+         row13={"ms": local_ms, "device_ms": local_dev_ms, "plain_ms": local_plain_ms,
+                "sdpa_band_mask": local_lib, "bound_ms": local_bound, "bound_by": local_by,
+                "shape": [B, S, K, G, D, win]},
+         row14=scan_times)
+
+    # ---- decode at B = 1, and profiled windows by kind -------------------------
+    _, c1 = prefill(params, prompts[:1], {})
+    tok1 = gen[:1, :1]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(LM_B1_STEPS):
+        l1, c1 = decode(params, tok1, c1)
+        tok1 = l1.argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize(dev)
+    b1_ms = (time.perf_counter() - t0) * 1e3 / LM_B1_STEPS
+    _, c8 = prefill(params, prompts, {})
+    profiles = {}
+    windows = {"b1": (lambda c: decode(params, tok1, c)[1], c1, LM_PROFILE_STEPS, b1_ms),
+               "b8": (lambda c: decode(params, gen[:, :1], c)[1], c8, LM_PROFILE_STEPS,
+                      decode_s * 1e3 / LM_DECODE),
+               "prefill": (lambda c: prefill(params, prompts, {})[1], None, 1, prefill_s * 1e3)}
+    for name, (step, c, n_steps, wall_ms) in windows.items():
+        for _ in range(2):  # the first profiled window pays the profiler's start
+            torch.cuda.synchronize(dev)
+            prof = _start_profiler(profiles)
+            if prof is None:
+                break
+            for _ in range(n_steps):
+                c = step(c)
+            torch.cuda.synchronize(dev)
+            prof.stop()
+        if prof is None:
+            break
+        kinds = {k2: v2 / n_steps for k2, v2 in _kernel_device_ms(prof).items()}
+        # this model has no global attention: flash_fwd's kernel is row 13 here
+        kinds["local_attn"] = kinds.pop("flash_fwd")
+        busy = sum(kinds.values())
+        profiles[name] = {"device_ms": kinds, "device_busy_ms": busy, "unprofiled_ms": wall_ms,
+                          "idle_share": 1 - busy / wall_ms if busy else None,
+                          "top_kernels_ms_window": _device_kernels_ms(prof, 10)}
+    del c1, c8
+    _log("lm_hybrid_serve_decode", b1_ms_step=b1_ms, b1_tok_s=1e3 / b1_ms,
+         b8_ms_step=decode_s * 1e3 / LM_DECODE, b8_tok_s=B * LM_DECODE / decode_s,
+         profiled_steps=LM_PROFILE_STEPS, profiles=profiles,
+         phase_max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         phase_s=time.perf_counter() - t_phase)
+    del params, model, seen, q, k, v
+    torch.cuda.empty_cache()
+
+    if failures:
+        raise AssertionError("; ".join(failures))
+    pf = scan_times["prefill"]
+    records = [
+        {"name": "local_attention", "route": "cuda", "source": "src/repro_torch/csrc/attention.cu",
+         "replaces": "src/repro/models/attention.py:301 (jnp local_attention, not a Pallas site)",
+         "launches": prefill_counted["local_attn"] + decode_counted["local_attn"],
+         "max_abs_err": row13["phase"]["kernel_vs_plain"], "ms": local_ms,
+         "plain_ms": local_plain_ms, "bound_ms": local_bound, "bound_by": local_by,
+         "library_ms": local_lib["ms"], "shape": {"B": B, "S": S, "K": K, "G": G, "D": D,
+                                                  "window": win}},
+        {"name": "rglru_scan", "route": "cuda", "source": "src/repro_torch/csrc/rglru.cu",
+         "replaces": "src/repro/models/rglru.py:84 (_rglru_scan: jnp terms and "
+                     "lax.associative_scan, not a Pallas site)",
+         "launches": prefill_counted["rglru"] + decode_counted["rglru"],
+         "max_abs_err": row14["prefill"]["kernel_vs_plain"], "ms": pf["ms"],
+         "plain_ms": pf["plain_ms"], "bound_ms": pf["bound_ms"], "bound_by": pf["bound_by"],
+         "library_ms": None, "shape": {"B": B, "S": S, "w": w}},
+    ]
+    return records, {"decode_attn": decode_counted["decode_attn"]}
 
 
 # ---- the LM substrate's training step (lm_train) -----------------------------

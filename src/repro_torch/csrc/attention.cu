@@ -32,6 +32,19 @@
 // (m + log2(max(l, 1e-30))) ln 2.  The backward (attention_bwd.cu) turns it
 // back into base 2 and recomputes P as exp2(s scale log2 e - lse log2 e).
 //
+// flash_fwd with a window (row 13: the hybrid family's local attention,
+// replacing src/repro/models/attention.py:301 local_attention, jnp blocks of
+// w queries against key blocks i - 1 and i): key j is seen by query i iff
+// i - window < j <= i, which on the real keys is JAX's mask 0 <= i - j < w
+// with w = min(window, S).  It runs flash_fwd_mma_kernel at every head dim
+// (the wgmma kernel takes no window), from the first key tile that holds a
+// key of the block's first query's window, so the work is O(S window), not
+// O(S^2); a row whose window misses a whole tile gives it zero weight (its
+// masked scores count zero, not exp(0)).  Head dim 256 (recurrentgemma)
+// runs it at NK = 16, Q's fragments read from shared memory as each product
+// needs them rather than held in registers beside the 128 of O.  What
+// bounds it: operations, 4 B H D sum_i min(i + 1, window) FLOPs.
+//
 // flash_fwd.  What bounds it: operations (4 B H D S^2 / 2 with the
 // causal half, against 989 TFLOP/s of bf16 tensor cores; its bytes, q, k,
 // v and out once, take a third of that time).  Only wgmma reaches that
@@ -63,9 +76,10 @@
 // diagonal or the end of k are masked.  The consumers' S, O and P take
 // about 200 registers; ptxas fits them only under setmaxnreg's 240 (at
 // 168, or with a clock read and trap in the barrier wait, it serialises
-// every wgmma: PERF.md).  Other head dims (16 to 112 but 64) go to
-// flash_fwd_mma_kernel, the first kernel kept as it was: mma.sync m16n8k16
-// on tiles staged by plain loads, P split into two bf16 products.
+// every wgmma: PERF.md).  Other head dims (16 to 112 but 64, and 256) and
+// every call with a window go to flash_fwd_mma_kernel, the first kernel:
+// mma.sync m16n8k16 on tiles staged by plain loads, P split into two bf16
+// products.
 //
 // decode_attn (flash-decoding).  What bounds it: bytes, each cache slot
 // s <= pos[b] read once from K and once from V (33.6 MB at B = 8,
@@ -116,8 +130,12 @@ template <int NK>  // D = 16 * NK
 __global__ void __launch_bounds__(kFaThreads) flash_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int S, int Skv, int K, int G, int bq, int causal, float scale) {
+    float* __restrict__ lse, int S, int Skv, int K, int G, int bq, int causal, int window,
+    float scale) {
   constexpr int D = 16 * NK;
+  // past D = 128, Q's fragments are read from shared memory at each product:
+  // held in registers beside O's 2 NK x 4 they would spill
+  constexpr bool kQInRegs = NK <= 8;
   constexpr int LD = D + 8;  // padded row: the fragment loads hit 32 banks
   constexpr int CH = D / 8;  // 16-byte chunks of a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -148,14 +166,18 @@ __global__ void __launch_bounds__(kFaThreads) flash_fwd_mma_kernel(
   // rows past the real ones have no position: no causal mask, zero q
   const int pos0 = r0 < rows ? q0 + r0 / G : 0x7fffffff;
   const int pos1 = r1 < rows ? q0 + r1 / G : 0x7fffffff;
-  uint32_t qa[NK][4];
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
+  // this warp's A fragment of Q for the product's 16 columns from kk * 16
+  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
     const int c = kk * 16 + tig * 2;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(Qs + r0 * LD + c);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(Qs + r1 * LD + c);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(Qs + r0 * LD + c + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(Qs + r1 * LD + c + 8);
+    a[0] = *reinterpret_cast<const uint32_t*>(Qs + r0 * LD + c);
+    a[1] = *reinterpret_cast<const uint32_t*>(Qs + r1 * LD + c);
+    a[2] = *reinterpret_cast<const uint32_t*>(Qs + r0 * LD + c + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(Qs + r1 * LD + c + 8);
+  };
+  uint32_t qa[kQInRegs ? NK : 1][4];
+  if constexpr (kQInRegs) {
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) q_frag(kk, qa[kk]);
   }
 
   float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
@@ -163,9 +185,11 @@ __global__ void __launch_bounds__(kFaThreads) flash_fwd_mma_kernel(
 #pragma unroll
   for (int nd = 0; nd < 2 * NK; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
 
-  // keys this block needs: causal rows see keys j <= i < q0 + nq
+  // keys this block needs: causal rows see keys j <= i < q0 + nq; with a
+  // window, keys j > q0 - window, from the tile that holds the first
   const int kv_end = causal ? min(Skv, q0 + nq) : Skv;
-  for (int kt0 = 0; kt0 < kv_end; kt0 += kFaKeys) {
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / kFaKeys * kFaKeys : 0;
+  for (int kt0 = kv_begin; kt0 < kv_end; kt0 += kFaKeys) {
     __syncthreads();  // the previous tile's readers are done
     for (int c = tid; c < kFaKeys * CH; c += kFaThreads) {
       const int r = c / CH, part = c % CH, key = kt0 + r;
@@ -183,15 +207,31 @@ __global__ void __launch_bounds__(kFaThreads) flash_fwd_mma_kernel(
 
     // S = Q K^T for this warp's 16 rows and the tile's keys
     float s[kFaKeys / 8][4];
+    if constexpr (kQInRegs) {
 #pragma unroll
-    for (int nt = 0; nt < kFaKeys / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* krow = Ks + (nt * 8 + grp) * LD + tig * 2;
+      for (int nt = 0; nt < kFaKeys / 8; ++nt) {
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+        const __nv_bfloat16* krow = Ks + (nt * 8 + grp) * LD + tig * 2;
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
+          mma_bf16(s[nt], qa[kk], b0, b1);
+        }
+      }
+    } else {  // the same products, each s[nt] summed over kk in the same order
+#pragma unroll
+      for (int nt = 0; nt < kFaKeys / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < NK; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-        mma_bf16(s[nt], qa[kk], b0, b1);
+        uint32_t a[4];
+        q_frag(kk, a);
+#pragma unroll
+        for (int nt = 0; nt < kFaKeys / 8; ++nt) {
+          const __nv_bfloat16* krow = Ks + (nt * 8 + grp) * LD + tig * 2 + kk * 16;
+          mma_bf16(s[nt], a, *reinterpret_cast<const uint32_t*>(krow),
+                   *reinterpret_cast<const uint32_t*>(krow + 8));
+        }
       }
     }
     // scale, mask, and the tile's row max
@@ -202,7 +242,8 @@ __global__ void __launch_bounds__(kFaThreads) flash_fwd_mma_kernel(
       for (int e = 0; e < 4; ++e) {
         const int key = kt0 + nt * 8 + tig * 2 + (e & 1);
         const int pos = e < 2 ? pos0 : pos1;
-        const bool masked = key >= Skv || (causal && key > pos);
+        const bool masked =
+            key >= Skv || (causal && key > pos) || (window > 0 && key <= pos - window);
         s[nt][e] = masked ? kNeg : s[nt][e] * scale;
       }
       mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
@@ -224,12 +265,14 @@ __global__ void __launch_bounds__(kFaThreads) flash_fwd_mma_kernel(
       o[nd][2] *= c1;
       o[nd][3] *= c1;
     }
+    // a masked score weighs zero: exp(kNeg - m) is 0 wherever the row has
+    // seen a key, but 1 while m is still kNeg (a window that misses the tile)
 #pragma unroll
     for (int nt = 0; nt < kFaKeys / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - m0);
-      s[nt][1] = expf(s[nt][1] - m0);
-      s[nt][2] = expf(s[nt][2] - m1);
-      s[nt][3] = expf(s[nt][3] - m1);
+      s[nt][0] = s[nt][0] == kNeg ? 0.f : expf(s[nt][0] - m0);
+      s[nt][1] = s[nt][1] == kNeg ? 0.f : expf(s[nt][1] - m0);
+      s[nt][2] = s[nt][2] == kNeg ? 0.f : expf(s[nt][2] - m1);
+      s[nt][3] = s[nt][3] == kNeg ? 0.f : expf(s[nt][3] - m1);
       l0 += s[nt][0] + s[nt][1];
       l1 += s[nt][2] + s[nt][3];
     }
@@ -293,7 +336,7 @@ __global__ void __launch_bounds__(kFaThreads) flash_fwd_mma_kernel(
 template <int NK>
 cudaError_t launch_flash_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                          __nv_bfloat16* out, float* lse, int B, int S, int Skv, int K, int G,
-                         int causal, float scale, cudaStream_t stream) {
+                         int causal, int window, float scale, cudaStream_t stream) {
   constexpr int D = 16 * NK;
   const size_t smem = (size_t)(kFaRows + 2 * kFaKeys) * (D + 8) * sizeof(__nv_bfloat16);
   const cudaError_t err = smem_limit_once<flash_fwd_mma_kernel<NK>>(smem);
@@ -301,7 +344,7 @@ cudaError_t launch_flash_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, con
   const int bq = kFaRows / G;
   const dim3 grid((unsigned)((S + bq - 1) / bq), (unsigned)K, (unsigned)B);
   flash_fwd_mma_kernel<NK><<<grid, kFaThreads, smem, stream>>>(q, k, v, out, lse, S, Skv, K, G,
-                                                               bq, causal, scale);
+                                                               bq, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -987,14 +1030,16 @@ int decode_blocks(int* blocks) {
 
 extern "C" {
 
-// Launches flash_fwd on `stream`.  D = 16 * nk with 1 <= nk <= 8, G <= 128;
-// all pointers 16-byte aligned (the wrapper checks).  D = 64 and 128 run the
-// wgmma kernel, the other head dims the mma.sync one.  `lse` is null, or
-// [B, K, G, S] f32 that receives each row's log-sum-exp (natural log units).
-// Returns a cudaError_t.
+// Launches flash_fwd on `stream`.  D = 16 * nk with 1 <= nk <= 8 or
+// nk = 16, G <= 128; all pointers 16-byte aligned (the wrapper checks).
+// window > 0 (with causal) also masks keys j <= i - window: row 13.  D = 64
+// and 128 without a window run the wgmma kernel, the rest the mma.sync one.
+// `lse` is null, or [B, K, G, S] f32 that receives each row's log-sum-exp
+// (natural log units).  Returns a cudaError_t.
 int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int S,
-              int Skv, int K, int G, int D, int causal, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || G <= 0 || G > kFaRows || D % 16 != 0)
+              int Skv, int K, int G, int D, int causal, int window, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || Skv <= 0 || K <= 0 || G <= 0 || G > kFaRows || D % 16 != 0 ||
+      window < 0 || (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
@@ -1002,18 +1047,28 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* lp = static_cast<float*>(lse);
   const auto st = static_cast<cudaStream_t>(stream);
+  const bool wg = window == 0;  // the wgmma kernel takes no window
   cudaError_t err;
+#define FA_MMA(n) launch_flash_mma<n>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, window, scale, st)
   switch (D / 16) {
-    case 1: err = launch_flash_mma<1>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
-    case 2: err = launch_flash_mma<2>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
-    case 3: err = launch_flash_mma<3>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
-    case 4: err = launch_flash_wgmma<64>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
-    case 5: err = launch_flash_mma<5>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
-    case 6: err = launch_flash_mma<6>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
-    case 7: err = launch_flash_mma<7>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
-    case 8: err = launch_flash_wgmma<128>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st); break;
+    case 1: err = FA_MMA(1); break;
+    case 2: err = FA_MMA(2); break;
+    case 3: err = FA_MMA(3); break;
+    case 4:
+      err = wg ? launch_flash_wgmma<64>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st)
+               : FA_MMA(4);
+      break;
+    case 5: err = FA_MMA(5); break;
+    case 6: err = FA_MMA(6); break;
+    case 7: err = FA_MMA(7); break;
+    case 8:
+      err = wg ? launch_flash_wgmma<128>(qp, kp, vp, op, lp, B, S, Skv, K, G, causal, scale, st)
+               : FA_MMA(8);
+      break;
+    case 16: err = FA_MMA(16); break;
     default: err = cudaErrorInvalidValue;
   }
+#undef FA_MMA
   return static_cast<int>(err);
 }
 

@@ -5,10 +5,13 @@
 replacing the jnp ``lax.scan`` of ``repro/models/attention.py``
 ``flash_attention``) and :func:`decode_attention` (decode; row 8,
 replacing ``decode_attention`` there) take the JAX package's
-grouped-query layout.  Training takes :func:`flash_attention_fwd` (row 7
-that also writes each row's log-sum-exp, the forward of
-``flash_attention_fused``) and :func:`flash_attention_bwd` (row 9,
-replacing the jnp ``_flash_fused_bwd``).  A CPU tensor runs the plain
+grouped-query layout, as does :func:`local_attention` (the hybrid family's
+sliding-window prefill; row 13, replacing ``local_attention`` there: row
+7's kernel with a window, at head dims up to 128 and 256).  Training
+takes :func:`flash_attention_fwd` (row 7 that also writes each row's
+log-sum-exp, the forward of ``flash_attention_fused``) and
+:func:`flash_attention_bwd` (row 9, replacing the jnp
+``_flash_fused_bwd``).  A CPU tensor runs the plain
 version (:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the
 kernel on the current stream or raises: a failed build or launch is never
 caught.  The kernels take contiguous bf16 tensors, 16-byte aligned, and
@@ -48,6 +51,8 @@ from repro_torch.kernels import ref as _ref
 
 __all__ = [
     "flash_attention",
+    "local_attention",
+    "local_launches",
     "flash_attention_fwd",
     "flash_attention_bwd",
     "decode_attention",
@@ -81,6 +86,7 @@ __all__ = [
 #: nowhere else; the decode kernel's merge pass belongs to its launch, and
 #: the backward's three passes to its one).
 flash_launches = 0
+local_launches = 0
 flash_bwd_launches = 0
 decode_launches = 0
 
@@ -131,7 +137,7 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = build.load("attention")
-        lib.flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        lib.flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_void_p]
         lib.flash_fwd.restype = ctypes.c_int
         lib.decode_attn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
@@ -399,6 +405,15 @@ def flash_attention(q, k, v, *, causal: bool = True, q_block: int = 512,
     return flash_attention_kernel_call(q, k, v, causal=causal)
 
 
+def local_attention(q, k, v, *, window: int) -> torch.Tensor:
+    """Sliding-window causal attention of ``q [B, S, K, G, D]`` over
+    ``k``/``v [B, S, K, D]``: key ``j`` is seen by query ``i`` iff ``i -
+    window < j <= i``.  On the CPU the plain version."""
+    if q.device.type == "cpu":
+        return _ref.local_attention_ref(q, k, v, window)
+    return flash_attention_kernel_call(q, k, v, window=window)
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, q_block: int = 512,
                         kv_block: int = 1024):
     """:func:`flash_attention` and each row's log-sum-exp: ``(out, lse)``,
@@ -429,7 +444,7 @@ def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
     return decode_attention_kernel_call(q, k_cache, v_cache, pos)
 
 
-def _check_flash_shapes(q, k, v) -> None:
+def _check_flash_shapes(q, k, v, windowed: bool = False) -> None:
     if q.ndim != 5 or k.ndim != 4:
         raise ValueError(f"q must be [B, S, K, G, D] and k, v [B, Skv, K, D], "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}")
@@ -438,23 +453,42 @@ def _check_flash_shapes(q, k, v) -> None:
     if k.shape != (B, Skv, K, D) or v.shape != k.shape:
         raise ValueError(f"k, v must be [{B}, Skv, {K}, {D}], got {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if D % 16 or not 16 <= D <= FLASH_MAX_HEAD_DIM or G > FLASH_MAX_GROUP:
+    if windowed:
+        if D % 16 or (not 16 <= D <= FLASH_MAX_HEAD_DIM and D != 256) or G > FLASH_MAX_GROUP:
+            raise ValueError(f"the windowed flash kernel takes D a multiple of 16 up to "
+                             f"{FLASH_MAX_HEAD_DIM}, or 256, and G <= {FLASH_MAX_GROUP}, "
+                             f"got D={D}, G={G}")
+        if Skv != S:
+            raise ValueError(f"local attention takes keys of the queries' length {S}, got "
+                             f"{Skv}")
+    elif D % 16 or not 16 <= D <= FLASH_MAX_HEAD_DIM or G > FLASH_MAX_GROUP:
         raise ValueError(f"the flash kernel takes D a multiple of 16 up to "
                          f"{FLASH_MAX_HEAD_DIM} and G <= {FLASH_MAX_GROUP}, got D={D}, G={G}")
     if Skv == 0 and q.numel():
         raise ValueError("the flash kernel needs at least one key")
 
 
-def flash_attention_kernel_call(q, k, v, *, causal: bool = True, want_lse: bool = False):
+def flash_attention_kernel_call(q, k, v, *, causal: bool = True, want_lse: bool = False,
+                                window: int | None = None):
     """Row 7 on the card: ``[B, S, K, G, D]`` bf16, and with ``want_lse``
-    also ``lse [B, K, G, S]`` float32 (``(out, lse)``).  Does not
-    synchronize."""
-    global flash_launches
+    also ``lse [B, K, G, S]`` float32 (``(out, lse)``).  With a ``window``
+    (``>= 1``) row 13, the same kernel windowed: causal, ``k``/``v`` of
+    ``q``'s length, D up to 128 or 256, counted in ``local_launches``; no
+    input may require grad, as row 13 has no backward yet (hybrid training
+    is ROADMAP queue 1, LM item 9).  Does not synchronize."""
+    global flash_launches, local_launches
     dev = q.device
+    what = "flash attention" if window is None else "local attention"
     if dev.type != "cuda":
-        raise ValueError(f"the flash attention kernel needs CUDA tensors, got {dev}")
+        raise ValueError(f"the {what} kernel needs CUDA tensors, got {dev}")
+    if window is not None:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "row 13 has no backward yet: hybrid training is ROADMAP queue 1, LM item 9")
+        if int(window) < 1:
+            raise ValueError(f"window must be at least 1, got {window}")
     _check_bf16(dev, q=q, k=k, v=v)
-    _check_flash_shapes(q, k, v)
+    _check_flash_shapes(q, k, v, windowed=window is not None)
     B, S, K, G, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, K, G, S), dtype=torch.float32, device=dev) if want_lse else None
@@ -463,9 +497,14 @@ def flash_attention_kernel_call(q, k, v, *, causal: bool = True, want_lse: bool 
         with torch.cuda.device(dev):
             rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                0 if lse is None else lse.data_ptr(), B, S, k.shape[1], K, G, D,
-                               int(causal), D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(lib, rc, "flash_fwd")
-        flash_launches += 1
+                               int(causal),
+                               0 if window is None else min(int(window), S), D ** -0.5,
+                               torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(lib, rc, "flash_fwd" if window is None else "flash_fwd (window)")
+        if window is None:
+            flash_launches += 1
+        else:
+            local_launches += 1
     return (out, lse) if want_lse else out
 
 

@@ -56,6 +56,17 @@ the card).
 expert) with ``torch.matmul`` on each expert's rows, rounding where the
 kernel rounds (each product to the input's dtype, the activation on that
 value, the GLU product).  It reads the row offsets back to the host.
+
+:func:`local_attention_ref` is the plain version of row 13 (the
+sliding-window prefill of ``csrc/attention.cu`` ``flash_fwd`` with a
+window): ``repro.models.attention`` ``local_attention``'s algorithm, query
+block ``i`` of ``w = min(window, S)`` positions against key blocks ``i -
+1`` and ``i`` (zeros before the first), the end padded with zeros, the
+mask ``0 <= qpos - kpos < w``, softmax in float32, one block at a time.
+:func:`rglru_scan_ref` is the plain version of row 14 (``csrc/rglru.cu``):
+``repro.models.rglru`` ``_rglru_scan`` after its gates, the linear
+recurrence written as ``lax.associative_scan``'s own recursion (odd and
+even pairs, log depth) in torch ops, so that it rounds as JAX's does.
 """
 
 from __future__ import annotations
@@ -84,6 +95,9 @@ __all__ = [
     "adamw_ref",
     "adamw8bit_ref",
     "moe_expert_mlp_ref",
+    "local_attention_ref",
+    "rglru_scan_ref",
+    "RGLRU_C",
     "quantize_blockwise",
     "dequantize_blockwise",
     "QUANT_BLOCK",
@@ -598,3 +612,86 @@ def moe_expert_mlp_ref(xc, offsets, rows_bound: int, w_in, w_gate, w_out, act: s
         h = _moe_act(act, h, None if w_gate is None else xe @ w_gate[e])
         y[a:b] = h @ w_out[e]
     return y
+
+
+# ---- the hybrid family: sliding-window attention (row 13), RG-LRU (row 14) ----
+
+def local_attention_ref(q, k, v, window: int):
+    """Row 13's plain version: causal attention of ``q [B, S, K, G, D]``
+    over ``k``/``v [B, S, K, D]`` where query ``i`` sees keys ``i - w < j
+    <= i``, ``w = min(window, S)`` (``repro.models.attention``
+    ``local_attention``) -> ``[B, S, K, G, D]`` in ``q``'s dtype.  One
+    query block at a time: its ``[B, K, G, w, 2w]`` float32 scores are what
+    JAX's einsum gives for that block."""
+    _count()
+    B, S, K, G, D = q.shape
+    w = min(window, S)
+    pad = (-S) % w
+    if pad:  # end padding: the padded keys sit at future positions, masked out
+        q, k, v = (F.pad(t, [0, 0] * (t.ndim - 2) + [0, pad]) for t in (q, k, v))
+    n = q.shape[1] // w
+    scale = D ** -0.5
+    dev = q.device
+    qpos = torch.arange(w, device=dev)[:, None]
+    delta = qpos - (torch.arange(2 * w, device=dev)[None, :] - w)
+    mask = (delta >= 0) & (delta < w)  # [w, 2w]
+    first = mask & (torch.arange(2 * w, device=dev) >= w)[None, :]
+    out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    zeros = torch.zeros((B, w, K, D), dtype=k.dtype, device=dev)
+    for i in range(n):
+        blk = slice(i * w, (i + 1) * w)
+        prev = slice((i - 1) * w, i * w)
+        k2 = torch.cat([zeros if i == 0 else k[:, prev], k[:, blk]], dim=1)  # [B, 2w, K, D]
+        v2 = torch.cat([zeros if i == 0 else v[:, prev], v[:, blk]], dim=1)
+        s = torch.einsum("bqkgd,bskd->bkgqs", q[:, blk].float(), k2.float()) * scale
+        s = torch.where((first if i == 0 else mask)[None, None, None], s, _NEG)
+        p = torch.softmax(s, dim=-1)
+        out[:, blk] = torch.einsum("bkgqs,bskd->bqkgd", p, v2.float()).to(q.dtype)
+    return out[:, :S]
+
+
+#: The RG-LRU's decay exponent ``c`` (``repro.models.rglru._C``).
+RGLRU_C = 8.0
+
+
+def _assoc_scan(a, b):
+    """``lax.associative_scan`` over axis 1 of ``(a, b)`` with JAX's
+    recursion for ``combine((a1, b1), (a2, b2)) = (a1 a2, a2 b1 + b2)``:
+    the scanned ``(a, b)``."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    a_lo, b_lo, a_hi, b_hi = a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]
+    odd_a, odd_b = _assoc_scan(a_lo * a_hi, a_hi * b_lo + b_hi)
+    a_ev, b_ev = a[:, 2::2], b[:, 2::2]
+    if n % 2 == 0:
+        odd_a_, odd_b_ = odd_a[:, :-1], odd_b[:, :-1]
+    else:
+        odd_a_, odd_b_ = odd_a, odd_b
+    even_a = torch.cat([a[:, :1], odd_a_ * a_ev], dim=1)
+    even_b = torch.cat([b[:, :1], a_ev * odd_b_ + b_ev], dim=1)
+    out_a = torch.empty_like(a)
+    out_b = torch.empty_like(b)
+    out_a[:, 0::2], out_b[:, 0::2] = even_a, even_b
+    out_a[:, 1::2], out_b[:, 1::2] = odd_a, odd_b
+    return out_a, out_b
+
+
+def rglru_scan_ref(r, i, h, lam, init_state=None):
+    """Row 14's plain version: ``r``, ``i`` float32 ``[B, S, w]`` (the
+    gates), ``h [B, S, w]`` (the conv output, any float dtype, read in
+    ``r``'s), ``lam [w]`` (Λ, float32), ``init_state`` None or float32 ``[B,
+    w]`` -> ``(y [B, S, w] float32, y[:, -1])`` (every float32 here may be
+    float64 throughout): ``log a_t = c r_t log σ(Λ)``, ``β_t = sqrt(max(1 -
+    a_t², 1e-12))``, ``x_t = β_t i_t h_t`` (``+ a_0 init_state`` at t = 0),
+    ``y_t = a_t y_{t-1} + x_t`` by :func:`_assoc_scan`."""
+    _count()
+    log_a0 = F.logsigmoid(lam)[None, None, :]
+    at = torch.exp(RGLRU_C * r * log_a0)
+    beta = torch.sqrt(torch.clamp(1.0 - at * at, min=1e-12))
+    xin = beta * i * h.to(r.dtype)
+    if init_state is not None:
+        xin = xin.clone()
+        xin[:, 0] = xin[:, 0] + at[:, 0] * init_state
+    _, y = _assoc_scan(at, xin)
+    return y, y[:, -1]

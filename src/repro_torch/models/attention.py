@@ -13,8 +13,12 @@ package's custom VJP: its forward is row 7 with the log-sum-exp, its
 backward row 9 (``csrc/attention_bwd.cu``), and it keeps only ``(q, k,
 v, out, lse)`` for the backward.
 
-The sliding-window attention of the hybrid family waits for a later
-slice of the port.
+``local_attention`` (the hybrid family's sliding window: key ``j`` seen
+by query ``i`` iff ``i - window < j <= i``) is the wrapper of row 13, the
+flash kernel with a window, and on CPU tensors its plain version
+:func:`local_attention_ref` (JAX's blocks of ``w`` queries against key
+blocks ``i - 1`` and ``i``).  It has no backward kernel yet: on the card it
+raises under grad; on the CPU the plain version is differentiable.
 """
 
 from __future__ import annotations
@@ -22,8 +26,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import attention as kattn
-from repro_torch.kernels.attention import decode_attention, flash_attention
-from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref
+from repro_torch.kernels.attention import decode_attention, flash_attention, local_attention
+from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref, local_attention_ref
 
 __all__ = [
     "flash_attention",
@@ -32,6 +36,7 @@ __all__ = [
     "decode_attention_ref",
     "flash_attention_fused",
     "local_attention",
+    "local_attention_ref",
 ]
 
 
@@ -64,9 +69,3 @@ def flash_attention_fused(q, k, v, causal: bool = True, q_block: int = 512,
     hint for GSPMD; it changes no value and is accepted and ignored."""
     del parallel_q
     return _FlashFused.apply(q, k, v, causal, q_block, kv_block)
-
-
-def local_attention(*args, **kwargs):
-    raise NotImplementedError(
-        "local_attention (the hybrid family's sliding window) is not ported yet: "
-        "ROADMAP queue 1, LM item 2 (local_attention and rglru)")

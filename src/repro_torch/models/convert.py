@@ -7,9 +7,12 @@ the port, and back.
 ``groups[gi]["p{i}"]``, whose leaves stack a group's ``repeat`` layers on
 a leading ``R`` axis; a MoE layer's ``moe`` subtree (``router``, ``w_in``,
 ``w_gate``, ``w_out`` and the shared experts' ``shared``) comes over
-under the same names.  It returns the port's :class:`Decoder` with the
-same values, on the card unless ``device`` names another (raising where
-there is none), as every entry point of the port.  Float32 parameters are
+under the same names, as do a hybrid layer's ``rglru`` subtree
+(``w_gate_in``, ``w_x_in``, ``conv_w``, ``conv_b``, ``w_a``, ``w_i``,
+``lambda``, ``w_out``) and a ``local`` layer's ``attn``.  It returns the
+port's :class:`Decoder` with the same values, on the card unless
+``device`` names another (raising where there is none), as every entry
+point of the port.  Float32 parameters are
 trainable (``Policy.param_dtype``).  :func:`train_state_from_jax` carries
 a whole ``repro.steps.train`` state (``params``, ``opt.m``, ``opt.v``,
 ``opt.step`` and, where present, ``ef``), the moments and residuals as
@@ -34,6 +37,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.decoder import Attention, Decoder, DecoderLayer, Norm, check_supported
 from repro_torch.models.ffn import DenseFFN, MoEFFN
+from repro_torch.models.rglru import RGLRUBlock
 
 __all__ = ["params_from_jax", "train_state_from_jax", "to_jax_layout", "jax_layout_views",
            "StackedLeaf"]
@@ -60,6 +64,14 @@ def params_from_jax(tree: dict, cfg: ArchConfig, *, device=None,
                       t(m["w_gate"][r]) if "w_gate" in m else None,
                       dense(m["shared"], r) if "shared" in m else None)
 
+    def attn(a, r) -> Attention:
+        bias = [t(a[n][r]) for n in ("bq", "bk", "bv")] if "bq" in a else []
+        return Attention(t(a["wq"][r]), t(a["wk"][r]), t(a["wv"][r]), t(a["wo"][r]), *bias)
+
+    def rglru(b, r) -> RGLRUBlock:
+        return RGLRUBlock(*(t(b[n][r]) for n in ("w_gate_in", "w_x_in", "conv_w", "conv_b", "w_a",
+                                                 "w_i", "lambda", "w_out")))
+
     groups = []
     for gi, group in enumerate(cfg.layer_groups()):
         g = {}
@@ -67,16 +79,15 @@ def params_from_jax(tree: dict, cfg: ArchConfig, *, device=None,
             st = tree["groups"][gi][f"p{i}"]
             layers = []
             for r in range(group.repeat):
-                a = st["attn"]
-                bias = [t(a[n][r]) for n in ("bq", "bk", "bv")] if "bq" in a else []
                 layers.append(DecoderLayer(
                     Norm(t(st["norm1"]["scale"][r]),
                          t(st["norm1"]["bias"][r]) if "bias" in st["norm1"] else None),
-                    Attention(t(a["wq"][r]), t(a["wk"][r]), t(a["wv"][r]), t(a["wo"][r]), *bias),
+                    attn(st["attn"], r) if "attn" in st else None,
                     Norm(t(st["norm2"]["scale"][r]),
                          t(st["norm2"]["bias"][r]) if "bias" in st["norm2"] else None),
                     ffn=dense(st["ffn"], r) if "ffn" in st else None,
-                    moe=moe(st["moe"], r) if "moe" in st else None))
+                    moe=moe(st["moe"], r) if "moe" in st else None,
+                    rglru=rglru(st["rglru"], r) if "rglru" in st else None))
             g[f"p{i}"] = layers
         groups.append(g)
     unembed = t(tree["unembed"]) if "unembed" in tree else None

@@ -1,5 +1,6 @@
-"""Decoder-only LM (``repro.models.decoder``) for the ``attn`` mixer and the
-``dense`` and ``moe`` FFNs: the serving path of the dense and MoE families.
+"""Decoder-only LM (``repro.models.decoder``) for the ``attn``, ``local`` and
+``rglru`` mixers and the ``dense`` and ``moe`` FFNs: the serving path of
+the dense, MoE and hybrid families.
 
 The parameters are ``nn.Module``\\ s laid out as the JAX package's tree:
 :class:`Decoder` holds ``embed``, ``final_norm``, ``unembed`` (unless
@@ -27,21 +28,37 @@ What the JAX package does and this repeats: the head packing
 ``h = k * G + g``; biases added in the compute dtype; every weight cast
 to the activations' dtype at use (free for serving weights already held
 in it); logits as ``x @ w`` in the compute dtype, then cast to f32.  The
-cache is ``{"groups": [{"p{i}": {"k", "v"}}], "pos": [B] int32}`` with
-``k``/``v`` ``[R, B, Smax, K, hd]``, as JAX's.  Unlike the JAX function,
-:func:`decoder_decode` writes the new token's keys and values into the
-cache it is given (an indexed write per layer, no copy of the cache) and
-returns the same tensors.
+cache is ``{"groups": [{"p{i}": ...}], "pos": [B] int32}`` as JAX's: an
+``attn`` or ``local`` layer's entry ``{"k", "v"}`` ``[R, B, T, K, hd]``, an
+``rglru`` layer's ``{"conv": [R, B, 3, w], "state": [R, B, w] f32}``.
+Unlike the JAX function, :func:`decoder_decode` writes the new token's
+keys and values and the new recurrent state into the cache it is given
+(an indexed write per layer, no copy of the cache) and returns the same
+tensors.
+
+The hybrid family (recurrentgemma): a ``local`` layer attends over a
+sliding window (:func:`~repro_torch.kernels.attention.local_attention`,
+row 13) and keeps the last ``min(window, S)`` keys of a prefill, in time
+order, then padded or cut to ``pad_cache_to`` as JAX's ``_pad_kv_caches``
+does every ``k``/``v`` cache; its decode writes ring slot ``pos % T`` (``T``
+the cache's length) and attends to slots up to ``min(pos, T - 1)`` (row 8).
+Both of JAX's quirks follow: a prefill padded past the window leaves a
+cache of ``pad_cache_to`` slots that decode attends over, and the ring
+agrees with the prefill's order only when ``S <= window`` or ``S % window
+== 0`` (ROADMAP queue 3).  An ``rglru`` layer is
+:mod:`~repro_torch.models.rglru` (row 14); its prefill keeps ``x W_x``'s
+last 3 rows and the final state.
 
 A ``moe`` layer's FFN is :func:`~repro_torch.models.ffn.moe_ffn`: with
 capacity dropping in the forward and the prefill (JAX's default group of
 4,096 tokens), drop-free (``no_drop``) in the decode; the forward returns
 the sum of the MoE layers' ``moe_aux`` as ``aux_loss``, as JAX's
-``_run_groups`` does.  MoE training (the routed experts' backward) is a
-later slice: on the card the forward under grad raises there.
+``_run_groups`` does.  MoE and hybrid training (the backward of rows 12,
+13 and 14) are later slices: on the card the forward under grad raises
+there.
 
-Other mixers (``local``, ``ssd``, ``rglru``, ``xattn``) raise
-``NotImplementedError``: they are later slices of the port.
+The ``ssd`` and ``xattn`` mixers raise ``NotImplementedError``: they are
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -69,6 +86,14 @@ from repro_torch.models.common import (
     take_embedding,
 )
 from repro_torch.models.ffn import DenseFFN, MoEFFN, dense_ffn, init_dense_ffn, init_moe, moe_ffn
+from repro_torch.models.rglru import (
+    CONV_WIDTH,
+    RGLRUBlock,
+    init_rglru_block,
+    init_rglru_cache,
+    rglru_block_decode,
+    rglru_block_forward,
+)
 
 __all__ = [
     "Norm",
@@ -86,14 +111,13 @@ __all__ = [
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` unless every layer is ``attn`` with a
-    ``dense`` or ``moe`` FFN."""
+    ``dense`` or ``moe`` FFN, or ``local`` or ``rglru`` with a ``dense``
+    FFN."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder family is not ported yet: ROADMAP queue 1, "
             "LM item 4 (encdec)")
-    later = {"local": "item 2 (local_attention and rglru)",
-             "rglru": "item 2 (local_attention and rglru)", "ssd": "item 3 (ssd)",
-             "xattn": "item 4 (encdec)"}
+    later = {"ssd": "item 3 (ssd)", "xattn": "item 4 (encdec)"}
     for group in cfg.layer_groups():
         for spec in group.specs:
             for part in (spec.mixer, spec.ffn):
@@ -101,7 +125,8 @@ def check_supported(cfg: ArchConfig) -> None:
                     raise NotImplementedError(
                         f"{cfg.name}: layer {spec} is not ported yet: ROADMAP queue 1, LM "
                         f"{later[part]}")
-            if spec.mixer != "attn" or spec.ffn not in ("dense", "moe"):
+            ffns = ("dense", "moe") if spec.mixer == "attn" else ("dense",)
+            if spec.mixer not in ("attn", "local", "rglru") or spec.ffn not in ffns:
                 raise NotImplementedError(f"{cfg.name}: layer {spec} is not ported")
 
 
@@ -127,16 +152,24 @@ class Attention(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """One ``attn`` layer: ``norm1``, ``attn``, ``norm2`` and either ``ffn``
-    (a dense layer) or ``moe`` (a MoE layer); the other is None."""
+    """One layer: ``norm1``, its mixer, ``attn`` (an ``attn`` or ``local``
+    layer) or ``rglru`` (the other None), ``norm2`` and either ``ffn`` (a
+    dense layer) or ``moe`` (a MoE layer; the other None)."""
 
-    def __init__(self, norm1: Norm, attn_p: Attention, norm2: Norm,
-                 ffn: DenseFFN | None = None, moe: MoEFFN | None = None):
+    def __init__(self, norm1: Norm, attn_p: Attention | None, norm2: Norm,
+                 ffn: DenseFFN | None = None, moe: MoEFFN | None = None,
+                 rglru: RGLRUBlock | None = None):
         super().__init__()
         if (ffn is None) == (moe is None):
             raise ValueError("a layer holds exactly one of ffn and moe")
-        self.norm1, self.attn, self.norm2 = norm1, attn_p, norm2
+        if (attn_p is None) == (rglru is None):
+            raise ValueError("a layer holds exactly one of attn and rglru")
+        self.norm1, self.attn, self.rglru, self.norm2 = norm1, attn_p, rglru, norm2
         self.ffn, self.moe = ffn, moe
+
+    def trainable(self) -> bool:
+        """Held in ``Policy.param_dtype`` and so under training."""
+        return self.norm1.scale.requires_grad
 
 
 class Decoder(nn.Module):
@@ -201,14 +234,20 @@ def init_decoder(generator: torch.Generator, cfg: ArchConfig,
             layers = []
             for _ in range(group.repeat):
                 norm1 = _zeros_norm(cfg, dev, dtype)
-                attn_p = _init_attn(generator, cfg, dtype)
+                attn_p = rglru = None
+                if spec.mixer == "rglru":
+                    rglru = init_rglru_block(generator, cfg, dtype)
+                else:
+                    attn_p = _init_attn(generator, cfg, dtype)
                 norm2 = _zeros_norm(cfg, dev, dtype)
                 if spec.ffn == "moe":
-                    layers.append(DecoderLayer(norm1, attn_p, norm2, moe=init_moe(
+                    layers.append(DecoderLayer(norm1, attn_p, norm2, rglru=rglru, moe=init_moe(
                         generator, cfg.d_model, cfg.moe, cfg.ffn_act, dtype=dtype)))
                 else:
-                    layers.append(DecoderLayer(norm1, attn_p, norm2, ffn=init_dense_ffn(
-                        generator, cfg.d_model, cfg.d_ff, cfg.ffn_act, dtype=dtype)))
+                    layers.append(DecoderLayer(norm1, attn_p, norm2, rglru=rglru,
+                                               ffn=init_dense_ffn(generator, cfg.d_model,
+                                                                  cfg.d_ff, cfg.ffn_act,
+                                                                  dtype=dtype)))
             g[f"p{i}"] = layers
         groups.append(g)
     return Decoder(embed, _zeros_norm(cfg, dev, dtype), groups, unembed)
@@ -256,18 +295,30 @@ def _ffn_residual(layer: DecoderLayer, x: torch.Tensor, cfg: ArchConfig,
     return x + y, aux["moe_aux"]
 
 
-def _layer_forward(layer: DecoderLayer, x, rope, cfg: ArchConfig):
-    """Returns ``(x, k, v, aux)``: the layer's output, its cache entries and
-    its MoE aux loss (None for a dense layer)."""
-    q, k, v = _qkv(layer.attn, _norm(cfg, x, layer.norm1), rope, cfg)
-    if torch.is_grad_enabled() and layer.attn.wq.requires_grad:
+def _mixer_forward(layer: DecoderLayer, mixer: str, h, rope, cfg: ArchConfig):
+    """``(out, kept)``: the mixer's output over ``h`` and what a prefill's
+    cache is made of, ``{"k", "v"}`` of every position or ``{"hx", "state"}``
+    (``h W_x`` and the final recurrent state)."""
+    if mixer == "rglru":
+        out, state, hx = rglru_block_forward(layer.rglru, h, cfg)
+        return out, {"hx": hx, "state": state}
+    q, k, v = _qkv(layer.attn, h, rope, cfg)
+    if mixer == "local":
+        o = kattn.local_attention(q, k, v, window=cfg.hybrid.window)
+    elif torch.is_grad_enabled() and layer.trainable():
         o = mattn.flash_attention_fused(q, k, v, True, cfg.q_block, cfg.kv_block, cfg.q_parallel)
     else:
         o = kattn.flash_attention(q, k, v, causal=True, q_block=cfg.q_block,
                                   kv_block=cfg.kv_block)
-    x = x + _attn_out(layer.attn, o, cfg)
-    x, aux = _ffn_residual(layer, x, cfg)
-    return x, k, v, aux
+    return _attn_out(layer.attn, o, cfg), {"k": k, "v": v}
+
+
+def _layer_forward(layer: DecoderLayer, mixer: str, x, rope, cfg: ArchConfig):
+    """Returns ``(x, kept, aux)``: the layer's output, its cache's makings
+    (:func:`_mixer_forward`) and its MoE aux loss (None for a dense layer)."""
+    out, kept = _mixer_forward(layer, mixer, _norm(cfg, x, layer.norm1), rope, cfg)
+    x, aux = _ffn_residual(layer, x + out, cfg)
+    return x, kept, aux
 
 
 #: The outputs a ``"dots"`` checkpoint keeps (JAX's ``dots_saveable``):
@@ -281,12 +332,12 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _layer_train(layer: DecoderLayer, x, rope, cfg: ArchConfig):
+def _layer_train(layer: DecoderLayer, mixer: str, x, rope, cfg: ArchConfig):
     """The layer's ``(output, aux)`` under ``cfg.remat`` (the JAX scan
     body's ``jax.checkpoint``, taken per layer)."""
     def run(x_):
-        out = _layer_forward(layer, x_, rope, cfg)
-        return out[0], out[3]
+        out = _layer_forward(layer, mixer, x_, rope, cfg)
+        return out[0], out[2]
 
     if cfg.remat == "none":
         return run(x)
@@ -298,36 +349,94 @@ def _layer_train(layer: DecoderLayer, x, rope, cfg: ArchConfig):
 
 
 def _layers(params: Decoder, cfg: ArchConfig):
-    """``(gi, key, r, layer)`` in the JAX scan's order: each group's
+    """``(gi, key, r, mixer, layer)`` in the JAX scan's order: each group's
     repeats, each repeat's specs."""
     for gi, group in enumerate(cfg.layer_groups()):
         for r in range(group.repeat):
-            for i in range(len(group.specs)):
-                yield gi, f"p{i}", r, params.groups[gi][f"p{i}"][r]
+            for i, spec in enumerate(group.specs):
+                yield gi, f"p{i}", r, spec.mixer, params.groups[gi][f"p{i}"][r]
 
 
-def _run(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig, cache_len: int | None):
+def _kept_len(cfg: ArchConfig, mixer: str, S: int) -> int:
+    """The keys a prefill of ``S`` tokens keeps: a ``local`` layer its
+    last ``min(window, S)``, an ``attn`` layer every one."""
+    return min(cfg.hybrid.window, S) if mixer == "local" else S
+
+
+def _cache_groups(cfg: ArchConfig, B: int, kv_len, dtype, conv_rows: int, conv_dtype,
+                  device) -> list[dict]:
+    """Zeroed cache entries, per group ``{"p{i}": entry}``: an ``attn`` or
+    ``local`` layer's ``{"k", "v"}`` ``[R, B, kv_len(mixer), K, hd]`` in
+    ``dtype``, an ``rglru`` layer's ``{"conv": [R, B, conv_rows, w] in
+    conv_dtype, "state": [R, B, w] float32}`` (:func:`init_rglru_cache`)."""
+    K, hd = cfg.n_kv_heads, cfg.hd
+    groups = []
+    for group in cfg.layer_groups():
+        g = {}
+        for i, spec in enumerate(group.specs):
+            lead = (group.repeat, B)
+            if spec.mixer == "rglru":
+                g[f"p{i}"] = init_rglru_cache(cfg, lead, conv_dtype, device, conv_rows)
+            else:
+                T = kv_len(spec.mixer)
+                g[f"p{i}"] = {name: torch.zeros((*lead, T, K, hd), dtype=dtype, device=device)
+                              for name in ("k", "v")}
+        groups.append(g)
+    return groups
+
+
+def _prefill_cache(cfg: ArchConfig, B: int, S: int, pad_cache_to: int | None, dtype,
+                   device) -> list[dict]:
+    """The empty cache a prefill of ``S`` tokens fills: an ``attn`` layer
+    ``S`` slots, a ``local`` one the last ``min(window, S)``, either padded
+    or cut to ``pad_cache_to`` when given (JAX's ``_pad_kv_caches``); an
+    ``rglru`` layer's ``conv`` in ``dtype`` (``min(3, S)`` rows, as JAX's
+    ``hx[:, -3:]``) and float32 ``state``."""
+    def kv_len(mixer):
+        return _kept_len(cfg, mixer, S) if pad_cache_to is None else pad_cache_to
+
+    return _cache_groups(cfg, B, kv_len, dtype, min(CONV_WIDTH - 1, S), dtype, device)
+
+
+def _keep(cache: dict, r: int, mixer: str, kept: dict, cfg: ArchConfig) -> None:
+    """Write one layer's ``kept`` (:func:`_mixer_forward`) into repeat ``r``
+    of its ``cache`` entry: the last ``min(window, S)`` keys of a ``local``
+    layer (every key of an ``attn`` one) at the front of its slots, or the
+    last of them where it has fewer; an ``rglru`` layer's last ``h W_x``
+    rows and state."""
+    if mixer == "rglru":
+        conv = cache["conv"][r]
+        conv.copy_(kept["hx"][:, kept["hx"].shape[1] - conv.shape[1]:])
+        cache["state"][r].copy_(kept["state"])
+        return
+    for name in ("k", "v"):
+        t = kept[name]
+        S = t.shape[1]
+        keep = min(_kept_len(cfg, mixer, S), cache[name].shape[2])
+        cache[name][r, :, :keep] = t[:, S - keep:]
+
+
+def _run(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig, want_cache: bool = False,
+         pad_cache_to: int | None = None):
     """Embedding and every layer over ``tokens [B, S]``: ``(x, caches,
-    aux)``; with ``cache_len`` also the KV cache, padded (or cut to its last
-    slots) to that length.  ``aux`` sums the MoE layers' aux losses in
-    float32, in layer order."""
+    aux)``; with ``want_cache`` also the cache (:func:`_prefill_cache`).
+    ``aux`` sums the MoE layers' aux losses in float32, in layer order."""
     B, S = tokens.shape
     x = take_embedding(params.embed, tokens)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
     rope = rope_tables(positions, cfg.hd, cfg.rope_theta)  # once for every layer
     caches = None
-    if cache_len is not None:
-        caches = init_cache(cfg, B, cache_len, dtype=x.dtype, device=x.device)["groups"]
-        keep = min(S, cache_len)  # JAX keeps the last slots of a longer prefill
+    if want_cache:
+        caches = _prefill_cache(cfg, B, S, pad_cache_to, x.dtype, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for gi, key, r, layer in _layers(params, cfg):
-        if caches is None and torch.is_grad_enabled() and layer.attn.wq.requires_grad:
-            x, aux = _layer_train(layer, x, rope, cfg)
+    for gi, key, r, mixer, layer in _layers(params, cfg):
+        if caches is None and torch.is_grad_enabled() and layer.trainable():
+            x, aux = _layer_train(layer, mixer, x, rope, cfg)
         else:
-            x, k, v, aux = _layer_forward(layer, x, rope, cfg)
+            x, kept, aux = _layer_forward(layer, mixer, x, rope, cfg)
             if caches is not None:
-                caches[gi][key]["k"][r, :, :keep] = k[:, S - keep:]
-                caches[gi][key]["v"][r, :, :keep] = v[:, S - keep:]
+                _keep(caches[gi][key], r, mixer, kept, cfg)
+            del kept
         if aux is not None:
             aux_total = aux_total + aux
     return _norm(cfg, x, params.final_norm), caches, aux_total
@@ -336,7 +445,7 @@ def _run(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig, cache_len: int 
 def decoder_forward(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig):
     """Training forward: tokens ``[B, S]`` -> ``(logits [B, S, V] f32,
     {"aux_loss": the MoE layers' summed aux loss, 0 without them})``."""
-    x, _, aux = _run(params, tokens, cfg, None)
+    x, _, aux = _run(params, tokens, cfg)
     logits = (x @ params.unembedding(x.dtype)).float()
     return logits, {"aux_loss": aux}
 
@@ -344,11 +453,12 @@ def decoder_forward(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig):
 @torch.no_grad()
 def decoder_prefill(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig,
                     pad_cache_to: int | None = None):
-    """Prefill: ``(last-position logits [B, V] f32, cache)``; the cache's
-    time axis is ``S``, or ``pad_cache_to`` (zero-padded, or the last
-    ``pad_cache_to`` positions of a longer prompt)."""
+    """Prefill: ``(last-position logits [B, V] f32, cache)``; an ``attn``
+    layer's time axis is ``S`` and a ``local`` layer's ``min(window, S)``,
+    or either ``pad_cache_to`` (zero-padded, or the last ``pad_cache_to``
+    positions kept)."""
     B, S = tokens.shape
-    x, caches, _ = _run(params, tokens, cfg, S if pad_cache_to is None else pad_cache_to)
+    x, caches, _ = _run(params, tokens, cfg, want_cache=True, pad_cache_to=pad_cache_to)
     logits = (x[:, -1, :] @ params.unembedding(x.dtype)).float()
     pos = torch.full((B,), S, dtype=torch.int32, device=tokens.device)  # next token's index
     return logits, {"groups": caches, "pos": pos}
@@ -360,20 +470,15 @@ def decoder_prefill(params: Decoder, tokens: torch.Tensor, cfg: ArchConfig,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype: torch.dtype | None = None,
                device=None) -> dict:
-    """Zeroed serving cache: per group ``{"p{i}": {"k", "v"}}``, each
-    ``[R, batch, max_len, K, hd]`` in ``dtype`` (default the compute
-    dtype), and ``pos`` ``[batch]`` int32 zeros."""
+    """Zeroed serving cache: per group ``{"p{i}": entry}``, an ``attn``
+    layer's ``{"k", "v"}`` ``[R, batch, max_len, K, hd]`` and a ``local``
+    layer's ``[R, batch, min(window, max_len), K, hd]`` in ``dtype``
+    (default the compute dtype), an ``rglru`` layer's ``{"conv": [R, batch,
+    3, w], "state": [R, batch, w]}`` in float32 (JAX's
+    ``init_rglru_cache``); and ``pos`` ``[batch]`` int32 zeros."""
     check_supported(cfg)
-    dtype = dtype or Policy.compute_dtype
-    K, hd = cfg.n_kv_heads, cfg.hd
-    groups = []
-    for group in cfg.layer_groups():
-        shape = (group.repeat, batch, max_len, K, hd)
-        groups.append({
-            f"p{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for i in range(len(group.specs))
-        })
+    groups = _cache_groups(cfg, batch, lambda mixer: _kept_len(cfg, mixer, max_len),
+                           dtype or Policy.compute_dtype, CONV_WIDTH - 1, torch.float32, device)
     return {"groups": groups, "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
@@ -390,22 +495,42 @@ def _scatter_time(cache_kv: torch.Tensor, new_kv: torch.Tensor, rows: torch.Tens
 @torch.no_grad()
 def decoder_decode(params: Decoder, token: torch.Tensor, cache: dict, cfg: ArchConfig):
     """``serve_step``: one new token ``[B, 1]`` -> ``(logits [B, V] f32,
-    cache)``; the cache's keys and values are written in place and its
-    ``pos`` advanced (a new tensor)."""
+    cache)``; the cache's keys, values, conv inputs and states are written
+    in place and its ``pos`` advanced (a new tensor)."""
     B = token.shape[0]
     pos = cache["pos"]  # index of the new token
     x = take_embedding(params.embed, token)
     rope = rope_tables(pos[:, None], cfg.hd, cfg.rope_theta)
     rows = torch.arange(B, device=token.device)
     groups = cache["groups"]
-    keep = pos < groups[0]["p0"]["k"].shape[2]  # slots past the end are dropped
-    for gi, key, r, layer in _layers(params, cfg):
-        kc, vc = groups[gi][key]["k"][r], groups[gi][key]["v"][r]
-        q, k, v = _qkv(layer.attn, _norm(cfg, x, layer.norm1), rope, cfg)
-        _scatter_time(kc, k[:, 0], rows, pos, keep)
-        _scatter_time(vc, v[:, 0], rows, pos, keep)
-        o = kattn.decode_attention(q, kc, vc, pos)
-        x = x + _attn_out(layer.attn, o, cfg)
+    keep, ring = {}, {}  # by cache length: slots kept (attn); ring slot, last valid (local)
+    for gi, key, r, mixer, layer in _layers(params, cfg):
+        c = groups[gi][key]
+        h = _norm(cfg, x, layer.norm1)
+        if mixer == "rglru":
+            y, nc = rglru_block_decode(layer.rglru, h, {"conv": c["conv"][r],
+                                                        "state": c["state"][r]}, cfg)
+            c["conv"][r].copy_(nc["conv"])
+            c["state"][r].copy_(nc["state"])
+            x = x + y
+        else:
+            kc, vc = c["k"][r], c["v"][r]
+            T = kc.shape[1]
+            q, k, v = _qkv(layer.attn, h, rope, cfg)
+            if mixer == "local":  # a ring of T slots: JAX's w = cache["k"].shape[1]
+                if T not in ring:
+                    ring[T] = (pos % T, torch.clamp(pos, max=T - 1))
+                slot, last = ring[T]
+                kc[rows, slot] = k[:, 0].to(kc.dtype)
+                vc[rows, slot] = v[:, 0].to(vc.dtype)
+                o = kattn.decode_attention(q, kc, vc, last)
+            else:
+                if T not in keep:
+                    keep[T] = pos < T  # slots past the end are dropped
+                _scatter_time(kc, k[:, 0], rows, pos, keep[T])
+                _scatter_time(vc, v[:, 0], rows, pos, keep[T])
+                o = kattn.decode_attention(q, kc, vc, pos)
+            x = x + _attn_out(layer.attn, o, cfg)
         x, _ = _ffn_residual(layer, x, cfg, no_drop=True)
     x = _norm(cfg, x, params.final_norm)
     logits = (x[:, 0] @ params.unembedding(x.dtype)).float()

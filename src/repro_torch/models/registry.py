@@ -15,10 +15,13 @@ then builds the graph of training under grad mode).  Serving weights:
 and casts it once to the compute dtype, which is what the JAX package's
 ``_w`` casts at every use; they are frozen.  The ``attn`` layer stacks
 with ``dense`` and ``moe`` FFNs are ported (the dense and MoE families:
-deepseek-moe-16b, dbrx-132b); the encoder-decoder, SSM and hybrid
-families raise ``NotImplementedError``.  A MoE model serves (prefill,
-decode, the forward without grad) on the card; its forward under grad
-runs on the CPU only, as row 12 has no backward yet.
+deepseek-moe-16b, dbrx-132b), and the hybrid family's ``local`` and
+``rglru`` layers with dense FFNs (recurrentgemma-9b); the encoder-decoder
+and SSM families raise ``NotImplementedError``.  A MoE or hybrid model
+serves (prefill, decode, the forward without grad) on the card; its
+forward under grad runs on the CPU only, as rows 12, 13 and 14 have no
+backward yet (on the card they raise ``NotImplementedError``: ROADMAP
+queue 1, LM items 7 and 9).
 """
 
 from __future__ import annotations

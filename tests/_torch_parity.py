@@ -441,3 +441,36 @@ def moe_tie_mask(logits, k, rel=2.0 ** -7):
     s = np.sort(np.asarray(logits, np.float64), axis=-1)[..., ::-1]
     kth, nxt = s[..., k - 1], s[..., k]
     return (kth - nxt) <= rel * np.maximum(np.abs(kth), np.abs(nxt))
+
+
+# ---- the hybrid family: sliding-window attention (row 13), RG-LRU (row 14) ----
+
+def local_attention64(q, k, v, window):
+    """Float64 sliding-window attention (key ``j`` seen by query ``i`` iff
+    ``i - window < j <= i``) of ``q [B, S, K, G, D]`` over ``k``/``v [B, S,
+    K, D]``, one row ``b`` at a time: row 13's yardstick."""
+    B, S, K, G, D = q.shape
+    i = torch.arange(S, device=q.device)
+    delta = i[:, None] - i[None, :]
+    mask = (delta >= 0) & (delta < window)
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for b in range(B):
+        s = torch.einsum("qkgd,skd->kgqs", q[b].double(), k[b].double()) * D ** -0.5
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        out[b] = torch.einsum("kgqs,skd->qkgd", p, v[b].double())
+    return out
+
+
+def rglru_scan64(r, i, h, lam, init_state=None):
+    """Float64 RG-LRU recurrence walked in order from the same inputs
+    (``a_t = σ(Λ)^(8 r_t)``, ``y_t = a_t y_{t-1} + sqrt(max(1 - a_t², 1e-12))
+    i_t h_t``): ``(y [B, S, w], y[:, -1])``, row 14's yardstick."""
+    log_a0 = torch.nn.functional.logsigmoid(lam.double())
+    at = torch.exp(8.0 * r.double() * log_a0)
+    x = torch.sqrt(torch.clamp(1.0 - at * at, min=1e-12)) * i.double() * h.double()
+    y = torch.empty_like(x)
+    acc = (torch.zeros_like(x[:, 0]) if init_state is None else init_state.double())
+    for t in range(x.shape[1]):
+        acc = at[:, t] * acc + x[:, t]
+        y[:, t] = acc
+    return y, acc

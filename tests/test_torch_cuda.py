@@ -10,7 +10,10 @@ Tolerances: ray-cast, grid and BVH counts bit-identical (kernels and plain
 versions share one rounding contract, and the ray-cast kernel's tile
 classes are exact); rank counts equal on users with no near-tie
 competitor and within ±1 on the rest; the AdamW kernels (rows 10 and 11)
-bit-identical to their plain versions.  The adversarial ray-cast inputs
+bit-identical to their plain versions; rows 13 (sliding-window attention)
+and 14 (the RG-LRU recurrence) against float64 per output row within
+twice their plain versions' error plus one bf16 ulp of the row's scale,
+as rows 7-9 and 12.  The adversarial ray-cast inputs
 come from ``tests/_torch_parity.py``, which imports no JAX either.
 """
 
@@ -888,6 +891,30 @@ def test_decode_attention_kernel_matches_plain_on_card(cuda_device, G, D, pos_ki
     assert ok, errs
 
 
+@pytest.mark.parametrize("B,pos_kind", [(8, "clamped"), (8, "ragged_clamped"), (1, "clamped")])
+def test_decode_attention_kernel_hybrid_ring_on_card(cuda_device, B, pos_kind):
+    """recurrentgemma-9b's local-layer decode: D 256, G 16, K 1 over a
+    2,048-slot ring, positions past the ring clamped to its last slot as
+    the decoder clamps them (``min(pos, T - 1)``)."""
+    from repro_torch.kernels import attention as kattn
+    from _torch_parity import decode_attention64, kernel_within_yardstick
+
+    rng = np.random.default_rng(256 + B)
+    T, K, G, D = 2048, 1, 16, 256
+    q = _bf16(rng, (B, 1, K, G, D), cuda_device)
+    kc, vc = _bf16(rng, (B, T, K, D), cuda_device), _bf16(rng, (B, T, K, D), cuda_device)
+    pos = {"clamped": [4096] * B,
+           "ragged_clamped": [0, 1, 1023, 2046, 2047, 2048, 4095, 10000]}[pos_kind]
+    pos = torch.clamp(torch.tensor(pos, dtype=torch.int32, device=cuda_device), max=T - 1)
+    kattn.decode_launches = 0
+    got = kattn.decode_attention(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert kattn.decode_launches == 1 and got.shape == q.shape
+    plain = ref.decode_attention_ref(q, kc, vc, pos)
+    ok, *errs = kernel_within_yardstick(got, plain, decode_attention64(q, kc, vc, pos))
+    assert ok, errs
+
+
 def test_decode_attention_kernel_edge_positions_on_card(cuda_device):
     """``pos`` past the end reads every slot; ``pos < 0`` masks every slot,
     and JAX's softmax then averages them all: the kernel does both as the
@@ -1600,3 +1627,165 @@ def test_moe_decoder_on_card_matches_the_cpu_plain_path(cuda_device):
         flipped += int(apart.sum())
         total += apart.numel()
     assert flipped <= 0.1 * total, (flipped, total)
+
+
+# ---- the hybrid family: rows 13 (csrc/attention.cu, windowed) and 14 (csrc/rglru.cu) ----
+
+@pytest.mark.parametrize("B,S,K,G,D,window", [
+    (1, 1, 1, 1, 256, 4),
+    (2, 100, 1, 16, 256, 32),  # recurrentgemma's heads: 8 positions a block
+    (1, 300, 1, 16, 256, 64),  # S % window != 0
+    (1, 130, 1, 1, 256, 50),  # 128 positions a block: late rows miss the first tile
+    (1, 129, 1, 128, 32, 17),  # one position a block
+    (1, 257, 2, 7, 128, 64),  # the head dims the wgmma kernel takes unwindowed
+    (2, 200, 1, 4, 64, 48),
+    (1, 70, 2, 3, 256, 100),  # a window past the length: causal
+    (2, 96, 1, 4, 32, 64),  # get_reduced("recurrentgemma_9b")
+    (1, 4096, 1, 16, 256, 2048),  # lm_hybrid_serve's prefill, one row
+])
+def test_local_attention_kernel_matches_plain_and_float64_on_card(cuda_device, B, S, K, G, D,
+                                                                  window):
+    from repro_torch.kernels import attention as kattn
+    from _torch_parity import kernel_within_yardstick, local_attention64
+
+    rng = np.random.default_rng(S * 7 + G + D)
+    q, k, v = (_bf16(rng, (B, S, K, G, D), cuda_device), _bf16(rng, (B, S, K, D), cuda_device),
+               _bf16(rng, (B, S, K, D), cuda_device))
+    kattn.local_launches = kattn.flash_launches = 0
+    got = kattn.local_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert kattn.local_launches == 1 and kattn.flash_launches == 0
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    plain = ref.local_attention_ref(q, k, v, window)
+    ok, err_k, err_p, worst = kernel_within_yardstick(got, plain,
+                                                      local_attention64(q, k, v, window))
+    assert ok, (err_k, err_p, worst)
+
+
+def test_local_attention_kernel_refuses_bad_inputs_on_card(cuda_device):
+    from repro_torch.kernels import attention as kattn
+
+    rng = np.random.default_rng(12)
+    q = _bf16(rng, (1, 8, 1, 2, 256), cuda_device)
+    k, v = _bf16(rng, (1, 8, 1, 256), cuda_device), _bf16(rng, (1, 8, 1, 256), cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        kattn.local_attention(q.float(), k, v, window=4)
+    with pytest.raises(ValueError, match="windowed"):
+        kattn.local_attention(q[..., :192].contiguous(), k[..., :192].contiguous(),
+                              v[..., :192].contiguous(), window=4)
+    with pytest.raises(ValueError, match="length"):
+        kattn.local_attention(q, k[:, :6].contiguous(), v[:, :6].contiguous(), window=4)
+    with pytest.raises(ValueError, match="window"):
+        kattn.local_attention(q, k, v, window=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kattn.local_attention(q.requires_grad_(), k, v, window=4)
+    with pytest.raises(ValueError, match="multiple of 16"):  # row 7 still stops at 128
+        kattn.flash_attention(q.detach(), k, v)
+
+
+def _rglru_inputs(seed, B, S, w, h_dtype, dev):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)  # noqa: E731
+    h = torch.from_numpy(rng.standard_normal((B, S, w)).astype(np.float32)).to(dev, h_dtype)
+    lam = torch.from_numpy(rng.uniform(2.2, 6.9, w).astype(np.float32)).to(dev)
+    init = torch.from_numpy(rng.standard_normal((B, w)).astype(np.float32)).to(dev)
+    return f(B, S, w), f(B, S, w), h, lam, init
+
+
+@pytest.mark.parametrize("B,S,w,h_dtype,with_init", [
+    (1, 1, 1, torch.bfloat16, False),
+    (8, 1, 4096, torch.bfloat16, True),  # a decode step of lm_hybrid_serve
+    (2, 37, 130, torch.float32, True),  # w not a multiple of the block's 64
+    (3, 9, 128, torch.float32, False),  # S not a multiple of the 16-step unroll
+    (2, 300, 4096, torch.bfloat16, False),
+    (2, 4096, 4096, torch.bfloat16, True),  # lm_hybrid_serve's prefill, two rows
+])
+def test_rglru_kernel_matches_plain_and_float64_on_card(cuda_device, B, S, w, h_dtype,
+                                                        with_init):
+    from repro_torch.kernels import rglru as krglru
+    from _torch_parity import kernel_within_yardstick, rglru_scan64
+
+    r, i, h, lam, init = _rglru_inputs(S + w, B, S, w, h_dtype, cuda_device)
+    init = init if with_init else None
+    krglru.launches = 0
+    y, state = krglru.rglru_scan(r, i, h, lam, init)
+    torch.cuda.synchronize()
+    assert krglru.launches == 1 and y.dtype == state.dtype == torch.float32
+    assert torch.equal(state, y[:, -1])
+    py, pstate = ref.rglru_scan_ref(r, i, h, lam, init)
+    y64, _ = rglru_scan64(r, i, h, lam, init)
+    ok, err_k, err_p, worst = kernel_within_yardstick(y, py, y64)
+    assert ok, (err_k, err_p, worst)
+    # float32 rounding, not bf16: within 2^-16 of each row's scale from the
+    # plain version, which rounds a_t and every term as the kernel does (both
+    # lie further from float64: a_t's float32 rounding is carried through up
+    # to 1 / (1 - a_t) steps)
+    rows = (y - py).abs().amax(-1) / py.abs().amax(-1).clamp_min(1e-30)
+    assert float(rows.max()) < 2.0 ** -16, float(rows.max())
+
+
+def test_rglru_kernel_refuses_bad_inputs_on_card(cuda_device):
+    from repro_torch.kernels import rglru as krglru
+
+    r, i, h, lam, init = _rglru_inputs(3, 2, 5, 64, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        krglru.rglru_scan(r.to(torch.bfloat16), i, h, lam, init)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        krglru.rglru_scan(r, i, h.half(), lam, init)
+    with pytest.raises(ValueError, match="lam"):
+        krglru.rglru_scan(r, i, h, lam[:10], init)
+    with pytest.raises(ValueError, match="contiguous"):
+        krglru.rglru_scan(r.transpose(0, 1).contiguous().transpose(0, 1), i, h, lam, init)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        krglru.rglru_scan(r.requires_grad_(), i, h, lam, init)
+    krglru.launches = 0
+    ref.calls = 0
+    krglru.rglru_scan(r.detach().cpu(), i.cpu(), h.cpu(), lam.cpu(), init.cpu())
+    assert krglru.launches == 0 and ref.calls == 1
+
+
+def test_hybrid_decoder_on_card_matches_the_cpu_plain_path(cuda_device):
+    """A reduced recurrentgemma-9b (rglru, rglru, local, rglru; window 64)
+    at bf16: the forward, a prefill of 96 tokens (past the window, so the
+    ring is JAX's ragged one) and 4 decode steps on the card through rows
+    13, 14 and 8 against the same weights on the CPU (the plain versions),
+    within 0.05 of the scale (the dense families' bf16 rule); 1 row-13 and
+    3 row-14 launches a prefill, 1 row-8 and 3 row-14 a step, no plain
+    call."""
+    import copy
+
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.kernels import rglru as krglru
+    from repro_torch.models.registry import build_model
+
+    cfg = get_reduced("recurrentgemma_9b")
+    params_cpu = build_model(cfg, device=CPU).init(torch.Generator().manual_seed(6),
+                                                   dtype=torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(0, cfg.vocab, (3, 100)))
+
+    def run(dev):
+        model = build_model(cfg, device=dev)
+        params = copy.deepcopy(params_cpu).to(dev)
+        out, counted = {}, []
+        out["forward"] = model.forward(params, tokens.to(dev), {})[0]
+        kattn.local_launches = kattn.decode_launches = krglru.launches = ref.calls = 0
+        out["prefill"], cache = model.prefill(params, tokens[:, :96].to(dev), {})
+        counted.append((kattn.local_launches, kattn.decode_launches, krglru.launches))
+        for s in range(4):
+            kattn.local_launches = kattn.decode_launches = krglru.launches = 0
+            out[f"decode{s}"], cache = model.decode(params, tokens[:, 96 + s:97 + s].to(dev),
+                                                    cache)
+            counted.append((kattn.local_launches, kattn.decode_launches, krglru.launches))
+        return {key: v.float().cpu() for key, v in out.items()}, counted, ref.calls
+
+    with torch.no_grad():
+        card, card_counted, card_plain = run(cuda_device)
+        cpu, _, _ = run(CPU)
+    assert card_counted == [(1, 0, 3)] + [(0, 1, 3)] * 4 and card_plain == 0
+    scale = float(cpu["forward"].abs().max())
+    for key, got in card.items():
+        assert bool(torch.isfinite(got).all()), key
+        err = float((got - cpu[key]).abs().max()) / scale
+        assert err < 0.05, (key, err)

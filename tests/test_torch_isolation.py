@@ -62,5 +62,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference_package():
             "repro_torch.runtime.elastic", "repro_torch.runtime.driver",
             "repro_torch.launch.train", "repro_torch.optim.adamw8bit",
             "repro_torch.kernels.adamw", "repro_torch.kernels.moe",
-            "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.dbrx_132b"} <= set(report["modules"])
+            "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.dbrx_132b",
+            "repro_torch.models.rglru", "repro_torch.kernels.rglru",
+            "repro_torch.configs.recurrentgemma_9b"} <= set(report["modules"])
     assert report["leaked"] == []

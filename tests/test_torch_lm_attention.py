@@ -136,7 +136,9 @@ def test_kernel_calls_refuse_cpu_tensors():
 def test_backend_ref_and_unported_attention():
     """The model's attention is the kernels' wrappers (on the CPU, the
     plain versions bit for bit; ``flash_attention_fused``'s forward too);
-    the unported functions raise."""
+    ``local_attention`` (ported with the hybrid family) is row 13's
+    wrapper, on the CPU its plain version, within float32 rounding of
+    JAX's."""
     arrays = [torch.from_numpy(a) for a in _qkv(6, 1, 8, 1, 2, 16)]
     assert tattn.flash_attention is kattn.flash_attention
     assert tattn.decode_attention is kattn.decode_attention
@@ -144,8 +146,11 @@ def test_backend_ref_and_unported_attention():
                                tattn.flash_attention(*arrays), rtol=0, atol=0)
     torch.testing.assert_close(ref.flash_attention_ref(*arrays),
                                tattn.flash_attention_fused(*arrays), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.local_attention(*arrays, window=4)
+    assert tattn.local_attention is kattn.local_attention
+    local = tattn.local_attention(*arrays, window=4)
+    torch.testing.assert_close(ref.local_attention_ref(*arrays, 4), local, rtol=0, atol=0)
+    want = jattn.local_attention(*(jnp.asarray(a.numpy()) for a in arrays), window=4)
+    np.testing.assert_allclose(local.numpy(), np.asarray(want), rtol=0, atol=F32_ATOL)
 
 
 def test_yardstick_holds_each_row_to_its_own_scale():

@@ -33,7 +33,15 @@ Tolerances:
   port's bf16 run departs from it at 3 of dbrx's), so each token (and
   cache slot) is held within 0.05 of the scale of JAX's bf16 where JAX's
   bf16 stays within 0.05 of JAX's float32, and within 0.05 of one of
-  JAX's two runs everywhere.
+  JAX's two runs everywhere;
+* the hybrid family (recurrentgemma-9b: rglru and local layers, whose
+  cache entries are ``conv``/``state`` and a ``k``/``v`` ring) under the
+  dense families' rules; its RG-LRU recurrence rounds apart from JAX's by
+  float32 ulps (XLA's ``exp``, ``sqrt`` and fused multiply-adds), measured
+  about 3e-6 of the scale in float32 and 0.021 in bf16.
+  ``ArchConfig.param_count`` counts the hybrid's block-diagonal gates as
+  ``w x w`` (ROADMAP queue 3), so its init is held against JAX's tree leaf
+  by leaf instead.
 """
 
 import dataclasses
@@ -64,6 +72,7 @@ from repro_torch.steps.train import make_decode_step, make_prefill_step
 
 DENSE_ARCHS = ("chameleon_34b", "llama3_405b", "nemotron4_15b", "qwen2_7b", "starcoder2_3b")
 MOE_ARCHS = ("deepseek_moe_16b", "dbrx_132b")
+HYBRID_ARCHS = ("recurrentgemma_9b",)
 B, S, N_DECODE = 2, 32, 4
 F32_REL = 1e-4
 BF16_REL = 0.05
@@ -225,8 +234,9 @@ def _cache_leaves(cache, cfg):
            else np.asarray(cache["pos"])}
     for gi, group in enumerate(cfg.layer_groups()):
         for i in range(len(group.specs)):
-            for name in ("k", "v"):
-                leaf = cache["groups"][gi][f"p{i}"][name]
+            entry = cache["groups"][gi][f"p{i}"]
+            for name in sorted(entry):  # k, v; or an rglru layer's conv, state
+                leaf = entry[name]
                 out[f"{gi}/p{i}/{name}"] = _np(leaf.clone() if isinstance(leaf, torch.Tensor)
                                                else leaf)
     return out
@@ -282,14 +292,14 @@ def _compare(arch, rel):
     return errs
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS + HYBRID_ARCHS)
 def test_decoder_matches_jax_in_float32(arch, monkeypatch):
     monkeypatch.setattr(jcommon.Policy, "compute_dtype", jnp.float32)
     monkeypatch.setattr(tcommon.Policy, "compute_dtype", torch.float32)
     _compare(arch, F32_REL)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + HYBRID_ARCHS)
 def test_decoder_matches_jax_in_bf16(arch):
     _compare(arch, BF16_REL)
 
@@ -331,7 +341,7 @@ def test_moe_decoder_matches_jax_in_bf16_off_routing_flips(arch, monkeypatch):
     assert flipped <= 0.1 * B * (S + N_DECODE + 2), flipped
 
 
-@pytest.mark.parametrize("arch", ["qwen2_7b", "starcoder2_3b", *MOE_ARCHS])
+@pytest.mark.parametrize("arch", ["qwen2_7b", "starcoder2_3b", *MOE_ARCHS, *HYBRID_ARCHS])
 def test_port_prefill_and_decode_agree_with_its_forward(arch):
     """``tests/test_models.py``'s cache check on the port alone (MoE
     drop-free: ``capacity_factor = n_experts``, the JAX test's rule)."""
@@ -401,7 +411,41 @@ def test_moe_model_init_matches_param_count(arch):
     assert sum(a.size for a in jax.tree.leaves(jtree)) == cfg.param_count()
 
 
-@pytest.mark.parametrize("arch", ["mamba2_130m", "recurrentgemma_9b", "whisper_medium"])
+@pytest.mark.parametrize("arch", HYBRID_ARCHS)
+def test_hybrid_model_init_matches_the_jax_tree_leaf_by_leaf(arch):
+    """``init`` draws every leaf of JAX's tree under its name and shape
+    (the gates ``[nb, w/nb, w/nb]``), in float32 or cast once to bf16;
+    ``param_count`` over-counts them as ``w x w`` in both packages alike
+    (ROADMAP queue 3), so the sum is held against JAX's tree, not it."""
+    from repro_torch.models.convert import to_jax_layout
+
+    cfg = treg.get_reduced(arch)
+    model = build_model(cfg, device="cpu")
+    p32 = model.init(3)
+    pbf = model.init(torch.Generator().manual_seed(3), dtype=torch.bfloat16)
+    for a, b in zip(p32.parameters(), pbf.parameters()):
+        assert torch.equal(a.to(torch.bfloat16), b)
+    jtree = jax.tree.map(np.asarray, jbuild(jreg.get_reduced(arch)).init(jax.random.PRNGKey(0)))
+    ttree = to_jax_layout(p32, cfg)
+    jflat = jax.tree_util.tree_flatten_with_path(jtree)[0]
+    tflat = jax.tree_util.tree_flatten_with_path(ttree)[0]
+    assert [(jax.tree_util.keystr(k), v.shape) for k, v in jflat] == \
+        [(jax.tree_util.keystr(k), v.shape) for k, v in tflat]
+    n = sum(t.numel() for t in p32.parameters())
+    assert n == sum(a.size for a in jax.tree.leaves(jtree)) < cfg.param_count()
+    for gi, group in enumerate(cfg.layer_groups()):
+        for i, spec in enumerate(group.specs):
+            for layer in p32.groups[gi][f"p{i}"]:
+                assert (layer.rglru is not None) == (spec.mixer == "rglru")
+                assert (layer.attn is None) == (spec.mixer == "rglru")
+    cache = model.init_cache(2, 10)
+    local = [e for g in cache["groups"] for e in g.values() if "k" in e]
+    assert local and all(e["k"].shape[2] == min(cfg.hybrid.window, 10) for e in local)
+    conv = [e["conv"] for g in cache["groups"] for e in g.values() if "conv" in e]
+    assert conv and all(c.dtype == torch.float32 and c.shape[2] == 3 for c in conv)
+
+
+@pytest.mark.parametrize("arch", ["mamba2_130m", "whisper_medium"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(treg.get_reduced(arch), device="cpu")
